@@ -1,0 +1,164 @@
+"""Shared building blocks (port of pdgn_tpu/models/layers.py:91-301,
+438-557), channel-last like the JAX package.
+
+Parameters keep the reference torch layouts and names (``weight`` as
+``(out, in, *trailing)``, BatchNorm's ``weight/bias/running_mean/
+running_var/num_batches_tracked``), so a reference ``state_dict`` loads
+directly; the forward computes in the JAX package's ``(in, out)`` form.
+
+BatchNorm follows the reference's quirk that the generator is never put in
+eval mode: it ALWAYS normalises with the current batch's statistics.
+``training`` decides only whether the running averages move (eps 1e-5,
+momentum 0.1, biased batch variance, as the JAX ``_BNStatsVars``); this is
+why the port does not use ``nn.BatchNorm1d``, whose running variance takes
+the unbiased estimate.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
+    """torch-default LeakyReLU (slope 0.01)."""
+    return torch.nn.functional.leaky_relu(x, negative_slope)
+
+
+class TorchDense(nn.Module):
+    """``nn.Linear``-compatible dense layer over the last axis.
+
+    ``trailing`` gives the weight's extra unit axes so the same layer holds
+    a ``Conv1d`` (``(1,)``) or 1x1 ``Conv2d`` (``(1, 1)``) weight under the
+    reference's name. torch default init: ``U(-1/sqrt(fan_in), ...)`` for
+    weight and bias (kaiming-uniform with a=sqrt(5)).
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 trailing: Tuple[int, ...] = ()):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = nn.Parameter(
+            torch.empty(out_features, in_features, *trailing))
+        self.bias = nn.Parameter(torch.empty(out_features))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        bound = 1.0 / math.sqrt(self.in_features)
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            self.bias.uniform_(-bound, bound, generator=generator)
+
+    @property
+    def kernel(self) -> torch.Tensor:
+        """The JAX-layout ``(in, out)`` kernel."""
+        return self.weight.reshape(self.out_features, self.in_features).T
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.kernel) + self.bias
+
+
+class BatchNorm(nn.Module):
+    """Torch-semantics batch norm over all axes but the last, always on
+    batch statistics (see the module docstring)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.num_features = num_features
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+            self.num_batches_tracked.zero_()
+
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor,
+                       perm: Optional[torch.Tensor] = None) -> None:
+        """Fold one batch's (mean, biased var) into the running averages
+        when training. ``perm`` maps the statistics' channel order to the
+        stored (reference) order: ``stored[perm[p]] <- stat[p]``."""
+        if not self.training:
+            return
+        m = 1.0 - self.momentum
+        with torch.no_grad():
+            if perm is None:
+                self.running_mean.copy_(m * self.running_mean
+                                        + self.momentum * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + self.momentum * var)
+            else:
+                self.running_mean[perm] = (m * self.running_mean[perm]
+                                           + self.momentum * mean)
+                self.running_var[perm] = (m * self.running_var[perm]
+                                          + self.momentum * var)
+            self.num_batches_tracked += 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axes = tuple(range(x.dim() - 1))
+        n = 1
+        for a in axes:
+            n *= x.shape[a]
+        mean = torch.sum(x, dim=axes) / n
+        mean2 = torch.sum(x * x, dim=axes) / n
+        # clamp at 0: the E[x^2] - E[x]^2 form can go slightly negative
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        self.update_running(mean.detach(), var.detach())
+        s = self.weight * torch.rsqrt(var + self.eps)
+        return x * s + (self.bias - mean * s)
+
+
+class BatchNormFold(BatchNorm):
+    """A :class:`BatchNorm` whose statistics are computed elsewhere (a
+    kernel's sums, the linear second-moment identity). ``fold`` updates the
+    running averages and returns ``(mean, var, scale, bias)`` for the
+    caller to fold into its own pass; ``perm`` selects the channel order of
+    the statistics (the window conv's block order)."""
+
+    def fold(self, mean: torch.Tensor, var: torch.Tensor,
+             perm: Optional[torch.Tensor] = None):
+        self.update_running(mean.detach(), var.detach(), perm)
+        if perm is None:
+            return mean, var, self.weight, self.bias
+        return mean, var, self.weight[perm], self.bias[perm]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        raise TypeError("BatchNormFold takes precomputed statistics: "
+                        "call fold(mean, var)")
+
+
+class MLP(nn.Sequential):
+    """Dense layers with LeakyReLU between, no BN (the reference coordinate
+    heads ``mlp1..4``: Conv1d(1x1) + LeakyReLU pairs, then a final Conv1d).
+    Weights sit at indices 0, 2, 4, ... as in the reference Sequential."""
+
+    def __init__(self, in_features: int, features: Sequence[int],
+                 trailing: Tuple[int, ...] = (1,)):
+        layers = []
+        fin = in_features
+        for i, f in enumerate(features):
+            if i:
+                layers.append(nn.LeakyReLU(0.01))
+            layers.append(TorchDense(fin, f, trailing))
+            fin = f
+        super().__init__(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dense = [m for m in self if isinstance(m, TorchDense)]
+        for d in dense[:-1]:
+            x = leaky_relu(d(x))
+        return dense[-1](x)

@@ -1,9 +1,11 @@
 """Command-line interface of the PyTorch/CUDA port (the flags of
 pdgn_tpu/cli.py, plus ``--device``).
 
-Only ``--phase sample`` (bulk generation) is ported; ``train`` and ``test``
-exit with status 2 and say so. Run as::
+``--phase train`` (synthetic data only) and ``--phase sample`` (bulk
+generation) are ported; ``test`` exits with status 2 and says so. Run as::
 
+    python -m pdgn_tpu_torch.cli --network PDGNet_v2 --model_dir run1 \\
+        --phase train --dataset synthetic --max_epoch 1 --batch_size 35
     python -m pdgn_tpu_torch.cli --network PDGNet_v2 --model_dir run1 \\
         --phase sample --num_samples 256 --batch_size 128
 
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import random
 import sys
 
 
@@ -23,7 +26,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         description="PDGN: progressive point-cloud GAN (PyTorch/CUDA port)")
     parser.add_argument('--phase', type=str, default='train',
                         help='train, test, or sample (bulk generation); '
-                             'only sample is ported')
+                             'train and sample are ported')
     parser.add_argument('--num_samples', type=int, default=128,
                         help='clouds to generate in --phase sample')
     parser.add_argument('--workers', type=int, default=4,
@@ -54,7 +57,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                              '<checkpoint_dir>/<model_dir>/<network>')
     parser.add_argument('--pretrain_model_D', default=None)
     parser.add_argument('--softmax', default='True')
-    parser.add_argument('--dataset', default='shapenet15k')
+    parser.add_argument('--dataset', default='shapenet15k',
+                        help='only synthetic is ported')
     parser.add_argument('--normalize', type=str, default='shape_bbox',
                         choices=[None, 'shape_unit', 'shape_bbox'])
     parser.add_argument('--seed', type=int, default=9999)
@@ -90,9 +94,43 @@ def check_args(args: argparse.Namespace) -> argparse.Namespace:
     return args
 
 
+def train(args: argparse.Namespace) -> None:
+    """The train phase: a random seed per run, as the reference (main.py:
+    79-82) and the JAX CLI; the trainer draws its weights' and noise's seeds
+    from numpy's stream."""
+    import numpy as np
+
+    from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
+
+    manual_seed = random.randint(1, 10000)
+    print("Random Seed: ", manual_seed)
+    random.seed(manual_seed)
+    np.random.seed(manual_seed)
+    cfg = ExperimentConfig(
+        network=args.network, batch_size=args.batch_size,
+        num_point=args.num_point, num_k=args.num_k,
+        learning_rate=args.learning_rate, max_epoch=args.max_epoch,
+        noise_dim=args.noise_dim, log_info=args.log_info,
+        model_dir=args.model_dir, checkpoint_dir=args.checkpoint_dir,
+        snapshot=args.snapshot, choice=args.choice,
+        pretrain_model_G=args.pretrain_model_G,
+        pretrain_model_D=args.pretrain_model_D,
+        softmax=(args.softmax == 'True'), dataset=args.dataset,
+        synthetic_size=args.synthetic_size,
+        max_steps_per_epoch=args.max_steps_per_epoch,
+        base_points=args.base_points, device=args.device)
+    trainer = PDGNTrainer(cfg)
+    trainer.build_model()
+    trainer.train()
+    print(" [*] Training finished!")
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     print(f'****************network: {args.network}****************')
+    if args.phase == 'train':
+        train(args)
+        return
     if args.phase != 'sample':
         print(f" [!] phase '{args.phase}' is not yet ported to "
               "pdgn_tpu_torch; use pdgn_tpu (main.py) for it.")

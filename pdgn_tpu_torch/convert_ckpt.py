@@ -1,11 +1,13 @@
 """Weights between the JAX package's flax trees and the port's
-``state_dict`` (port of pdgn_tpu/convert_ckpt.py:47-133, generator side).
+``state_dict`` (port of pdgn_tpu/convert_ckpt.py:47-157).
 
 The port's parameter names and layouts ARE the reference torch ones, so a
-reference ``.pth`` needs no conversion. :func:`generator_state_from_jax`
-goes the other way round from ``pdgn_tpu.convert_ckpt.convert_generator``:
-flax ``params``/``batch_stats`` (as numpy) -> a ``state_dict``, including
-the un-permutation of the window conv's block-ordered batch norm.
+reference ``.pth`` needs no conversion. :func:`generator_state_from_jax` and
+:func:`discriminator_state_from_jax` go the other way round from
+``pdgn_tpu.convert_ckpt.convert_generator``/``convert_discriminator``: flax
+``params``/``batch_stats`` (as numpy) -> a ``state_dict``, including the
+un-permutation of the window conv's block-ordered batch norm. Any tree shaped
+like ``params`` converts the same way (an Adam moment, for instance).
 
 This module keeps its own copy of the rules: the port imports nothing of
 the JAX package.
@@ -72,6 +74,23 @@ def generator_rules() -> List[Tuple[str, str, str]]:
     return rules
 
 
+def discriminator_rules(num_conv: int, num_linear: int
+                        ) -> List[Tuple[str, str, str]]:
+    """Rules for one discriminator with ``num_conv`` point convs and
+    ``num_linear`` head layers (the reference's ``fc1`` Sequential: Conv1d
+    at 0, 3, 6, ..., BN at 1, 4, 7, ...; ``mlp``: Linear at 0, 2, 4, ...;
+    flax ``conv{n}`` blocks and ``fc{j}``/``fc_out``)."""
+    rules: List[Tuple[str, str, str]] = []
+    for n in range(num_conv):
+        rules.append((f"fc1.{3 * n}", "conv1d",
+                      f"conv{n + 1}.TorchDense_0.dense"))
+        rules.append((f"fc1.{3 * n + 1}", "bn", f"conv{n + 1}.BatchNorm_0.bn"))
+    names = [f"fc{j}" for j in range(1, num_linear)] + ["fc_out"]
+    for j, name in enumerate(names):
+        rules.append((f"mlp.{2 * j}", "linear", f"{name}.dense"))
+    return rules
+
+
 # flax kernel -> torch weight (inverses of convert_ckpt._WEIGHT_T)
 def _w_linear(k):
     return k.T
@@ -111,13 +130,10 @@ def _unblock(v):
     return out
 
 
-def generator_state_from_jax(params: Dict, batch_stats: Dict,
-                             num_k: int = 20) -> Dict[str, torch.Tensor]:
-    """Flax generator ``params``/``batch_stats`` -> the port's
-    ``state_dict`` (``num_batches_tracked`` set to 0)."""
-    k = num_k // 2
+def _state_from_jax(rules, params: Dict, batch_stats: Dict,
+                    two_k: int = 0) -> Dict[str, torch.Tensor]:
     sd: Dict[str, np.ndarray] = {}
-    for prefix, kind, fp in generator_rules():
+    for prefix, kind, fp in rules:
         if kind in ("bn", "bn_block"):
             t = _unblock if kind == "bn_block" else (lambda v: v)
             sd[f"{prefix}.weight"] = t(_get(params, f"{fp}.scale"))
@@ -128,7 +144,7 @@ def generator_state_from_jax(params: Dict, batch_stats: Dict,
             continue
         kernel = _get(params, f"{fp}.kernel")
         if kind == "merge":
-            w = _w_merge(kernel, 2 * k)
+            w = _w_merge(kernel, two_k)
         else:
             w = {"linear": _w_linear, "conv1d": _w_conv1d,
                  "conv1x1": _w_conv1x1, "window": _w_window}[kind](kernel)
@@ -136,3 +152,21 @@ def generator_state_from_jax(params: Dict, batch_stats: Dict,
         sd[f"{prefix}.bias"] = _get(params, f"{fp}.bias")
     return {name: torch.from_numpy(np.array(v, copy=True))
             for name, v in sd.items()}
+
+
+def generator_state_from_jax(params: Dict, batch_stats: Dict,
+                             num_k: int = 20) -> Dict[str, torch.Tensor]:
+    """Flax generator ``params``/``batch_stats`` -> the port's
+    ``state_dict`` (``num_batches_tracked`` set to 0)."""
+    return _state_from_jax(generator_rules(), params, batch_stats,
+                           2 * (num_k // 2))
+
+
+def discriminator_state_from_jax(params: Dict, batch_stats: Dict
+                                 ) -> Dict[str, torch.Tensor]:
+    """Flax discriminator ``params``/``batch_stats`` -> the port's
+    ``state_dict`` (``num_batches_tracked`` set to 0)."""
+    num_conv = sum(1 for name in params if name.startswith("conv"))
+    num_linear = len(params) - num_conv
+    return _state_from_jax(discriminator_rules(num_conv, num_linear), params,
+                           batch_stats)

@@ -12,7 +12,7 @@
 // reads, far above the fp32 balance point.
 //
 // The simple design, two launches:
-//   1. gate_kernel (or plain_gate_kernel) writes the gate tensor g
+//   1. gate_kernel (or plain_gate_kernel, tail_gate.cuh) writes the gate g
 //      (B, N, k/2 * 4Fin) in block channel layout. A thread owns one
 //      (point, conv_all2 channel), runs the 64-wide conv_all2 dot for all k
 //      slots from shared memory, applies the folded BN and LeakyReLU, the
@@ -20,108 +20,7 @@
 //   2. gemm_kernel computes y = (partial + g @ wi) + bias.
 // Unlike the TPU kernel, g round-trips through device memory; removing that
 // round trip is the first item of the tail's redesign.
-#include "common.cuh"
-
-#include <math.h>
-
-namespace {
-
-constexpr int kHid = 64;      // conv_all2 input width
-constexpr int kTC = 64;       // conv_all2 output channels per block
-constexpr int kSubP = 4;      // points per shared-memory sub-tile
-constexpr int kBlockP = 32;   // points per block
-constexpr int kMaxK = 16;
-
-__global__ void __launch_bounds__(256)
-gate_kernel(const float* __restrict__ inte, const float* __restrict__ h,
-            const float* __restrict__ isc, const float* __restrict__ ish,
-            const float* __restrict__ w2k, const float* __restrict__ w2b,
-            const float* __restrict__ s2, const float* __restrict__ t2,
-            int rows, int k, int two_fin, int softmax, float* __restrict__ g) {
-  __shared__ float sw[kHid][kTC];
-  __shared__ float shh[kSubP][kMaxK * kHid];
-
-  const int tid = threadIdx.x;
-  const int cl = tid % kTC;
-  const int pl = tid / kTC;
-  const int c0 = blockIdx.x * kTC;
-  const int c = c0 + cl;
-  const int hk = k / 2;
-  const int four_fin = 2 * two_fin;
-
-  for (int e = tid; e < kHid * kTC; e += 256) {
-    int hh = e / kTC, cc = e % kTC;
-    sw[hh][cc] = (c0 + cc < two_fin) ? w2k[(size_t)hh * two_fin + c0 + cc] : 0.f;
-  }
-  const bool live_c = c < two_fin;
-  const float bias = live_c ? w2b[c] : 0.f;
-  const float sc = live_c ? s2[c] : 0.f;
-  const float sh = live_c ? t2[c] : 0.f;
-
-  const int p_begin = blockIdx.y * kBlockP;
-  const int p_end = min(rows, p_begin + kBlockP);
-  const int width = k * kHid;
-  for (int p0 = p_begin; p0 < p_end; p0 += kSubP) {
-    __syncthreads();
-    for (int e = tid; e < kSubP * width; e += 256) {
-      int pp = e / width, rem = e % width;
-      shh[pp][rem] = (p0 + pp < p_end) ? h[(size_t)(p0 + pp) * width + rem] : 0.f;
-    }
-    __syncthreads();
-    const int p = p0 + pl;
-    if (p >= p_end || !live_c) continue;
-
-    float u[kMaxK];
-#pragma unroll
-    for (int s = 0; s < kMaxK; ++s) {
-      if (s < k) {
-        float a = 0.f;
-#pragma unroll 16
-        for (int hh = 0; hh < kHid; ++hh)
-          a = fmaf(shh[pl][s * kHid + hh], sw[hh][cl], a);
-        u[s] = leaky((a + bias) * sc + sh);
-      }
-    }
-    if (softmax) {
-      float m = u[0];
-#pragma unroll
-      for (int s = 1; s < kMaxK; ++s)
-        if (s < k) m = fmaxf(m, u[s]);
-      float z = 0.f;
-#pragma unroll
-      for (int s = 0; s < kMaxK; ++s)
-        if (s < k) {
-          u[s] = expf(u[s] - m);
-          z += u[s];
-        }
-#pragma unroll
-      for (int s = 0; s < kMaxK; ++s)
-        if (s < k) u[s] = u[s] / z;
-    }
-    const size_t base = (size_t)p * hk * four_fin;
-#pragma unroll
-    for (int s = 0; s < kMaxK; ++s) {
-      if (s < k) {
-        int ch = (s % 2) * two_fin + c;           // block channel in 4Fin
-        size_t o = base + (size_t)(s / 2) * four_fin + ch;
-        g[o] = leaky(inte[o] * isc[ch] + ish[ch]) * u[s];
-      }
-    }
-  }
-}
-
-__global__ void plain_gate_kernel(const float* __restrict__ inte,
-                                  const float* __restrict__ isc,
-                                  const float* __restrict__ ish,
-                                  long long total, int four_fin,
-                                  float* __restrict__ g) {
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  int ch = (int)(e % four_fin);
-  g[e] = leaky(inte[e] * isc[ch] + ish[ch]);
-}
-
-}  // namespace
+#include "tail_gate.cuh"
 
 extern "C" {
 
@@ -133,20 +32,10 @@ int pdgn_bilateral_tail(const float* partial, const float* inte,
                         const float* t2, const float* wi, const float* bias,
                         int rows, int k, int two_fin, int two_f, int softmax,
                         float* g, float* y, cudaStream_t stream) {
-  const int hk = k / 2;
-  const int four_fin = 2 * two_fin;
-  const int K = hk * four_fin;
-  if (h != nullptr) {
-    if (k > kMaxK) return (int)cudaErrorInvalidValue;
-    dim3 grid((two_fin + kTC - 1) / kTC, (rows + kBlockP - 1) / kBlockP);
-    gate_kernel<<<grid, 256, 0, stream>>>(inte, h, isc, ish, w2k, w2b, s2, t2,
-                                          rows, k, two_fin, softmax, g);
-  } else {
-    long long total = (long long)rows * K;
-    plain_gate_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        inte, isc, ish, total, four_fin, g);
-  }
-  PDGN_CHECK_LAUNCH();
+  const int K = (k / 2) * 2 * two_fin;
+  cudaError_t err = launch_gate(inte, h, isc, ish, w2k, w2b, s2, t2, rows, k,
+                                two_fin, softmax, g, stream);
+  if (err != cudaSuccess) return (int)err;
   PlainA a{g, K};
   Epilogue epi{y, bias, partial, 0, two_f};
   gemm(a, wi, rows, K, two_f, epi, nullptr, stream);

@@ -1,5 +1,5 @@
-"""Shared building blocks (port of pdgn_tpu/models/layers.py:91-301,
-438-557), channel-last like the JAX package.
+"""Shared building blocks (port of pdgn_tpu/models/layers.py:91-557),
+channel-last like the JAX package.
 
 Parameters keep the reference torch layouts and names (``weight`` as
 ``(out, in, *trailing)``, BatchNorm's ``weight/bias/running_mean/
@@ -162,3 +162,20 @@ class MLP(nn.Sequential):
         for d in dense[:-1]:
             x = leaky_relu(d(x))
         return dense[-1](x)
+
+
+def dense_br(dense: TorchDense, bn: BatchNorm, x: torch.Tensor,
+             negative_slope: float = 0.01) -> torch.Tensor:
+    """Dense + BN + LeakyReLU (port of ``DenseBR``, the reference
+    ``conv1dbr``): the JAX block's linear second-moment statistics are the
+    same batch statistics, taken here over ``y`` itself."""
+    return leaky_relu(bn(dense(x)), negative_slope)
+
+
+def dense_br_pool(dense: TorchDense, bn: BatchNorm, x: torch.Tensor,
+                  negative_slope: float = 0.01) -> torch.Tensor:
+    """:func:`dense_br` + max over the point axis: ``(B, N, C) -> (B, F)``
+    (port of ``DenseBRPool``, which reduces the GEMM output before the
+    monotone BN affine and LeakyReLU: the same function, the same winning
+    element)."""
+    return torch.amax(dense_br(dense, bn, x, negative_slope), dim=-2)

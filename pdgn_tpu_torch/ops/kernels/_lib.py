@@ -44,6 +44,11 @@ _SIGNATURES = {
     "pdgn_slot_stats": [_P, _L, _P, _P, _P],
     "pdgn_bilateral_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _P, _P, _P],
+    "pdgn_edge_head_bwd": [_P, _P, _P] + [_I] * 6 + [_P] * 10 + [_P] * 14
+                          + [_P],
+    "pdgn_bilateral_tail_bwd": [_P] * 11 + [_I] * 5 + [_P] * 11 + [_P],
+    "pdgn_local_stats_fwd": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "pdgn_local_stats_bwd": [_P] * 5 + [_I] * 4 + [_P] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -131,6 +136,9 @@ def library() -> ctypes.CDLL:
 # a grid's y dimension holds at most 65535 blocks: the GEMMs put 64-row
 # tiles there, the gate kernel 32-point tiles
 MAX_GRID_Y = 65535
+# rows per split of the transposed (weight-gradient) GEMMs: kSplitRows in
+# csrc/common.cuh; their scratch holds one (Kd, Nout) partial per split
+TN_SPLIT_ROWS = 4096
 
 
 def check_rows(rows: int, per_block: int, name: str) -> None:

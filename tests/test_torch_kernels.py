@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_util import head_inputs as _head_inputs
 from torch_port_util import rel, t
+from torch_port_util import tail_inputs as _tail_inputs
 
 from pdgn_tpu.ops.edges import exact_knn_scope
 from pdgn_tpu.ops.pallas.bilateral_tail import edge_conv_tail as jax_tail
@@ -24,23 +26,6 @@ from pdgn_tpu_torch.ops.kernels.edge_head import edge_conv_head
 from pdgn_tpu_torch.ops.kernels.slot_stats import slot_moment_stats
 
 TOL = 1e-5
-
-
-def _head_inputs(seed, B=2, N=48, C=16, cx=0, k=6, two_f=12):
-    rng = np.random.RandomState(seed)
-    cf = C + cx
-    window = k // 2 + 1
-    four_fin = 4 * cf
-    f = np.float32
-    return dict(
-        x=(rng.randn(B, N, C) * 0.5).astype(f),
-        xs=(rng.randn(B, cx) * 0.5).astype(f) if cx else None,
-        conv_kernel=(rng.randn(1, window, 2 * cf, four_fin) * 0.1).astype(f),
-        conv_bias=(rng.randn(four_fin) * 0.1).astype(f),
-        merge_kernel=(rng.randn(2 * k * 2 * cf, two_f) * 0.05).astype(f),
-        pcat=(rng.randn(B, N, 32) * 0.5).astype(f),
-        ppoint=(rng.randn(B, N, 32) * 0.5).astype(f),
-        k=k)
 
 
 @pytest.mark.parametrize("gated", [False, True])
@@ -83,29 +68,6 @@ def test_slot_moment_stats_matches_jax():
     s_got, S_got = slot_moment_stats(t(h), k)
     assert rel(s_got, s_want) <= TOL
     assert rel(S_got, S_want) <= TOL
-
-
-def _tail_inputs(seed, B=2, N=40, k=6, fin=8, two_f=12, H=64):
-    rng = np.random.RandomState(seed)
-    hk = k // 2
-    four_fin, two_fin = 4 * fin, 2 * fin
-    f = np.float32
-
-    def stats(n):
-        return ((rng.randn(n) * 0.1).astype(f), (rng.rand(n) + 0.5).astype(f),
-                (rng.rand(n) + 0.5).astype(f), (rng.randn(n) * 0.1).astype(f))
-
-    return dict(
-        partial=rng.randn(B, N, two_f).astype(f),
-        inte=rng.randn(B, N, hk * four_fin).astype(f),
-        h=(rng.randn(B, N, k * H) * 0.5).astype(f),
-        inte_stats=stats(four_fin),
-        w2=((rng.randn(H, two_fin) * 0.3).astype(f),
-            (rng.randn(two_fin) * 0.1).astype(f)),
-        w2_stats=stats(two_fin),
-        merge_kernel=(rng.randn(2 * k * two_fin, two_f) * 0.05).astype(f),
-        merge_bias=(rng.randn(two_f) * 0.1).astype(f),
-        k=k)
 
 
 @pytest.mark.parametrize("gated", [True, False])

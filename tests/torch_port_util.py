@@ -16,7 +16,7 @@ def rel(a, b) -> float:
 
 def t(x) -> torch.Tensor:
     """numpy / jax array -> contiguous fp32 (or int) CPU tensor."""
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+    return torch.from_numpy(np.array(x))
 
 
 def perturb_bn(params, batch_stats, rng):
@@ -44,3 +44,43 @@ def perturb_bn(params, batch_stats, rng):
     params = jax.tree.map(np.asarray, params)
     batch_stats = jax.tree.map(np.asarray, batch_stats)
     return walk(params, batch_stats)
+
+
+def head_inputs(seed, B=2, N=48, C=16, cx=0, k=6, two_f=12):
+    rng = np.random.RandomState(seed)
+    cf = C + cx
+    window = k // 2 + 1
+    four_fin = 4 * cf
+    f = np.float32
+    return dict(
+        x=(rng.randn(B, N, C) * 0.5).astype(f),
+        xs=(rng.randn(B, cx) * 0.5).astype(f) if cx else None,
+        conv_kernel=(rng.randn(1, window, 2 * cf, four_fin) * 0.1).astype(f),
+        conv_bias=(rng.randn(four_fin) * 0.1).astype(f),
+        merge_kernel=(rng.randn(2 * k * 2 * cf, two_f) * 0.05).astype(f),
+        pcat=(rng.randn(B, N, 32) * 0.5).astype(f),
+        ppoint=(rng.randn(B, N, 32) * 0.5).astype(f),
+        k=k)
+
+
+def tail_inputs(seed, B=2, N=40, k=6, fin=8, two_f=12, H=64):
+    rng = np.random.RandomState(seed)
+    hk = k // 2
+    four_fin, two_fin = 4 * fin, 2 * fin
+    f = np.float32
+
+    def stats(n):
+        return ((rng.randn(n) * 0.1).astype(f), (rng.rand(n) + 0.5).astype(f),
+                (rng.rand(n) + 0.5).astype(f), (rng.randn(n) * 0.1).astype(f))
+
+    return dict(
+        partial=rng.randn(B, N, two_f).astype(f),
+        inte=rng.randn(B, N, hk * four_fin).astype(f),
+        h=(rng.randn(B, N, k * H) * 0.5).astype(f),
+        inte_stats=stats(four_fin),
+        w2=((rng.randn(H, two_fin) * 0.3).astype(f),
+            (rng.randn(two_fin) * 0.1).astype(f)),
+        w2_stats=stats(two_fin),
+        merge_kernel=(rng.randn(2 * k * two_fin, two_f) * 0.05).astype(f),
+        merge_bias=(rng.randn(two_f) * 0.1).astype(f),
+        k=k)

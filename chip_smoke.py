@@ -57,8 +57,35 @@ The train slice, in the same phases:
 4t. times each train kernel at the train path's B=35 shapes beside its plain
    version and its bound, and holds its outputs to phase 2t's tolerances.
 
-Last, it prints the ``{"kernels": [...]}`` line, then the ``{"ok": ...}``
-line.
+The test slice, in the same phases:
+
+2e. the fused CD + approxmatch kernel (``emd_cd``) against its plain
+   version (``chamfer_cd`` + ``match_cost`` over the pairs) on every pair
+   of a 2-cloud and a 4-cloud set at n = 2048 (bbox-normalised synthetic
+   shapes against shape_unit ones, as the test phase pairs them): cd rel
+   <= 1e-5, cost rel <= 2e-3 (distances by direct differences against the
+   norm expansion: at level -4^7 an ulp of d2 moves K by ~2e-3, the JAX
+   package's own limit); a second launch bit-identical; a set against
+   itself cd = 0 and cost/n < 1e-3 on the diagonal;
+3e. drives the test path through the trainer's entry point
+   (``PDGNTrainer.test(tile=64)``, what ``--phase test`` runs) at full
+   width on 64 synthetic 2048-point clouds, loading the bundles phase 3t
+   wrote (3t's clean-up runs after 3e), with every launch counter set to 0
+   just before and read just after: three 64x64 matrices, one emd_cd
+   launch each, and two generator forwards at B=35; every metric finite.
+   Recomputes the three matrices (timed: CD+EMD pairs/s, and from it the
+   estimated full chair evaluation, 3 x 662^2 pairs, on this card), checks
+   their MMD/COV equal the phase's results and holds each one's 8x8 corner
+   against the plain version; then runs ``python -m pdgn_tpu_torch.cli
+   --phase test --dataset synthetic`` on the same bundles;
+4e. times the kernel on one 64x64 and one 8x8 tile beside its bound
+   (max of 80 FLOP an element at 67 TFLOP/s and three expf an element at
+   16 per SM per clock), and the plain version on an 8x8 tile and, in 8x8
+   blocks, on the 64x64 tile's pairs.
+
+Last, it prints the ``{"kernels": [...]}`` line (``launches`` summed over
+the sample, train and test runs, ``launches_by_path`` each), then the
+``{"ok": ...}`` line.
 """
 
 from __future__ import annotations
@@ -633,8 +660,9 @@ PER_STEP = {"edge_head": 8, "edge_head_bwd": 4, "slot_stats": 6,
             "local_stats_fwd": 9, "local_stats_bwd": 9}
 
 
-def train_path(root: str) -> dict:
-    """The train path through the trainer at full width, B=35."""
+def train_path(ckpt_root: str) -> dict:
+    """The train path through the trainer at full width, B=35; leaves its
+    bundles under ``ckpt_root`` for the test path (phase 3e)."""
     import math
 
     import numpy as np
@@ -643,8 +671,6 @@ def train_path(root: str) -> dict:
     from pdgn_tpu_torch.train import checkpoint as ckpt_lib
     from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
 
-    ckpt_root = os.path.join(root, "pdgn_tpu_torch", "_build", "smoke_train")
-    shutil.rmtree(ckpt_root, ignore_errors=True)
     cfg = ExperimentConfig(batch_size=TRAIN_B, max_epoch=1,
                            max_steps_per_epoch=TRAIN_STEPS,
                            synthetic_size=TRAIN_B * TRAIN_STEPS,
@@ -657,42 +683,39 @@ def train_path(root: str) -> dict:
     require(n_g == 12_711_372, f"generator has {n_g} parameters")
     g_before = [p.detach().clone() for p in st.generator.parameters()]
     np.random.seed(SEED)
-    try:
-        _lib.LAUNCHES.clear()
-        trainer.train(seed=SEED)
-        torch.cuda.synchronize()
-        launches = dict(_lib.LAUNCHES)
-        steps = len(trainer.step_seconds)
-        log(f"  {steps} train steps at B={TRAIN_B}, launches {launches}")
-        require(steps == TRAIN_STEPS, f"{steps} steps ran")
-        want = {k: v * steps for k, v in PER_STEP.items()}
-        require(launches == want, f"launches {launches} != {want}")
-        m = trainer.last_metrics
-        require(len(m) == 6 and all(math.isfinite(v) for v in m.values()),
-                f"losses {m}")
-        for net in (st.generator,) + st.discriminators:
-            for name, p in net.named_parameters():
-                require(p.grad is not None and bool(torch.isfinite(p.grad).all()),
-                        f"{name}: no finite gradient")
-        moved = sum(not torch.equal(a, b) for a, b in
-                    zip(g_before, st.generator.parameters()))
-        require(moved > 0, "the generator's parameters did not move")
-        path_g = os.path.join(trainer.ckpt_dir, "1_full_G.pth")
-        path_d = os.path.join(trainer.ckpt_dir, "1_full_D.pth")
-        require(os.path.isfile(path_g) and os.path.isfile(path_d),
-                "checkpoint bundles missing")
-        other = PDGNTrainer(cfg)
-        other.build_model(seed=SEED + 1)
-        epoch = ckpt_lib.load(path_g, path_d, other.state)
-        for a, b in zip((st.generator,) + st.discriminators,
-                        (other.state.generator,) + other.state.discriminators):
-            sa, sb = a.state_dict(), b.state_dict()
-            require(all(torch.equal(sa[k], sb[k]) for k in sa),
-                    "a loaded bundle differs from the trained models")
-        require(epoch == 1, f"G_epoch {epoch}")
-        del other
-    finally:
-        shutil.rmtree(ckpt_root, ignore_errors=True)
+    _lib.LAUNCHES.clear()
+    trainer.train(seed=SEED)
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    steps = len(trainer.step_seconds)
+    log(f"  {steps} train steps at B={TRAIN_B}, launches {launches}")
+    require(steps == TRAIN_STEPS, f"{steps} steps ran")
+    want = {k: v * steps for k, v in PER_STEP.items()}
+    require(launches == want, f"launches {launches} != {want}")
+    m = trainer.last_metrics
+    require(len(m) == 6 and all(math.isfinite(v) for v in m.values()),
+            f"losses {m}")
+    for net in (st.generator,) + st.discriminators:
+        for name, p in net.named_parameters():
+            require(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                    f"{name}: no finite gradient")
+    moved = sum(not torch.equal(a, b) for a, b in
+                zip(g_before, st.generator.parameters()))
+    require(moved > 0, "the generator's parameters did not move")
+    path_g = os.path.join(trainer.ckpt_dir, "1_full_G.pth")
+    path_d = os.path.join(trainer.ckpt_dir, "1_full_D.pth")
+    require(os.path.isfile(path_g) and os.path.isfile(path_d),
+            "checkpoint bundles missing")
+    other = PDGNTrainer(cfg)
+    other.build_model(seed=SEED + 1)
+    epoch = ckpt_lib.load(path_g, path_d, other.state)
+    for a, b in zip((st.generator,) + st.discriminators,
+                    (other.state.generator,) + other.state.discriminators):
+        sa, sb = a.state_dict(), b.state_dict()
+        require(all(torch.equal(sa[k], sb[k]) for k in sa),
+                "a loaded bundle differs from the trained models")
+    require(epoch == 1, f"G_epoch {epoch}")
+    del other
     timed = trainer.step_seconds[1:]
     sps = len(timed) / sum(timed)
     log(f"  train step seconds {trainer.step_seconds}; steps/s at "
@@ -825,6 +848,239 @@ def time_train_kernels(dev, gen) -> dict:
     return res
 
 
+# ------------------------------------------------ the test slice: phase 2e
+EMD_N = 2048             # points per cloud on the test path
+TEST_CLOUDS = 64         # test-set size of phase 3e
+TEST_TILE = 64           # clouds per side of one emd_cd launch
+CHAIR_CLOUDS = 662       # the shapenet15k chair test split (bench.py:457-459)
+SFU_RATE = 132 * 16 * 1.98e9   # expf: 16 per SM per clock, 132 SMs, 1.98 GHz
+
+
+def eval_clouds(n_clouds: int):
+    """The test phase's two kinds of clouds at full width: synthetic shapes
+    as the reference set keeps them (shape_unit), and the same shapes
+    bbox-normalised as the phase leaves generated clouds."""
+    from pdgn_tpu_torch.data.shapenet import SyntheticShapes
+    from pdgn_tpu_torch.train.trainer import normalize_point_clouds
+
+    ref = SyntheticShapes(size=2 * n_clouds, num_points=EMD_N).full_clouds()
+    return normalize_point_clouds(ref[n_clouds:], "shape_bbox"), ref[:n_clouds]
+
+
+def compare_emd_cd(a, b, label: str) -> float:
+    """The kernel against its plain version on every pair of ``a`` x ``b``:
+    cd rel <= 1e-5, cost rel <= 2e-3 (the kernel takes distances by direct
+    differences, the plain version by the norm expansion; at level -4^7 an
+    ulp of d2 moves K by ~2e-3, the JAX package's own kernel-vs-exact
+    limit). Returns the largest absolute error of cd and cost."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.emd_cd import emd_cd, emd_cd_plain
+
+    cd, cost = emd_cd(a, b)
+    cd_p, cost_p = emd_cd_plain(a, b)
+    e_cd, e_cost = rel(cd, cd_p), rel(cost, cost_p)
+    log(f"  emd_cd {label}: cd rel {e_cd:.3e}, cost rel {e_cost:.3e}")
+    require(e_cd <= 1e-5, f"emd_cd {label}: cd rel {e_cd}")
+    require(e_cost <= 2e-3, f"emd_cd {label}: cost rel {e_cost}")
+    require(bool(torch.isfinite(cd).all() and torch.isfinite(cost).all()),
+            f"emd_cd {label}: non-finite")
+    return max(max_abs(cd, cd_p), max_abs(cost, cost_p))
+
+
+def check_emd_cd(dev) -> float:
+    """Phase 2e: 2 x 4 sets at n = 2048 against the plain version, two
+    launches bit-identical, identical pairs cd = 0 and cost/n < 1e-3."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.emd_cd import emd_cd
+
+    gen, ref = eval_clouds(4)
+    a = torch.from_numpy(gen[:2]).to(dev)
+    b = torch.from_numpy(ref).to(dev)
+    err = compare_emd_cd(a, b, f"2x4 sets, n={EMD_N}")
+    cd1, cost1 = emd_cd(a, b)
+    cd2, cost2 = emd_cd(a, b)
+    require(torch.equal(cd1, cd2) and torch.equal(cost1, cost2),
+            "emd_cd: two launches differ")
+    cd, cost = emd_cd(b, b)
+    diag_cd = torch.diagonal(cd)
+    diag_emd = torch.diagonal(cost) / EMD_N
+    log(f"  emd_cd identical pairs: cd {diag_cd.tolist()}, cost/n "
+        f"{diag_emd.tolist()}; repeat launch bit-identical")
+    require(bool((diag_cd == 0).all()), "identical pairs: cd != 0")
+    require(bool((diag_emd < 1e-3).all()), "identical pairs: cost/n >= 1e-3")
+    return err
+
+
+# ------------------------------------------------ the test slice: phase 3e
+def test_path(root: str, ckpt_root: str, dev) -> dict:
+    """Phase 3e: ``PDGNTrainer.test`` (what ``--phase test`` runs) at full
+    width on 64 synthetic clouds with the bundles phase 3t wrote, every
+    launch counter set to 0 just before and read just after; then the
+    matrices' 8x8 corners against the plain version, CD+EMD pairs/s, and
+    the CLI's test phase in a process of its own."""
+    import numpy as np
+    import torch
+    from pdgn_tpu_torch.data.shapenet import SyntheticShapes
+    from pdgn_tpu_torch.eval.metrics import lgan_mmd_cov, pairwise_cd_emd
+    from pdgn_tpu_torch.ops.kernels import _lib
+    from pdgn_tpu_torch.ops.kernels.emd_cd import emd_cd_plain
+    from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
+
+    save_dir = os.path.join(root, "pdgn_tpu_torch", "_build", "smoke_test")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    cfg = ExperimentConfig(batch_size=TRAIN_B, synthetic_size=TEST_CLOUDS,
+                           checkpoint_dir=ckpt_root, model_dir="smoke",
+                           pretrain_model_G="1_full_G.pth",
+                           pretrain_model_D="1_full_D.pth",
+                           save_dir=save_dir, device=dev.type)
+    trainer = PDGNTrainer(cfg)
+    trainer.build_model(seed=SEED + 2)
+    _lib.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = trainer.test(tile=TEST_TILE)
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    per_side = -(-TEST_CLOUDS // TEST_TILE)
+    tiles = 3 * per_side * per_side
+    forwards = -(-TEST_CLOUDS // TRAIN_B)
+    want = {"edge_head": 4 * forwards, "slot_stats": 3 * forwards,
+            "bilateral_tail_gated": 3 * forwards,
+            "bilateral_tail_plain": forwards, "emd_cd": tiles}
+    log(f"  test(tile={TEST_TILE}) on {TEST_CLOUDS} clouds of {EMD_N} "
+        f"points: {test_s:.3f} s, launches {launches}")
+    require(launches == want, f"launches {launches} != {want}")
+    for k, v in res.items():
+        log(f"    {k}: {v:.12f}")
+    require(len(res) == 13 and all(np.isfinite(v) for v in res.values()),
+            f"metrics {res}")
+
+    (run,) = os.listdir(save_dir)
+    gen = np.load(os.path.join(save_dir, run, "out.npy"))
+    require(gen.shape == (TEST_CLOUDS, EMD_N, 3), f"out.npy {gen.shape}")
+    ref = SyntheticShapes(size=TEST_CLOUDS, num_points=EMD_N).full_clouds()
+    g = torch.from_numpy(gen).to(dev)
+    r = torch.from_numpy(ref).to(dev)
+    # the three matrices again (the kernel is deterministic, so these are
+    # the phase's own: their MMD/COV must equal its results), timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mats = {"sample-ref": pairwise_cd_emd(g, r, TEST_TILE, device=dev),
+            "ref-ref": pairwise_cd_emd(r, r, TEST_TILE, device=dev),
+            "sample-sample": pairwise_cd_emd(g, g, TEST_TILE, device=dev)}
+    pair_s = time.perf_counter() - t0
+    pairs = 3 * TEST_CLOUDS ** 2
+    pps = pairs / pair_s
+    chair_min = 3 * CHAIR_CLOUDS ** 2 / pps / 60
+    cd_rs, emd_rs = mats["sample-ref"]
+    for name, M in (("CD", cd_rs), ("EMD", emd_rs)):
+        for k, v in lgan_mmd_cov(M.T).items():
+            require(v == res[f"{k}-{name}"], f"{k}-{name}: the matrices "
+                    "are not the phase's")
+    sets = {"sample": g, "ref": r}
+    err = 0.0
+    for name, (cd, emd) in mats.items():
+        s_name, r_name = name.split("-")
+        cd_p, cost_p = emd_cd_plain(sets[s_name][:8], sets[r_name][:8])
+        cd_k = torch.from_numpy(cd[:8, :8])
+        emd_k = torch.from_numpy(emd[:8, :8])
+        emd_p = cost_p.cpu() / EMD_N
+        e_cd, e_emd = rel(cd_k, cd_p.cpu()), rel(emd_k, emd_p)
+        log(f"  {name} 8x8 corner vs plain: cd rel {e_cd:.3e}, emd rel "
+            f"{e_emd:.3e}")
+        require(e_cd <= 1e-5 and e_emd <= 2e-3, f"{name} corner disagrees")
+        err = max(err, max_abs(cd_k, cd_p.cpu()), max_abs(emd_k, emd_p))
+    log(f"  CD+EMD pairs/s: {pps:.1f} ({pairs} pairs in {pair_s:.3f} s, "
+        f"tile {TEST_TILE}); estimated full chair evaluation on this card "
+        f"(3 x {CHAIR_CLOUDS}^2 pairs): {chair_min:.3f} min")
+
+    cmd = [sys.executable, "-m", "pdgn_tpu_torch.cli", "--network",
+           "PDGNet_v2", "--model_dir", "smoke", "--phase", "test",
+           "--dataset", "synthetic", "--checkpoint_dir", ckpt_root,
+           "--pretrain_model_G", "1_full_G.pth", "--pretrain_model_D",
+           "1_full_D.pth", "--save_dir", os.path.join(save_dir, "cli"),
+           "--device", dev.type]
+    del trainer, g, r
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=300)
+    cli_s = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    lines = [ln for ln in out.splitlines() if "::test::INFO] " in ln
+             and ": " in ln.split("] ", 1)[1]]
+    log(f"  python -m pdgn_tpu_torch.cli --phase test --dataset synthetic: "
+        f"exit {proc.returncode} in {cli_s:.1f} s, {len(lines)} log lines")
+    for ln in lines[-13:]:
+        log(f"    {ln}")
+    require(proc.returncode == 0 and " [*] Load SUCCESS" in out
+            and " [*] Test finished!" in out and "jsd: " in out,
+            f"the CLI's test phase failed:\n{out[-3000:]}")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return {"launches": launches, "seconds": test_s, "metrics": res,
+            "pairs_per_s": pps, "pairs": pairs, "pairwise_s": pair_s,
+            "chair_eval_min": chair_min, "corner_max_abs_err": err,
+            "cli_seconds": cli_s}
+
+
+# ------------------------------------------------ the test slice: phase 4e
+def emd_bound(S: int, R: int, n: int):
+    """Least time of the fused CD + approxmatch on S x R pairs: a distance
+    once (8 FLOP) and ~8 FLOP an element in each of the 9 rounds at 67
+    TFLOP/s, or three expf an element (exponent chaining) at the special
+    function units' rate, whichever is longer; bytes: both sets in, two
+    floats a pair out."""
+    elems = float(S * R) * n * n
+    t_fma = 80.0 * elems / PEAK_FLOPS * 1e3
+    t_exp = 3.0 * elems / SFU_RATE * 1e3
+    t_mem = 4.0 * ((S + R) * n * 3 + 2 * S * R) / PEAK_BYTES * 1e3
+    t_ops = max(t_fma, t_exp)
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def time_emd_cd(dev) -> dict:
+    """Phase 4e: the kernel on one 64x64 tile and one 8x8 tile of the test
+    path's clouds, beside the bound; the plain version on an 8x8 tile
+    (per pair) and on the 64x64 tile's pairs in 8x8 blocks (the plain
+    version cannot hold a 64x64 tile's distances: 64 GB)."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.emd_cd import emd_cd, emd_cd_plain
+
+    gen, ref = eval_clouds(TEST_TILE)
+    a = torch.from_numpy(gen).to(dev)
+    b = torch.from_numpy(ref).to(dev)
+    ms64 = time_ms(lambda: emd_cd(a, b), 2)
+    ms8 = time_ms(lambda: emd_cd(a[:8], b[:8]), 5)
+    plain8 = time_ms(lambda: emd_cd_plain(a[:8], b[:8]), 2)
+
+    def plain_tile():
+        for i in range(0, TEST_TILE, 8):
+            for j in range(0, TEST_TILE, 8):
+                emd_cd_plain(a[i:i + 8], b[j:j + 8])
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain_tile()
+    end.record()
+    torch.cuda.synchronize()
+    plain64 = start.elapsed_time(end)
+    b64, by = emd_bound(TEST_TILE, TEST_TILE, EMD_N)
+    b8, _ = emd_bound(8, 8, EMD_N)
+    pairs = TEST_TILE * TEST_TILE
+    log(f"  emd_cd 64x64 tile: {ms64:.3f} ms ({ms64 / pairs * 1e3:.3f} us a "
+        f"pair), bound {b64:.3f} ms ({by}); 8x8 tile: {ms8:.3f} ms, bound "
+        f"{b8:.3f} ms; plain 8x8: {plain8:.3f} ms ({plain8 / 64:.3f} ms a "
+        f"pair), plain over the 64x64 tile's pairs: {plain64:.3f} ms")
+    err = compare_emd_cd(a[:8], b[:8], "8x8 tile of the timed sets")
+    return {"ms": ms64, "plain_ms": plain64, "bound_ms": b64,
+            "bound_by": by, "library_ms": None, "max_abs_err": err,
+            "ms_8x8": ms8, "bound_ms_8x8": b8, "plain_ms_8x8": plain8,
+            "plain_ms_per_pair": plain8 / 64,
+            "shape": f"{TEST_TILE}x{TEST_TILE} pairs of {EMD_N}-point clouds "
+                     f"(plain: 64 tiles of 8x8)"}
+
+
 KERNELS = {
     "edge_head": ("pdgn_tpu_torch/csrc/edge_head.cu",
                   "pdgn_tpu/ops/pallas/edge_head.py:74"),
@@ -844,6 +1100,8 @@ KERNELS = {
                         "pdgn_tpu/ops/pallas/local_stats.py:147"),
     "local_stats_bwd": ("pdgn_tpu_torch/csrc/local_stats.cu",
                         "pdgn_tpu/ops/pallas/local_stats.py:183"),
+    "emd_cd": ("pdgn_tpu_torch/csrc/emd_cd.cu",
+               "pdgn_tpu/ops/pallas/emd_cd.py:52"),
 }
 
 
@@ -898,28 +1156,43 @@ def main(argv=None) -> int:
 
     log("phase 2t: train kernels against their plain versions (B=8)")
     errs.update(check_train_kernels(gen, dev))
+    log(f"phase 2e: emd_cd against its plain version (n={EMD_N})")
+    errs["emd_cd"] = check_emd_cd(dev)
 
     log("phase 3: main path, generate() at full width")
     path = main_path(dev)
     del path["model"]
 
-    log(f"phase 3t: train path, PDGNTrainer.train at full width, "
-        f"B={TRAIN_B}")
-    train = train_path(root)
+    ckpt_root = os.path.join(root, "pdgn_tpu_torch", "_build", "smoke_ckpt")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    try:
+        log(f"phase 3t: train path, PDGNTrainer.train at full width, "
+            f"B={TRAIN_B}")
+        train = train_path(ckpt_root)
+        log(f"phase 3e: test path, PDGNTrainer.test(tile={TEST_TILE}) at "
+            f"full width on {TEST_CLOUDS} clouds, 3t's bundles")
+        test = test_path(root, ckpt_root, dev)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
 
     log("phase 4: kernel times and checks at the main path's B=128 shapes")
     times = time_kernels(dev, gen)
     log(f"phase 4t: train kernel times and checks at B={TRAIN_B}")
     times.update(time_train_kernels(dev, gen))
+    log(f"phase 4e: emd_cd times at the test path's {TEST_TILE}x{TEST_TILE} "
+        f"tile")
+    times["emd_cd"] = time_emd_cd(dev)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = times[name]
         by_path = {"sample": path["launches"].get(name, 0),
-                   "train": train["launches"].get(name, 0)}
+                   "train": train["launches"].get(name, 0),
+                   "test": test["launches"].get(name, 0)}
+        require(sum(by_path.values()) > 0, f"{name} never launched")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": by_path["train"],
+            "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(errs[name], t["max_abs_err"]),
             "ms": t["ms"],
@@ -936,10 +1209,13 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": build_s,
                        "kernels": kernels, "times": times, "path": path,
-                       "train": train}, f, indent=1)
+                       "train": train, "test": test}, f, indent=1)
     print(json.dumps({"card": smi,
                       "clouds_per_s_b128": path["clouds_per_s"],
-                      "train_steps_per_s_b35": train["steps_per_s"]}))
+                      "train_steps_per_s_b35": train["steps_per_s"],
+                      "test_phase_s_64": test["seconds"],
+                      "cd_emd_pairs_per_s": test["pairs_per_s"],
+                      "chair_eval_min_estimate": test["chair_eval_min"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

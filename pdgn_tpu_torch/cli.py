@@ -1,16 +1,20 @@
 """Command-line interface of the PyTorch/CUDA port (the flags of
 pdgn_tpu/cli.py, plus ``--device``).
 
-``--phase train`` (synthetic data only) and ``--phase sample`` (bulk
-generation) are ported; ``test`` exits with status 2 and says so. Run as::
+``--phase train`` and ``--phase test`` (synthetic data only) and
+``--phase sample`` (bulk generation) are ported. Run as::
 
     python -m pdgn_tpu_torch.cli --network PDGNet_v2 --model_dir run1 \\
         --phase train --dataset synthetic --max_epoch 1 --batch_size 35
     python -m pdgn_tpu_torch.cli --network PDGNet_v2 --model_dir run1 \\
+        --phase test --dataset synthetic --pretrain_model_G 1_full_G.pth \\
+        --pretrain_model_D 1_full_D.pth
+    python -m pdgn_tpu_torch.cli --network PDGNet_v2 --model_dir run1 \\
         --phase sample --num_samples 256 --batch_size 128
 
 Without ``--device cpu`` the run needs a CUDA card and fails loudly when
-none is visible.
+none is visible. The port builds only exact kNN graphs: ``--exact_knn 0``
+(the fast bf16 graphs of the JAX package) is refused.
 """
 
 from __future__ import annotations
@@ -25,8 +29,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         description="PDGN: progressive point-cloud GAN (PyTorch/CUDA port)")
     parser.add_argument('--phase', type=str, default='train',
-                        help='train, test, or sample (bulk generation); '
-                             'train and sample are ported')
+                        help='train, test (sampling + metric suite), or '
+                             'sample (bulk generation)')
     parser.add_argument('--num_samples', type=int, default=128,
                         help='clouds to generate in --phase sample')
     parser.add_argument('--workers', type=int, default=4,
@@ -75,6 +79,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--compute_dtype', type=str, default=None,
                         choices=[None, 'float32'],
                         help='only fp32 is ported')
+    parser.add_argument('--exact_knn', type=str, default=None,
+                        choices=[None, '0', '1'],
+                        help='fp32-exact kNN graphs: the port builds only '
+                             'these; 0 (fast bf16 graphs) is not ported')
     return check_args(parser.parse_args(argv))
 
 
@@ -91,13 +99,18 @@ def check_args(args: argparse.Namespace) -> argparse.Namespace:
     if args.batch_size < 1 or args.num_samples < 1:
         print('batch_size and num_samples must be >= 1')
         sys.exit(1)
+    if args.exact_knn == '0':
+        print(" [!] --exact_knn 0 (fast bf16 kNN graphs) is not ported to "
+              "pdgn_tpu_torch: it builds exact graphs only")
+        sys.exit(2)
     return args
 
 
-def train(args: argparse.Namespace) -> None:
-    """The train phase: a random seed per run, as the reference (main.py:
-    79-82) and the JAX CLI; the trainer draws its weights' and noise's seeds
-    from numpy's stream."""
+def _trainer(args: argparse.Namespace):
+    """The trainer of the train and test phases, with the run's random
+    seed drawn and set as the reference (main.py:79-82) and the JAX CLI
+    do; the trainer draws its weights' and noise's seeds from numpy's
+    stream, and the test phase re-seeds from ``--seed``."""
     import numpy as np
 
     from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
@@ -118,22 +131,27 @@ def train(args: argparse.Namespace) -> None:
         softmax=(args.softmax == 'True'), dataset=args.dataset,
         synthetic_size=args.synthetic_size,
         max_steps_per_epoch=args.max_steps_per_epoch,
-        base_points=args.base_points, device=args.device)
+        base_points=args.base_points, normalize=args.normalize,
+        seed=args.seed, save_dir=args.save_dir, device=args.device)
     trainer = PDGNTrainer(cfg)
     trainer.build_model()
-    trainer.train()
-    print(" [*] Training finished!")
+    return trainer
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     print(f'****************network: {args.network}****************')
     if args.phase == 'train':
-        train(args)
+        _trainer(args).train()
+        print(" [*] Training finished!")
+        return
+    if args.phase == 'test':
+        _trainer(args).test()
+        print(" [*] Test finished!")
         return
     if args.phase != 'sample':
-        print(f" [!] phase '{args.phase}' is not yet ported to "
-              "pdgn_tpu_torch; use pdgn_tpu (main.py) for it.")
+        print(f" [!] phase '{args.phase}' is not ported to pdgn_tpu_torch; "
+              "use pdgn_tpu (main.py) for it.")
         sys.exit(2)
 
     from pdgn_tpu_torch.train.generate import generate

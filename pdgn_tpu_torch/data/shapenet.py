@@ -72,6 +72,11 @@ class SyntheticShapes:
                 for s in (3, 2, 1)]
         return (*subs, pc, self.cate)
 
+    def full_clouds(self) -> np.ndarray:
+        """All full-resolution clouds, stacked (the test phase's reference
+        set)."""
+        return np.stack([self._cloud(i) for i in range(self.size)])
+
 
 def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
                    drop_last: bool = True, seed: Optional[int] = None

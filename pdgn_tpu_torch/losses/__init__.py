@@ -1,1 +1,1 @@
-"""Training losses of the port (LSGAN, Chamfer, shape-preserving)."""
+"""Losses of the port (LSGAN, Chamfer, approximate EMD, shape-preserving)."""

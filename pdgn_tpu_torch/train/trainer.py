@@ -1,13 +1,15 @@
-"""The GAN trainer's train phase (port of pdgn_tpu/train/trainer.py:51-329,
-reference models/PDGNet_v2.py:26-256).
+"""The GAN trainer: train and test phases (port of
+pdgn_tpu/train/trainer.py, reference models/PDGNet_v2.py:26-430).
 
 Owns the dataset, the generator and the four discriminators on one device,
 the five Adam optimizers, the train loop with the reference's per-batch log
-line, and the two-bundle ``.pth`` checkpoints (at every ``snapshot``-th
-epoch and at the end; ``--pretrain_model_G/_D`` resume). Randomness follows
-the JAX trainer: the initial weights and the training noise come from seeds
-drawn from numpy's global stream (``np.random.randint``), which the CLI seeds
-per run. Only the synthetic dataset is ported.
+line, the two-bundle ``.pth`` checkpoints (at every ``snapshot``-th epoch
+and at the end; ``--pretrain_model_G/_D`` resume), and the test phase:
+sampling with sigma=1 noise, renormalisation, the metric suite and the npy
+dumps. Randomness follows the JAX trainer: the initial weights and the
+training noise come from seeds drawn from numpy's global stream
+(``np.random.randint``), which the CLI seeds per run; the test phase seeds
+everything from ``seed``. Only the synthetic dataset is ported.
 """
 
 from __future__ import annotations
@@ -21,12 +23,15 @@ import numpy as np
 import torch
 
 from pdgn_tpu_torch.data.shapenet import SyntheticShapes, batch_iterator
+from pdgn_tpu_torch.eval.metrics import (compute_all_metrics,
+                                         jsd_between_point_cloud_sets)
 from pdgn_tpu_torch.models.discriminator import discriminators
 from pdgn_tpu_torch.models.generator import PointGenerator
 from pdgn_tpu_torch.train import checkpoint as ckpt_lib
+from pdgn_tpu_torch.train.generate import generate
 from pdgn_tpu_torch.train.train_step import (GANState, TrainConfig,
                                              init_state, train_step)
-from pdgn_tpu_torch.utils.misc import resolve_device
+from pdgn_tpu_torch.utils.misc import get_logger, resolve_device, seed_all
 
 
 @dataclasses.dataclass
@@ -52,6 +57,9 @@ class ExperimentConfig:
     synthetic_size: int = 64
     max_steps_per_epoch: Optional[int] = None
     base_points: int = 128
+    normalize: Optional[str] = "shape_bbox"  # test phase: renormalisation,
+    seed: int = 9999                         # noise seed and output root
+    save_dir: str = "./results"
     device: str = "cuda"
 
     @property
@@ -66,6 +74,35 @@ def train_config(cfg: ExperimentConfig) -> TrainConfig:
                               noise_dim=cfg.noise_dim)
     return TrainConfig(learning_rate=cfg.learning_rate,
                        noise_dim=cfg.noise_dim)
+
+
+def normalize_point_clouds(pcs: np.ndarray, mode: Optional[str],
+                           logger=None) -> np.ndarray:
+    """Per-cloud renormalisation of generated clouds (reference
+    models/PDGNet_v2.py:413-430): ``shape_unit`` (mean, ddof=1 std as
+    torch's ``.std()``) or ``shape_bbox`` (bounding-box centre and half its
+    largest side)."""
+    if mode is None:
+        if logger:
+            logger.info("Will not normalize point clouds.")
+        return pcs
+    if logger:
+        logger.info("Normalization mode: %s" % mode)
+    out = pcs.copy()
+    for i in range(pcs.shape[0]):
+        pc = pcs[i]
+        if mode == "shape_unit":
+            shift = pc.mean(axis=0, keepdims=True)
+            scale = pc.flatten().std(ddof=1).reshape(1, 1)
+        elif mode == "shape_bbox":
+            pc_max = pc.max(axis=0, keepdims=True)
+            pc_min = pc.min(axis=0, keepdims=True)
+            shift = (pc_min + pc_max) / 2.0
+            scale = (pc_max - pc_min).max().reshape(1, 1) / 2.0
+        else:
+            raise ValueError(f"unknown normalize mode {mode}")
+        out[i] = (pc - shift) / scale
+    return out
 
 
 class PDGNTrainer:
@@ -188,3 +225,54 @@ class PDGNTrainer:
         self.save(cfg.max_epoch)
         self._log_fout.close()
         self._log_fout = None
+
+    def _load_for_eval(self) -> None:
+        """Build the models if needed and restore the bundles, test-phase
+        style: a missing checkpoint prints and the phase goes on (reference
+        models/PDGNet_v2.py:281-285)."""
+        if self.state is None:
+            self.build_model()
+        try:
+            could_load, _ = self.load()
+            print(" [*] Load SUCCESS" if could_load
+                  else " [!] Load failed...")
+        except FileNotFoundError as e:
+            print(f" [!] Load failed... ({e})")
+
+    def test(self, tile: int = 64) -> dict:
+        """The test phase (reference models/PDGNet_v2.py:271-326): generate
+        as many clouds as the test set holds (sigma=1 noise from ``seed``,
+        batch-statistic BN, exact kNN graphs: the port has no other), save
+        ``nonormal_out.npy``, renormalise, save ``out.npy``, score them
+        against the test set with the metric suite in ``(tile, tile)``
+        blocks of pairs, log each result and return them."""
+        cfg = self.cfg
+        self._load_for_eval()
+
+        cate_tag = "_".join(cfg.choice) if cfg.choice else "full"
+        save_dir = os.path.join(
+            cfg.save_dir, "GEN_Ours_%s_%d" % (cate_tag, int(time.time())))
+        os.makedirs(save_dir, exist_ok=True)
+        logger = get_logger("test", save_dir)
+        seed_all(cfg.seed)
+
+        logger.info("Loading datasets...")
+        test_dset = SyntheticShapes(size=cfg.synthetic_size,
+                                    num_points=self.sizes[-1])
+        ref_pcs = test_dset.full_clouds()
+        gen_pcs = generate(len(test_dset), cfg.batch_size, cfg.seed,
+                           device=self.device, model=self.state.generator)
+        np.save(os.path.join(save_dir, "nonormal_out.npy"), gen_pcs)
+        if cfg.normalize is not None:
+            gen_pcs = normalize_point_clouds(gen_pcs, cfg.normalize, logger)
+
+        logger.info("Saving point clouds...")
+        np.save(os.path.join(save_dir, "out.npy"), gen_pcs)
+
+        results = compute_all_metrics(gen_pcs, ref_pcs, cfg.batch_size,
+                                      tile=tile, device=self.device)
+        results["jsd"] = jsd_between_point_cloud_sets(gen_pcs, ref_pcs,
+                                                      device=self.device)
+        for k, v in results.items():
+            logger.info("%s: %.12f" % (k, v))
+        return results

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the port's sampling path, or of its train step.
+"""Device-time breakdown of the port's sampling path, its train step, or
+its test phase.
 
 Profiles ``--reps`` iterations of ``pdgn_tpu_torch`` at full width (random
 weights from ``--seed``) with ``torch.profiler``: generator forwards of the
-sampler, or with ``--train`` GAN train steps (``train_step`` on random real
-clouds) after one warm-up iteration. Prints, per CUDA kernel name, its
-device time per iteration and share, plus the iteration's wall time and the
-share of it in which the device ran no kernel (negative if the kernel
-events overlap or are counted twice). Needs a CUDA card; run from the root
-of the repository::
+sampler, with ``--train`` GAN train steps (``train_step`` on random real
+clouds), or with ``--test`` whole test phases (``PDGNTrainer.test(tile=64)``
+on ``--clouds`` synthetic clouds, sampled in batches of ``--batch``), after
+one warm-up iteration. Prints, per CUDA kernel name, its device time per
+iteration and share, plus the iteration's wall time and the share of it in
+which the device ran no kernel (negative if the kernel events overlap or are
+counted twice). Needs a CUDA card; run from the root of the repository::
 
     python3 profile_torch_sample.py --batch 128 --out breakdown.json
     python3 profile_torch_sample.py --train --batch 35
+    python3 profile_torch_sample.py --test --batch 35 --clouds 64 --reps 2
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import tempfile
 import time
 
 
@@ -58,7 +62,22 @@ def train_iteration(batch: int, seed: int, dev):
     return step
 
 
-def profile(batch: int, reps: int, seed: int, train: bool = False) -> dict:
+def test_iteration(batch: int, seed: int, dev, clouds: int, out_dir: str):
+    """One test phase at full width: ``clouds`` generated clouds scored
+    against as many synthetic ones in 64x64 tiles; dumps go to
+    ``out_dir``."""
+    from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
+
+    trainer = PDGNTrainer(ExperimentConfig(batch_size=batch,
+                                           synthetic_size=clouds,
+                                           save_dir=out_dir,
+                                           device=dev.type))
+    trainer.build_model(seed)
+    return lambda: trainer.test(tile=64)
+
+
+def profile(batch: int, reps: int, seed: int, train: bool = False,
+            test: bool = False, clouds: int = 64) -> dict:
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -66,8 +85,12 @@ def profile(batch: int, reps: int, seed: int, train: bool = False) -> dict:
     from pdgn_tpu_torch.utils.misc import resolve_device
 
     dev = resolve_device("cuda")
-    iteration = (train_iteration if train else sample_iteration)(
-        batch, seed, dev)
+    out_dir = tempfile.TemporaryDirectory()
+    if test:
+        iteration = test_iteration(batch, seed, dev, clouds, out_dir.name)
+    else:
+        iteration = (train_iteration if train else sample_iteration)(
+            batch, seed, dev)
     iteration()                              # build + warm up
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -77,6 +100,7 @@ def profile(batch: int, reps: int, seed: int, train: bool = False) -> dict:
             iteration()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    out_dir.cleanup()
     rows = []
     for ev in prof.key_averages():
         # device-side kernel events only (the aten ops that launched them
@@ -90,8 +114,9 @@ def profile(batch: int, reps: int, seed: int, train: bool = False) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     wall_ms = wall_s / reps * 1e3
+    kind = "test phase" if test else "train step" if train else "forward"
     return {"card": torch.cuda.get_device_name(0), "batch": batch,
-            "iteration": "train step" if train else "forward",
+            "iteration": kind,
             "reps": reps, "wall_ms_per_iteration": wall_ms,
             "device_busy_ms_per_iteration": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
@@ -107,9 +132,14 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=2024)
     ap.add_argument("--train", action="store_true",
                     help="profile train steps instead of sampler forwards")
+    ap.add_argument("--test", action="store_true",
+                    help="profile whole test phases (sampling + metrics)")
+    ap.add_argument("--clouds", type=int, default=64,
+                    help="test-set size of --test")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    res = profile(args.batch, args.reps, args.seed, args.train)
+    res = profile(args.batch, args.reps, args.seed, args.train, args.test,
+                  args.clouds)
     print(f"{res['card']}: B={res['batch']}, wall "
           f"{res['wall_ms_per_iteration']:.3f} ms per {res['iteration']}, "
           f"device busy {res['device_busy_ms_per_iteration']:.3f} ms, idle "

@@ -238,3 +238,57 @@ def test_generator_backward_on_the_card_counts(dev):
         "local_stats_fwd": 9, "local_stats_bwd": 9}
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in model.parameters())
+
+
+@pytest.mark.parametrize("n,S,R", [(100, 3, 2), (256, 2, 3), (1024, 2, 2)])
+def test_emd_cd_kernel_matches_plain(dev, n, S, R):
+    """Every pair of two sets: CD rel <= 1e-5 and cost rel <= 2e-3 of the
+    plain version (chamfer_cd + match_cost; the kernel takes distances by
+    direct differences, the plain path by the norm expansion, and at level
+    -4^7 an ulp of d2 moves K by ~2e-3); a cloud against itself gives
+    cd = 0; a second launch is bit-identical (fixed-order sums)."""
+    from pdgn_tpu_torch.ops.kernels.emd_cd import emd_cd, emd_cd_plain
+
+    g = torch.Generator(device=dev).manual_seed(n + S)
+    a = torch.randn(S, n, 3, generator=g, device=dev) * 0.3
+    b = torch.randn(R, n, 3, generator=g, device=dev) * 0.3
+    b[0] = a[0]
+    before = _lib.LAUNCHES["emd_cd"]
+    cd, cost = emd_cd(a, b)
+    assert _lib.LAUNCHES["emd_cd"] == before + 1
+    cd_p, cost_p = emd_cd_plain(a, b)
+    assert cd.shape == cost.shape == (S, R)
+    assert float(cd[0, 0]) == 0.0 and float(cost[0, 0]) / n < 1e-3
+    assert _rel(cd, cd_p) <= 1e-5
+    assert _rel(cost, cost_p) <= 2e-3
+    cd2, cost2 = emd_cd(a, b)
+    assert torch.equal(cd, cd2) and torch.equal(cost, cost2)
+
+
+def test_emd_cd_kernel_refuses_what_it_cannot_take(dev):
+    from pdgn_tpu_torch.ops.kernels.emd_cd import MAX_POINTS, emd_cd
+
+    with pytest.raises(ValueError, match="n == m"):
+        emd_cd(torch.zeros(1, 64, 3, device=dev),
+               torch.zeros(1, 32, 3, device=dev))
+    with pytest.raises(ValueError, match="at most"):
+        emd_cd(torch.zeros(1, MAX_POINTS + 1, 3, device=dev),
+               torch.zeros(1, MAX_POINTS + 1, 3, device=dev))
+
+
+def test_test_phase_on_the_card_counts(dev, tmp_path):
+    """The small test phase on the card: one emd_cd launch a tile, finite
+    metrics equal in kind to the CPU run's."""
+    from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
+
+    cfg = ExperimentConfig(base_points=16, synthetic_size=6, batch_size=3,
+                           device="cuda", save_dir=str(tmp_path))
+    trainer = PDGNTrainer(cfg)
+    trainer.build_model(seed=5)
+    _lib.LAUNCHES.clear()
+    res = trainer.test(tile=4)
+    torch.cuda.synchronize()
+    # 2x2 tiles against the other set, 2x2 for each set against itself
+    assert _lib.LAUNCHES["emd_cd"] == 12
+    assert _lib.LAUNCHES["edge_head"] == 8
+    assert all(np.isfinite(v) for v in res.values())

@@ -52,12 +52,54 @@ def test_cli_default_device_fails_loudly_without_cuda(tmp_path):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("phase", ["test"])
+RESULT_LINE = re.compile(
+    r"^\[[^\]]+::test::INFO\] ([\w-]+): -?\d+\.\d{12}$")
+
+
+@pytest.mark.parametrize("phase", ["test", "cls"])
 def test_cli_unported_phases_exit_nonzero(tmp_path, phase, capsys):
+    """``--phase test`` runs on the CPU: the dumps and the reference's
+    result lines (``"%s: %.12f"``) in the run's log; a phase the port does
+    not have (``cls``, the JAX CLI's classifier) exits 2."""
+    args = _cli_args(tmp_path, "--phase", phase, "--device", "cpu",
+                     "--dataset", "synthetic", "--synthetic_size", "4")
+    if phase != "test":
+        with pytest.raises(SystemExit) as exc:
+            cli.main(args)
+        assert exc.value.code == 2
+        assert "not ported" in capsys.readouterr().out
+        return
+    _lib.LAUNCHES.clear()
+    cli.main(args)
+    assert " [*] Test finished!" in capsys.readouterr().out
+    (run,) = (tmp_path / "out").iterdir()
+    assert run.name.startswith("GEN_Ours_full_")
+    assert np.load(run / "nonormal_out.npy").shape == (4, 256, 3)
+    assert np.load(run / "out.npy").shape == (4, 256, 3)
+    lines = (run / "log.txt").read_text().splitlines()
+    keys = [m.group(1) for m in map(RESULT_LINE.match, lines) if m]
+    assert keys == ["lgan_mmd-CD", "lgan_cov-CD", "lgan_mmd_smp-CD",
+                    "lgan_mmd-EMD", "lgan_cov-EMD", "lgan_mmd_smp-EMD",
+                    "1-NN-CD-acc_t", "1-NN-CD-acc_f", "1-NN-CD-acc",
+                    "1-NN-EMD-acc_t", "1-NN-EMD-acc_f", "1-NN-EMD-acc", "jsd"]
+    assert sum(_lib.LAUNCHES.values()) == 0
+
+
+def test_cli_test_default_device_fails_loudly_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(_cli_args(tmp_path, "--phase", "test", "--dataset",
+                           "synthetic"))
+    assert not (tmp_path / "out").exists()
+
+
+def test_cli_refuses_fast_knn_graphs(tmp_path, capsys):
     with pytest.raises(SystemExit) as exc:
-        cli.main(_cli_args(tmp_path, "--phase", phase, "--device", "cpu"))
-    assert exc.value.code != 0
-    assert "not yet ported" in capsys.readouterr().out
+        cli.main(_cli_args(tmp_path, "--phase", "test", "--device", "cpu",
+                           "--dataset", "synthetic", "--exact_knn", "0"))
+    assert exc.value.code == 2
+    assert "not ported" in capsys.readouterr().out
 
 
 def _train_args(tmp_path, *extra):
@@ -239,7 +281,7 @@ def test_no_environment_switch_on_the_kernel_path():
 def test_kernel_sources_carry_their_header_note():
     for src in ("edge_head.cu", "slot_stats.cu", "bilateral_tail.cu",
                 "edge_head_bwd.cu", "bilateral_tail_bwd.cu",
-                "local_stats.cu"):
+                "local_stats.cu", "emd_cd.cu"):
         text = (PKG / "csrc" / src).read_text()
         head = text[:3000]
         assert "Replaces the TPU kernel" in head and "pdgn_tpu/ops/pallas/" in head

@@ -83,9 +83,30 @@ The test slice, in the same phases:
    16 per SM per clock), and the plain version on an 8x8 tile and, in 8x8
    blocks, on the 64x64 tile's pairs.
 
+The point-ops slice, in the same phases:
+
+2p. ``knn_topk`` and ``knn_gather`` against their plain versions at B=8:
+   C in {3, 256}, k in {20, 64, 128}, queries other than the database, and
+   self queries on clouds whose every point appears twice (each row's pair
+   first, in order); indices equal for C <= 4 (the kernel rounds as the
+   plain version does) and otherwise equal but at near-ties (phase 2's
+   rule); ``knn_gather`` at C=128, k=10: nbr bit-equal to
+   ``grouping(x, idx)``, the gradient of sum(nbr^2) rel <= 1e-5;
+3p. drives the public ``pdgn_tpu_torch.ops`` API at full width on 35
+   clouds from ``generate()`` (FPS, grouping, ball query, dilated groups,
+   interpolation, edge features, ``neighbor_features``, ``EdgeConv``
+   forward and backward) with every launch counter set to 0 just before
+   and read just after (6 ``knn_topk``, 1 ``knn_gather``), then holds each
+   kernel graph of the path against its plain version and prints the
+   path's wall time (the median of 5 warm passes; the first, counted
+   pass is printed too, cold);
+4p. times ``knn_topk`` at the path's three shapes and ``knn_gather``
+   beside the plain version, ``torch.cdist`` + ``torch.topk`` (two calls,
+   a yardstick) and the bound.
+
 Last, it prints the ``{"kernels": [...]}`` line (``launches`` summed over
-the sample, train and test runs, ``launches_by_path`` each), then the
-``{"ok": ...}`` line.
+the sample, train, test and point-ops runs, ``launches_by_path`` each),
+then the ``{"ok": ...}`` line.
 """
 
 from __future__ import annotations
@@ -209,9 +230,9 @@ def compare_head(args, label: str) -> float:
     indices equal except at near-ties, the other outputs (given the
     kernel's indices) rel <= 1e-4. Returns the largest absolute error."""
     import torch
-    from pdgn_tpu_torch.ops.edges import neighbor_idx
     from pdgn_tpu_torch.ops.kernels.edge_head import (edge_head,
                                                       head_reference_given_idx)
+    from pdgn_tpu_torch.ops.knn import knn_exclude_first
     from pdgn_tpu_torch.ops.pairwise import self_pairwise_sqdist
 
     (x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge, pcat,
@@ -219,7 +240,7 @@ def compare_head(args, label: str) -> float:
     got = edge_head(*args)
     torch.cuda.synchronize()
     idx_k = got[0]
-    idx_p = neighbor_idx(x_knn, k)
+    idx_p = knn_exclude_first(self_pairwise_sqdist(x_knn), k)
     mism = idx_k != idx_p
     frac = float(mism.float().mean())
     gap = 0.0
@@ -1081,6 +1102,338 @@ def time_emd_cd(dev) -> dict:
                      f"(plain: 64 tiles of 8x8)"}
 
 
+# ----------------------------------------- the point-ops slice: phase 2p
+PO_B = 35                # clouds of the point-ops path (generate() at B=35)
+PO_POINTS = 2048
+PO_CENTERS = 512         # furthest_point_sample 2048 -> 512
+PO_ROWS = 1024           # the generator's stage-4 points (edge features)
+
+
+def knn_idx_check(idx_k, idx_p, d, label: str) -> float:
+    """A kernel's kNN indices against its plain version's: equal except at
+    near-ties (every mismatched neighbour's distance ``d`` within 1e-5
+    relative of the one it replaces, at most 0.1% of the entries; phase
+    2's rule). Returns the largest absolute difference of the selected
+    distances (0 where the indices agree)."""
+    import torch
+
+    mism = idx_k != idx_p
+    frac = float(mism.float().mean())
+    dk = d.gather(-1, idx_k.long())
+    dp = d.gather(-1, idx_p.long())
+    gap = 0.0
+    if bool(mism.any()):
+        scale = torch.maximum(dk.abs(), dp.abs()).clamp_min(1e-12)
+        gap = float(((dk - dp).abs() / scale)[mism].max())
+    log(f"  {label}: idx mismatch {frac:.6f} ({int(mism.sum())} entries, "
+        f"max near-tie gap {gap:.3e})")
+    require(frac <= 1e-3, f"{label}: {frac} of idx differ")
+    require(gap <= 1e-5, f"{label}: idx differ beyond near-ties")
+    return max_abs(dk, dp)
+
+
+def compare_knn_topk(q, db, k: int, label: str) -> float:
+    """``knn_topk`` against ``knn_topk_reference`` on the same inputs; for
+    C <= 4 both round every step alike, so the indices must be equal."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.knn import (knn_topk, knn_topk_reference,
+                                                sqdist)
+
+    idx_k = knn_topk(q, db, k)
+    idx_p = knn_topk_reference(q, db, k)
+    torch.cuda.synchronize()
+    if q.shape[-1] <= 4:
+        require(torch.equal(idx_k, idx_p), f"knn_topk {label}: C <= 4 idx "
+                "differ from the plain version")
+    return knn_idx_check(idx_k, idx_p, sqdist(q, db),
+                         f"knn_topk {label}")
+
+
+def compare_knn_gather(x, k: int, label: str) -> float:
+    """``knn_gather`` against its plain version: idx by the near-tie rule,
+    nbr bit-equal to ``grouping(x, idx)``, the gradient of sum(nbr^2) rel
+    <= 1e-5 of the plain version's for the same graph (both scatter-add
+    with float atomics). Returns the largest absolute error of the
+    selected distances and the gradient."""
+    import torch
+    from pdgn_tpu_torch.ops.grouping import grouping
+    from pdgn_tpu_torch.ops.kernels.knn import (knn_gather,
+                                                knn_topk_reference, sqdist)
+
+    x = x.detach().clone().requires_grad_(True)
+    idx, nbr = knn_gather(x, k)
+    with torch.no_grad():
+        idx_p = knn_topk_reference(x, x, k + 1)[..., 1:]
+        err = knn_idx_check(idx, idx_p, sqdist(x, x), f"knn_gather {label}")
+        require(torch.equal(nbr, grouping(x, idx)),
+                f"knn_gather {label}: nbr != grouping(x, idx)")
+    (g_k,) = torch.autograd.grad((nbr ** 2).sum(), x)
+    (g_p,) = torch.autograd.grad((grouping(x, idx) ** 2).sum(), x)
+    e = rel(g_k, g_p)
+    log(f"  knn_gather {label}: nbr bit-equal to grouping(x, idx); "
+        f"d(sum nbr^2)/dx rel {e:.3e}")
+    require(e <= 1e-5, f"knn_gather {label}: gradient rel {e}")
+    return max(err, max_abs(g_k, g_p))
+
+
+def check_knn_kernels(gen, dev) -> dict:
+    """Phase 2p at B=8: ``knn_topk`` for C in {3, 256} and k in {20, 64,
+    128}, queries other than the database (512 centers in 2048 points at
+    C=3, 1024 rows against 1024 at C=256), then self queries on clouds
+    whose every point appears twice (ties: the lower index first, so each
+    row's first two neighbours are the pair, in order); ``knn_gather`` at
+    C=128, k=10."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.knn import knn_topk
+
+    B = 8
+    err = 0.0
+    for C, M, N in ((3, PO_CENTERS, PO_POINTS), (256, PO_ROWS, PO_ROWS)):
+        q = torch.randn(B, M, C, generator=gen, device=dev)
+        db = torch.randn(B, N, C, generator=gen, device=dev)
+        for k in (20, 64, 128):
+            err = max(err, compare_knn_topk(q, db, k, f"C={C} {M}->{N} "
+                                            f"k={k} B={B}"))
+        dup = db.clone()
+        dup[:, 1::2] = dup[:, 0::2]
+        err = max(err, compare_knn_topk(dup, dup, 20, f"C={C} self, every "
+                                        f"point twice, k=20 B={B}"))
+        idx = knn_topk(dup, dup, 20)
+        pair = torch.arange(N, device=dev) // 2 * 2
+        require(torch.equal(idx[..., 0].long(), pair.expand(B, N))
+                and torch.equal(idx[..., 1].long(), pair.expand(B, N) + 1),
+                f"knn_topk C={C}: a duplicated pair is not first, in order")
+    x = torch.randn(B, PO_ROWS, 128, generator=gen, device=dev)
+    return {"knn_topk": err,
+            "knn_gather": compare_knn_gather(x, K, f"C=128 k={K} B={B}")}
+
+
+# ----------------------------------------- the point-ops slice: phase 3p
+PO_PER_PATH = {"knn_topk": 6, "knn_gather": 1}
+PO_REPS = 5              # warm passes timed for the path's wall time
+
+
+def point_ops_path(model, gen, dev) -> dict:
+    """Phase 3p: 35 clouds of 2048 points from ``generate()`` (the
+    full-width generator, B=35), then the public ``pdgn_tpu_torch.ops`` API
+    with every launch counter set to 0 just before and read just after:
+    FPS 2048 -> 512 and ``gather_points``; ``group_xyz`` (k=20, the shape
+    loss's neighbourhoods); ``query_and_group`` by ball (r=0.2) and by kNN
+    (32); ``query_and_group_dilate`` (32 of 64 self neighbours);
+    ``three_nn`` + ``interpolate`` 512 -> 2048; ``edge_features`` and
+    ``edge_features_xyz`` at (35, 1024, 256), k=10; ``neighbor_features`` at
+    (35, 1024, 128), k=10; ``EdgeConv(128, 256, 10)`` forward and backward.
+    Then holds every kernel result against its plain version (the kernels
+    are deterministic, so a second launch gives the path's indices)."""
+    import numpy as np
+    import torch
+    from pdgn_tpu_torch import ops
+    from pdgn_tpu_torch.models.generator import EdgeConv
+    from pdgn_tpu_torch.ops.edges import neighbor_idx
+    from pdgn_tpu_torch.ops.kernels import _lib
+    from pdgn_tpu_torch.ops.kernels.knn import knn_topk_reference, sqdist
+    from pdgn_tpu_torch.train.generate import generate
+
+    clouds = generate(PO_B, PO_B, SEED + 3, device=dev, model=model)
+    require(clouds.shape == (PO_B, PO_POINTS, 3)
+            and bool(np.isfinite(clouds).all()), "generated clouds")
+    xyz = torch.from_numpy(clouds).to(dev)
+    fea = torch.randn(PO_B, PO_POINTS, 32, generator=gen, device=dev)
+    x256 = torch.randn(PO_B, PO_ROWS, 256, generator=gen, device=dev)
+    x128 = torch.randn(PO_B, PO_ROWS, 128, generator=gen, device=dev)
+    pc = xyz[:, :PO_ROWS].contiguous()
+    conv = EdgeConv(128, 256, K).to(dev)
+    ct = torch.randn(PO_B, PO_ROWS, 256, generator=gen, device=dev)
+
+    def run():
+        slots = torch.Generator(device=dev).manual_seed(SEED)
+        x_in = x128.clone().requires_grad_(True)
+        fps = ops.furthest_point_sample(xyz, PO_CENTERS)
+        centers = ops.gather_points(xyz, fps)
+        shape_nbrs = ops.group_xyz(xyz, centers, nsample=20)
+        ball = ops.query_and_group(xyz, centers, fea, nsample=32, radius=0.2)
+        knn32 = ops.query_and_group(xyz, centers, fea, nsample=32)
+        dilated = ops.query_and_group_dilate(xyz, None, fea, nsample=32,
+                                             generator=slots)
+        dist3, idx3 = ops.three_nn(xyz, centers)
+        up = ops.interpolate(ops.gather_points(fea, fps), idx3,
+                             ops.three_interpolate_weights(dist3))
+        e_fea = ops.edge_features(x256, K)
+        e_fea2, e_xyz = ops.edge_features_xyz(x256, pc, K)
+        nb_idx, nbr = ops.neighbor_features(x128, K)
+        y = conv(x_in)
+        y.backward(ct)
+        return (fps, centers, shape_nbrs, ball, knn32, dilated, up, e_fea,
+                e_fea2, e_xyz, nb_idx, nbr, y, x_in)
+
+    torch.cuda.synchronize()
+    _lib.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    (fps, centers, shape_nbrs, ball, knn32, dilated, up, e_fea, e_fea2,
+     e_xyz, nb_idx, nbr, y, x_in) = res
+    log(f"  point-ops path on {PO_B} clouds of {PO_POINTS} points: first "
+        f"(cold) pass {cold:.3f} s, launches {launches}")
+    require(launches == PO_PER_PATH, f"launches {launches} != {PO_PER_PATH}")
+
+    # FPS is plain torch: the card's picks equal the CPU's on cloud 0
+    want_fps = ops.furthest_point_sample(xyz[:1].cpu(), PO_CENTERS)
+    require(torch.equal(fps[:1].cpu(), want_fps), "FPS differs from the CPU")
+    shapes = {"group_xyz": (shape_nbrs, (PO_B, PO_CENTERS, 20, 3)),
+              "ball": (ball, (PO_B, PO_CENTERS, 32, 35)),
+              "knn32": (knn32, (PO_B, PO_CENTERS, 32, 35)),
+              "dilate": (dilated, (PO_B, PO_POINTS, 32, 35)),
+              "interpolate": (up, (PO_B, PO_POINTS, 32)),
+              "edge_features": (e_fea, (PO_B, PO_ROWS, K, 512)),
+              "edge_features_xyz": (e_xyz, (PO_B, PO_ROWS, K, 6)),
+              "neighbor_features": (nbr, (PO_B, PO_ROWS, K, 128)),
+              "edge_conv": (y, (PO_B, PO_ROWS, 256)),
+              "edge_conv d x": (x_in.grad, (PO_B, PO_ROWS, 128))}
+    for name, (v, shape) in shapes.items():
+        require(tuple(v.shape) == shape and bool(torch.isfinite(v).all()),
+                f"{name}: shape {tuple(v.shape)} or non-finite")
+    require(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                for p in conv.parameters()), "EdgeConv: parameter gradients")
+
+    # each kernel call of the path against its plain version
+    err = 0.0
+    for label, q, db, k, out, regroup in (
+            ("group_xyz k=20", centers, xyz, 20, shape_nbrs,
+             lambda i: ops.grouping(xyz, i)),
+            ("query_and_group k=32", centers, xyz, 32, knn32,
+             lambda i: ops.query_and_group(xyz, centers, fea, i)),
+            ("dilate self k=64", xyz, xyz, 64, None, None)):
+        idx_k = ops.knn(db, q, k)
+        err = max(err, knn_idx_check(idx_k, knn_topk_reference(q, db, k),
+                                     sqdist(q, db), f"3p {label}"))
+        if out is not None:
+            require(torch.equal(out, regroup(idx_k)), f"3p {label}: the "
+                    "path's output is not its graph's grouping")
+    idx_e = neighbor_idx(x256, K)
+    err = max(err, knn_idx_check(
+        idx_e, knn_topk_reference(x256, x256, K + 1)[..., 1:],
+        sqdist(x256, x256), f"3p edge_features C=256 k={K}"))
+    nb = ops.grouping(x256, idx_e)
+    central = x256[:, :, None, :].expand_as(nb)
+    require(torch.equal(e_fea, torch.cat([central, nb - central], -1))
+            and torch.equal(e_fea2, e_fea), "3p edge features")
+    err_g = knn_idx_check(nb_idx,
+                          knn_topk_reference(x128, x128, K + 1)[..., 1:],
+                          sqdist(x128, x128),
+                          f"3p neighbor_features C=128 k={K}")
+    require(torch.equal(nbr, ops.grouping(x128, nb_idx)),
+            "3p neighbor_features: nbr != grouping(x, idx)")
+    require(torch.equal(neighbor_idx(x128, K), nb_idx),
+            "3p: knn_topk and knn_gather build different graphs")
+    log("  3p outputs: every kernel graph held to its plain version; "
+        "FPS equal to the CPU's; all outputs finite")
+
+    # the path's wall time: the median of PO_REPS warm passes
+    del res, fps, shape_nbrs, ball, knn32, dilated, up, e_fea, e_fea2, e_xyz
+    del nbr, y, x_in
+    walls = []
+    for _ in range(PO_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[PO_REPS // 2]
+    log(f"  point-ops path wall: median {wall:.4f} s of {PO_REPS} warm "
+        f"passes {[round(w, 4) for w in walls]}; cold pass {cold:.4f} s")
+    return {"launches": launches, "seconds": wall, "walls": walls,
+            "cold_seconds": cold,
+            "max_abs_err": {"knn_topk": err, "knn_gather": err_g},
+            "inputs": {"xyz": xyz, "centers": centers, "x256": x256,
+                       "x128": x128}}
+
+
+# ----------------------------------------- the point-ops slice: phase 4p
+def knn_bound(B: int, M: int, N: int, C: int, k: int, self_query: bool,
+              gather: bool = False):
+    """Least time of a kNN call: per (query, row) pair 3C operations for
+    C <= 4 (C differences, C products, C-1 sums, one compare) or 2C + 4
+    (the dot product's FMAs at 2 FLOP, the expansion's three, one compare)
+    plus the norms; bytes: each input once, idx (and nbr) once."""
+    pairs = float(B) * M * N
+    if C <= 4:
+        flops = 3.0 * C * pairs
+    else:
+        flops = (2.0 * C + 4) * pairs + 2.0 * C * B * (M + (0 if self_query
+                                                           else N))
+    nbytes = 4.0 * (B * M * C + (0 if self_query else B * N * C)
+                    + B * M * k + (B * M * k * C if gather else 0))
+    return bound(flops, nbytes)
+
+
+def time_knn(inputs, dev) -> dict:
+    """Phase 4p: ``knn_topk`` at the three 3p shapes and ``knn_gather`` at
+    (35, 1024, 128), k=10, beside the plain version, the two PyTorch calls
+    ``torch.cdist`` + ``torch.topk(largest=False)`` (a yardstick, not one
+    call; the gather adds ``grouping``), and the bound; holds the kernel
+    to its plain version on the timed inputs."""
+    import torch
+    from pdgn_tpu_torch.ops.grouping import grouping
+    from pdgn_tpu_torch.ops.kernels.knn import (knn_gather,
+                                                knn_gather_reference,
+                                                knn_topk, knn_topk_reference)
+
+    xyz, centers = inputs["xyz"], inputs["centers"]
+    x256, x128 = inputs["x256"], inputs["x128"]
+    rows = []
+    tot = {"ms": 0.0, "plain_ms": 0.0, "cdist_topk_ms": 0.0, "bound_ms": 0.0}
+    err = 0.0
+    for label, q, db, k, self_query in (
+            (f"{PO_B}x{PO_CENTERS} -> {PO_POINTS}, C=3, k=20", centers, xyz,
+             20, False),
+            (f"{PO_B}x{PO_POINTS} self, C=3, k=64", xyz, xyz, 64, True),
+            (f"{PO_B}x{PO_ROWS} self, C=256, k={K + 1}", x256, x256, K + 1,
+             True)):
+        B, M, C = q.shape
+        b, by = knn_bound(B, M, db.shape[1], C, k, self_query)
+        row = {"shape": label,
+               "ms": time_ms(lambda: knn_topk(q, db, k), 10),
+               "plain_ms": time_ms(lambda: knn_topk_reference(q, db, k), 2),
+               "cdist_topk_ms": time_ms(lambda: torch.topk(
+                   torch.cdist(q, db), k, largest=False), 3),
+               "bound_ms": b, "bound_by": by}
+        log(f"  knn_topk {label}: {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.3f} ms, cdist + topk (two calls) "
+            f"{row['cdist_topk_ms']:.4f} ms, bound {b:.4f} ms ({by})")
+        err = max(err, compare_knn_topk(q, db, k, label))
+        rows.append(row)
+        for key in tot:
+            tot[key] += row[key]
+    res = {"knn_topk": dict(tot, bound_by=max(rows, key=lambda r: r[
+        "bound_ms"])["bound_by"], library_ms=None, max_abs_err=err,
+        by_shape=rows, shape="the three 3p calls together: " + "; ".join(
+            r["shape"] for r in rows))}
+
+    B, M, C = x128.shape
+    b, by = knn_bound(B, M, M, C, K, True, gather=True)
+    ms = time_ms(lambda: knn_gather(x128, K), 10)
+    plain = time_ms(lambda: knn_gather_reference(x128, K), 2)
+
+    def three_calls():
+        idx = torch.topk(torch.cdist(x128, x128), K + 1,
+                         largest=False).indices[..., 1:]
+        return grouping(x128, idx)
+
+    lib3 = time_ms(three_calls, 3)
+    label = f"{PO_B}x{PO_ROWS} self, C=128, k={K}"
+    log(f"  knn_gather {label}: {ms:.4f} ms, plain {plain:.3f} ms, cdist + "
+        f"topk + grouping (three calls) {lib3:.4f} ms, bound {b:.4f} ms "
+        f"({by})")
+    res["knn_gather"] = {
+        "ms": ms, "plain_ms": plain, "cdist_topk_ms": lib3, "bound_ms": b,
+        "bound_by": by, "library_ms": None, "shape": label,
+        "max_abs_err": compare_knn_gather(x128, K, label)}
+    return res
+
+
 KERNELS = {
     "edge_head": ("pdgn_tpu_torch/csrc/edge_head.cu",
                   "pdgn_tpu/ops/pallas/edge_head.py:74"),
@@ -1102,6 +1455,10 @@ KERNELS = {
                         "pdgn_tpu/ops/pallas/local_stats.py:183"),
     "emd_cd": ("pdgn_tpu_torch/csrc/emd_cd.cu",
                "pdgn_tpu/ops/pallas/emd_cd.py:52"),
+    "knn_topk": ("pdgn_tpu_torch/csrc/knn.cu",
+                 "pdgn_tpu/ops/pallas/knn.py:32"),
+    "knn_gather": ("pdgn_tpu_torch/csrc/knn.cu",
+                   "pdgn_tpu/ops/pallas/knn.py:119"),
 }
 
 
@@ -1158,10 +1515,13 @@ def main(argv=None) -> int:
     errs.update(check_train_kernels(gen, dev))
     log(f"phase 2e: emd_cd against its plain version (n={EMD_N})")
     errs["emd_cd"] = check_emd_cd(dev)
+    log("phase 2p: knn_topk and knn_gather against their plain versions "
+        "(B=8)")
+    errs.update(check_knn_kernels(gen, dev))
 
     log("phase 3: main path, generate() at full width")
     path = main_path(dev)
-    del path["model"]
+    model = path.pop("model")
 
     ckpt_root = os.path.join(root, "pdgn_tpu_torch", "_build", "smoke_ckpt")
     shutil.rmtree(ckpt_root, ignore_errors=True)
@@ -1174,6 +1534,13 @@ def main(argv=None) -> int:
         test = test_path(root, ckpt_root, dev)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    log(f"phase 3p: point-ops path, pdgn_tpu_torch.ops at full width on "
+        f"{PO_B} generated clouds")
+    point_ops = point_ops_path(model, gen, dev)
+    del model
+    po_inputs = point_ops.pop("inputs")
+    for name, e in point_ops.pop("max_abs_err").items():
+        errs[name] = max(errs[name], e)
 
     log("phase 4: kernel times and checks at the main path's B=128 shapes")
     times = time_kernels(dev, gen)
@@ -1182,13 +1549,18 @@ def main(argv=None) -> int:
     log(f"phase 4e: emd_cd times at the test path's {TEST_TILE}x{TEST_TILE} "
         f"tile")
     times["emd_cd"] = time_emd_cd(dev)
+    log("phase 4p: knn_topk and knn_gather times at the point-ops path's "
+        "shapes")
+    times.update(time_knn(po_inputs, dev))
+    del po_inputs
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = times[name]
         by_path = {"sample": path["launches"].get(name, 0),
                    "train": train["launches"].get(name, 0),
-                   "test": test["launches"].get(name, 0)}
+                   "test": test["launches"].get(name, 0),
+                   "point_ops": point_ops["launches"].get(name, 0)}
         require(sum(by_path.values()) > 0, f"{name} never launched")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -1198,6 +1570,8 @@ def main(argv=None) -> int:
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if "cdist_topk_ms" in t:
+            kernels[-1]["cdist_topk_ms"] = t["cdist_topk_ms"]
         log(f"  {name} ({t['shape']}): {t['ms']:.3f} ms, plain "
             f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
             f"({t['bound_by']}), library {t['library_ms']}")
@@ -1209,13 +1583,15 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": build_s,
                        "kernels": kernels, "times": times, "path": path,
-                       "train": train, "test": test}, f, indent=1)
+                       "train": train, "test": test,
+                       "point_ops": point_ops}, f, indent=1)
     print(json.dumps({"card": smi,
                       "clouds_per_s_b128": path["clouds_per_s"],
                       "train_steps_per_s_b35": train["steps_per_s"],
                       "test_phase_s_64": test["seconds"],
                       "cd_emd_pairs_per_s": test["pairs_per_s"],
-                      "chair_eval_min_estimate": test["chair_eval_min"]}))
+                      "chair_eval_min_estimate": test["chair_eval_min"],
+                      "point_ops_path_s": point_ops["seconds"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,10 @@ reference ``.pth`` needs no conversion. :func:`generator_state_from_jax` and
 :func:`discriminator_state_from_jax` go the other way round from
 ``pdgn_tpu.convert_ckpt.convert_generator``/``convert_discriminator``: flax
 ``params``/``batch_stats`` (as numpy) -> a ``state_dict``, including the
-un-permutation of the window conv's block-ordered batch norm. Any tree shaped
-like ``params`` converts the same way (an Adam moment, for instance).
+un-permutation of the window conv's block-ordered batch norm;
+:func:`edge_conv_state_from_jax` does the same for the plain ``EdgeConv``.
+Any tree shaped like ``params`` converts the same way (an Adam moment, for
+instance).
 
 This module keeps its own copy of the rules: the port imports nothing of
 the JAX package.
@@ -160,6 +162,20 @@ def generator_state_from_jax(params: Dict, batch_stats: Dict,
     ``state_dict`` (``num_batches_tracked`` set to 0)."""
     return _state_from_jax(generator_rules(), params, batch_stats,
                            2 * (num_k // 2))
+
+
+def edge_conv_rules() -> List[Tuple[str, str, str]]:
+    """Rules for ``models.generator.EdgeConv`` against the flax
+    ``EdgeConv`` (``conv/dense`` and ``BatchNorm_0/bn``)."""
+    return [("conv.conv", "conv1x1", "conv.dense"),
+            ("conv.bn", "bn", "BatchNorm_0.bn")]
+
+
+def edge_conv_state_from_jax(params: Dict, batch_stats: Dict
+                             ) -> Dict[str, torch.Tensor]:
+    """Flax ``EdgeConv`` ``params``/``batch_stats`` -> the port's
+    ``state_dict`` (``num_batches_tracked`` set to 0)."""
+    return _state_from_jax(edge_conv_rules(), params, batch_stats)
 
 
 def discriminator_state_from_jax(params: Dict, batch_stats: Dict

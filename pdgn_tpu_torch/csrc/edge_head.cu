@@ -12,11 +12,10 @@
 // fp32 FMA rate (67 TFLOP/s) is the ceiling.
 //
 // The simple design: several plain launches instead of one fused body.
-//   1. row_sqnorm + knn_kernel: each thread owns one query row and keeps its
-//      best k+1 (ascending fp32 norm-expansion distance, lowest index first
-//      on ties) in registers by insertion while the sample's rows stream
-//      through shared memory in 64-row tiles; slot 0 is dropped. The TPU's
-//      packed bf16 keys are not ported: the graph is the fp32-exact one.
+//   1. knn_select (knn.cu, the knn_topk kernel's selection): self-kNN of
+//      x_knn for k+1 by the fp32 norm expansion, ascending, lowest index
+//      first on ties, slot 0 dropped. The TPU's packed bf16 keys are not
+//      ported: the graph is the fp32-exact one.
 //   2. gemm_kernel with a gathered A operand, twice: once for the window conv
 //      (A row (n, wp) = [x[idx[n, wp..wp+window-1]] | x[n]], W = [wn; conv_a]),
 //      once for the merge partial (A row n = [x[idx[n, :]] | x[n]],
@@ -27,101 +26,11 @@
 //   4. Batch-norm sums go per block into scratch and column_reduce adds them
 //      in a fixed order (deterministic statistics).
 #include "common.cuh"
+#include "knn.cuh"
 
 #include <math.h>
 
 namespace {
-
-__global__ void row_sqnorm_kernel(const float* __restrict__ x, int rows, int C,
-                                  float* __restrict__ out) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const float* p = x + (size_t)r * C;
-  float s = 0.f;
-  for (int c = 0; c < C; ++c) s = fmaf(p[c], p[c], s);
-  out[r] = s;
-}
-
-constexpr int kTQ = 128;  // query rows per block (one per thread)
-constexpr int kTN = 64;   // database rows per shared-memory tile
-constexpr int kCK = 32;   // channels per shared-memory chunk
-
-template <int KP1>
-__global__ void __launch_bounds__(kTQ)
-knn_kernel(const float* __restrict__ x, const float* __restrict__ sq, int N,
-           int C, int* __restrict__ idx_out) {
-  __shared__ float sQ[kTQ][kCK + 1];
-  __shared__ float sD[kTN][kCK + 1];
-  __shared__ float sSq[kTN];
-
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kTQ;
-  const int t = threadIdx.x;
-  const int q = q0 + t;
-  const float* xb = x + (size_t)b * N * C;
-  const float* sqb = sq + (size_t)b * N;
-  const float qsq = q < N ? sqb[q] : 0.f;
-
-  float bd[KP1];
-  int bi[KP1];
-#pragma unroll
-  for (int s = 0; s < KP1; ++s) {
-    bd[s] = INFINITY;
-    bi[s] = 0;
-  }
-
-  for (int j0 = 0; j0 < N; j0 += kTN) {
-    float acc[kTN];
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[j] = 0.f;
-    for (int c0 = 0; c0 < C; c0 += kCK) {
-      for (int e = t; e < kTQ * kCK; e += kTQ) {
-        int r = e / kCK, c = e % kCK;
-        int gq = q0 + r, gc = c0 + c;
-        sQ[r][c] = (gq < N && gc < C) ? xb[(size_t)gq * C + gc] : 0.f;
-      }
-      for (int e = t; e < kTN * kCK; e += kTQ) {
-        int r = e / kCK, c = e % kCK;
-        int gj = j0 + r, gc = c0 + c;
-        sD[r][c] = (gj < N && gc < C) ? xb[(size_t)gj * C + gc] : 0.f;
-      }
-      __syncthreads();
-      for (int c = 0; c < kCK; ++c) {
-        float qv = sQ[t][c];
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[j] = fmaf(qv, sD[j][c], acc[j]);
-      }
-      __syncthreads();
-    }
-    if (t < kTN) sSq[t] = (j0 + t < N) ? sqb[j0 + t] : 0.f;
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      if (j0 + j < N) {
-        // same rounding order as the plain version: (|q|^2 - 2<q,y>) + |y|^2
-        float d = (qsq - 2.f * acc[j]) + sSq[j];
-        if (d < bd[KP1 - 1]) {
-          bd[KP1 - 1] = d;
-          bi[KP1 - 1] = j0 + j;
-          // strict < keeps the earlier (lower) index first on ties
-#pragma unroll
-          for (int s = KP1 - 1; s > 0; --s) {
-            if (bd[s] < bd[s - 1]) {
-              float td = bd[s]; bd[s] = bd[s - 1]; bd[s - 1] = td;
-              int ti = bi[s]; bi[s] = bi[s - 1]; bi[s - 1] = ti;
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (q < N) {
-    int* o = idx_out + ((size_t)b * N + q) * (KP1 - 1);
-#pragma unroll
-    for (int s = 1; s < KP1; ++s) o[s - 1] = bi[s];
-  }
-}
 
 // A row (p, r) with p = b*N + n: slot s < S reads x[b, idx[p, r + s], :],
 // the last slot reads x[p, :] itself (the central term rides the product).
@@ -177,24 +86,17 @@ __global__ void wnet_kernel(const float* __restrict__ pcat,
   o[k * 32 + col] = sq;
 }
 
-template <int KP1>
-void launch_knn(const float* x, const float* sq, int B, int N, int C, int* idx,
-                cudaStream_t stream) {
-  dim3 grid((N + kTQ - 1) / kTQ, B);
-  knn_kernel<KP1><<<grid, kTQ, 0, stream>>>(x, sq, N, C, idx);
-}
-
 }  // namespace
 
 extern "C" {
 
 // x (B,N,C) per-point features; x_knn (B,N,Cf) the features the graph is
-// built from; sq (B*N) scratch. w_conv ((window+1)*C, 4Fin) = [wn; conv_a],
+// built from. w_conv ((window+1)*C, 4Fin) = [wn; conv_a],
 // w_merge ((k+1)*C, 2F) = [wen; a_merge]. pcat/ppoint may be null (plain
 // stage). conv_scratch holds (rows_conv/64, 2, 4Fin) floats, w_scratch
 // (ceil(B*N/64), 2, k*32).
-int pdgn_edge_head(const float* x, const float* x_knn, float* sq, int B, int N,
-                   int C, int Cf, int k, const float* w_conv,
+int pdgn_edge_head(const float* x, const float* x_knn, int B, int N, int C,
+                   int Cf, int k, const float* w_conv,
                    const float* pb_point, int four_fin, const float* w_merge,
                    const float* pb_merge, int two_f, const float* pcat,
                    const float* ppoint, int* idx, float* inte, float* partial,
@@ -204,20 +106,9 @@ int pdgn_edge_head(const float* x, const float* x_knn, float* sq, int B, int N,
   const int hk = k / 2;
   const int window = hk + 1;
 
-  row_sqnorm_kernel<<<(rows + 255) / 256, 256, 0, stream>>>(x_knn, rows, Cf,
-                                                            sq);
-  PDGN_CHECK_LAUNCH();
-  switch (k + 1) {
-    case 3: launch_knn<3>(x_knn, sq, B, N, Cf, idx, stream); break;
-    case 5: launch_knn<5>(x_knn, sq, B, N, Cf, idx, stream); break;
-    case 7: launch_knn<7>(x_knn, sq, B, N, Cf, idx, stream); break;
-    case 9: launch_knn<9>(x_knn, sq, B, N, Cf, idx, stream); break;
-    case 11: launch_knn<11>(x_knn, sq, B, N, Cf, idx, stream); break;
-    case 13: launch_knn<13>(x_knn, sq, B, N, Cf, idx, stream); break;
-    case 17: launch_knn<17>(x_knn, sq, B, N, Cf, idx, stream); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  PDGN_CHECK_LAUNCH();
+  cudaError_t err = pdgn::knn_select(x_knn, x_knn, B, N, N, Cf, k + 1, 1,
+                                     /*direct=*/false, idx, nullptr, stream);
+  if (err != cudaSuccess) return (int)err;
 
   // window conv: rows (b, n, wp), output written straight into inte
   const int rows_conv = rows * hk;

@@ -28,6 +28,8 @@ from torch import nn
 
 from pdgn_tpu_torch.models.layers import (MLP, BatchNorm, BatchNormFold,
                                           TorchDense, leaky_relu)
+from pdgn_tpu_torch.ops.edges import neighbor_idx
+from pdgn_tpu_torch.ops.grouping import grouping
 from pdgn_tpu_torch.ops.kernels.bilateral_tail import edge_conv_tail
 from pdgn_tpu_torch.ops.kernels.edge_head import edge_conv_head
 from pdgn_tpu_torch.ops.kernels.slot_stats import slot_moment_stats
@@ -87,6 +89,34 @@ def _window_kernel(conv: _Conv, perm: torch.Tensor):
     """``(4Fin, 2C, 1, W)`` -> HWIO ``(1, W, 2C, 4Fin)`` in block order."""
     kernel = conv.weight.permute(2, 3, 1, 0)[..., perm]
     return kernel, conv.bias[perm]
+
+
+class EdgeConv(nn.Module):
+    """Plain edge convolution (reference ``edgeConv``,
+    models/PDGNet_v2.py:652-670; off the live PDGN path):
+    ``(B, N, Fin) -> (B, N, Fout)``.
+
+    A 1x1 conv over the edge features ``[x | nbr - x]`` of the feature-space
+    graph (:func:`neighbor_idx`, the ``knn_topk`` kernel on the card), batch
+    norm on batch statistics, ReLU, max over the k neighbours. The conv is
+    split as the JAX package's ``_split_1x1``: ``x @ (Wc - Wn) + b`` per
+    point plus the gathered ``x @ Wn``, so the ``(B, N, k, 2Fin)`` edge
+    tensor never exists. Parameters: ``conv.conv`` (weight ``(Fout, 2Fin,
+    1, 1)``, bias) and ``conv.bn``.
+    """
+
+    def __init__(self, fin: int, fout: int, k: int):
+        super().__init__()
+        self.fin, self.fout, self.k = fin, fout, k
+        self.conv = _ConvBN(fout, 2 * fin, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kernel = self.conv.conv.weight[:, :, 0, 0].T       # (2Fin, Fout)
+        wc, wn = kernel[:self.fin], kernel[self.fin:]
+        point = torch.matmul(x, wc - wn) + self.conv.conv.bias
+        nbr = grouping(torch.matmul(x, wn), neighbor_idx(x, self.k))
+        e = torch.relu(self.conv.bn(point[:, :, None, :] + nbr))
+        return torch.amax(e, dim=2)
 
 
 class UpsampleEdgeConv(nn.Module):

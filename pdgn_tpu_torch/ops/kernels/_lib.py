@@ -39,8 +39,8 @@ _L = ctypes.c_longlong
 # argument types of every exported C function (pointers and the stream as
 # c_void_p: ctypes would otherwise pass a 32-bit int and cut the pointer)
 _SIGNATURES = {
-    "pdgn_edge_head": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P,
-                       _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "pdgn_edge_head": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "pdgn_slot_stats": [_P, _L, _P, _P, _P],
     "pdgn_bilateral_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _P, _P, _P],
@@ -50,6 +50,8 @@ _SIGNATURES = {
     "pdgn_local_stats_fwd": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "pdgn_local_stats_bwd": [_P] * 5 + [_I] * 4 + [_P] * 5 + [_P],
     "pdgn_emd_cd": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "pdgn_knn_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "pdgn_knn_gather": [_P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

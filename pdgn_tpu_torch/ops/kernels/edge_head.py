@@ -18,9 +18,10 @@ from typing import Optional
 
 import torch
 
-from pdgn_tpu_torch.ops.edges import neighbor_idx
 from pdgn_tpu_torch.ops.grouping import grouping
 from pdgn_tpu_torch.ops.kernels import _lib
+from pdgn_tpu_torch.ops.knn import knn_exclude_first
+from pdgn_tpu_torch.ops.pairwise import self_pairwise_sqdist
 
 PROJ = 32          # weight-net projection channels (16 fea + 16 xyz)
 _SUPPORTED_K = (2, 4, 6, 8, 10, 12, 16)
@@ -73,8 +74,9 @@ def head_reference_given_idx(x, wn_flat, conv_a, pb_point, a_merge, wen,
 
 def head_plain(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
                pcat, ppoint, k: int, window: int):
-    """Plain PyTorch head: exact kNN on ``x_knn`` + the fixed-graph body."""
-    idx = neighbor_idx(x_knn, k)
+    """Plain PyTorch head: exact kNN on ``x_knn`` (norm expansion, row
+    minimum dropped) + the fixed-graph body."""
+    idx = knn_exclude_first(self_pairwise_sqdist(x_knn), k)
     return (idx,) + head_reference_given_idx(
         x, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge, pcat, ppoint,
         idx, k, window)
@@ -95,7 +97,6 @@ def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     _lib.check_rows(rows * hk, 64, "edge_head")
     w_conv = torch.cat([wn_flat, conv_a], dim=0).contiguous()
     w_merge = torch.cat([wen, a_merge], dim=0).contiguous()
-    sq = torch.empty(rows, **f32)
     idx = torch.empty(B, N, k, device=dev, dtype=torch.int32)
     inte = torch.empty(B, N, hk * four_fin, **f32)
     partial = torch.empty(B, N, two_f, **f32)
@@ -111,7 +112,7 @@ def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
         wfea = wxyz = wstats = w_scratch = None
     p = _lib.ptr
     _lib.check(_lib.library().pdgn_edge_head(
-        p(x), p(x_knn), p(sq), B, N, C, cf, k, p(w_conv), p(pb_point),
+        p(x), p(x_knn), B, N, C, cf, k, p(w_conv), p(pb_point),
         four_fin, p(w_merge), p(pb_merge), two_f, p(pcat), p(ppoint),
         p(idx), p(inte), p(partial), p(stats), p(conv_scratch), p(wfea),
         p(wxyz), p(wstats), p(w_scratch), _lib.stream_handle(dev)),

@@ -13,7 +13,6 @@ import numpy as np
 import pytest
 import torch
 
-from pdgn_tpu_torch.ops.edges import neighbor_idx
 from pdgn_tpu_torch.ops.kernels import _lib
 from pdgn_tpu_torch.ops.kernels.bilateral_tail import tail, tail_reference
 from pdgn_tpu_torch.ops.kernels.edge_head import (edge_head,
@@ -21,6 +20,8 @@ from pdgn_tpu_torch.ops.kernels.edge_head import (edge_head,
                                                   head_reference_given_idx)
 from pdgn_tpu_torch.ops.kernels.slot_stats import (slot_moment_stats,
                                                    stats_plain)
+from pdgn_tpu_torch.ops.knn import knn_exclude_first
+from pdgn_tpu_torch.ops.pairwise import self_pairwise_sqdist
 
 pytestmark = pytest.mark.cuda
 
@@ -62,8 +63,11 @@ def test_edge_head_kernel_matches_plain(dev, N, C, cx, k, gated):
     got = edge_head(x, x_knn, wn, ca, pb, am, wen, pbm, pcat, ppoint, k,
                     window)
     assert _lib.LAUNCHES["edge_head"] == before + 1
-    idx_p = neighbor_idx(x_knn, k)
+    idx_p = knn_exclude_first(self_pairwise_sqdist(x_knn), k)
     assert float((got[0] != idx_p).float().mean()) <= 1e-3
+    # the head's graph is knn_topk's selection (norm expansion, C > 4)
+    from pdgn_tpu_torch.ops.kernels.knn import knn_topk
+    assert torch.equal(got[0], knn_topk(x_knn, x_knn, k + 1)[..., 1:])
     want = head_reference_given_idx(x, wn, ca, pb, am, wen, pbm, pcat,
                                     ppoint, got[0], k, window)
     for a, b in zip(got[1:], want):
@@ -292,3 +296,127 @@ def test_test_phase_on_the_card_counts(dev, tmp_path):
     assert _lib.LAUNCHES["emd_cd"] == 12
     assert _lib.LAUNCHES["edge_head"] == 8
     assert all(np.isfinite(v) for v in res.values())
+
+
+def _duplicate_pairs(x):
+    """Rows 2i and 2i + 1 equal (exact distance ties)."""
+    n = x.shape[1] // 2 * 2
+    x[:, 1:n:2] = x[:, 0:n:2]
+
+
+def _near_tie_check(idx_k, idx_p, d, label):
+    """kNN indices of a kernel against its plain version: equal but where
+    a neighbour differs at a near-tie (its distance within 1e-5 relative of
+    the one it replaces), at most 0.1% of the entries."""
+    mism = idx_k != idx_p
+    assert float(mism.float().mean()) <= 1e-3, label
+    if bool(mism.any()):
+        dk = d.gather(-1, idx_k.long())
+        dp = d.gather(-1, idx_p.long())
+        scale = torch.maximum(dk.abs(), dp.abs()).clamp_min(1e-12)
+        assert float(((dk - dp).abs() / scale)[mism].max()) <= 1e-5, label
+
+
+@pytest.mark.parametrize("B,M,N,C,k,ties", [
+    (2, 100, 300, 3, 1, False), (3, 130, 257, 4, 3, True),
+    (2, 77, 129, 5, 21, False), (2, 200, 333, 33, 100, False),
+    (1, 128, 128, 3, 128, True), (2, 64, 200, 33, 128, False),
+    (2, 150, 150, 33, 21, True)])
+def test_knn_topk_kernel_matches_plain(dev, B, M, N, C, k, ties):
+    """Ragged M and N, both distance branches, register (k <= 32) and
+    shared-memory lists, duplicated points (ties: the lower index first).
+    C <= 4 rounds as the plain version does, so the indices are equal; the
+    norm expansion's dot products add in another order than cuBLAS, so
+    there the near-tie rule holds. A second launch is bit-identical."""
+    from pdgn_tpu_torch.ops.kernels.knn import (knn_topk, knn_topk_reference,
+                                                sqdist)
+
+    g = torch.Generator(device=dev).manual_seed(M + N + C + k)
+    db = torch.randn(B, N, C, generator=g, device=dev)
+    if ties:
+        _duplicate_pairs(db)
+    q = db[:, :M].clone() if ties else torch.randn(B, M, C, generator=g,
+                                                    device=dev)
+    before = _lib.LAUNCHES["knn_topk"]
+    idx = knn_topk(q, db, k)
+    assert _lib.LAUNCHES["knn_topk"] == before + 1
+    assert idx.dtype == torch.int32 and idx.shape == (B, M, k)
+    want = knn_topk_reference(q, db, k)
+    if C <= 4:
+        assert torch.equal(idx, want)
+    else:
+        _near_tie_check(idx, want, sqdist(q, db), "knn_topk")
+    assert torch.equal(idx, knn_topk(q, db, k))
+
+
+@pytest.mark.parametrize("B,M,C,k,ties", [(2, 100, 3, 5, False),
+                                          (2, 257, 33, 21, False),
+                                          (3, 300, 128, 10, True),
+                                          (1, 140, 4, 127, False),
+                                          (2, 150, 5, 100, True)])
+def test_knn_gather_kernel_matches_plain(dev, B, M, C, k, ties):
+    """idx against the plain selection (near-tie rule for C > 4), nbr
+    equal to grouping(x, idx) bit for bit, and the gradient of
+    sum(nbr^2) rel <= 1e-5 of the plain version's for the same graph (both
+    scatter-add with float atomics, in run-dependent orders)."""
+    from pdgn_tpu_torch.ops.grouping import grouping
+    from pdgn_tpu_torch.ops.kernels.knn import (knn_gather, knn_topk_reference,
+                                                sqdist)
+
+    g = torch.Generator(device=dev).manual_seed(M + C + k)
+    x = torch.randn(B, M, C, generator=g, device=dev)
+    if ties:
+        _duplicate_pairs(x)
+    x.requires_grad_(True)
+    before = _lib.LAUNCHES["knn_gather"]
+    idx, nbr = knn_gather(x, k)
+    assert _lib.LAUNCHES["knn_gather"] == before + 1
+    assert idx.shape == (B, M, k) and nbr.shape == (B, M, k, C)
+    with torch.no_grad():
+        want = knn_topk_reference(x, x, k + 1)[..., 1:]
+        if C <= 4:
+            assert torch.equal(idx, want)
+        else:
+            _near_tie_check(idx, want, sqdist(x, x), "knn_gather")
+        assert torch.equal(nbr, grouping(x, idx))
+    (grad,) = torch.autograd.grad((nbr ** 2).sum(), x)
+    (grad_p,) = torch.autograd.grad((grouping(x, idx) ** 2).sum(), x)
+    assert _rel(grad, grad_p) <= 1e-5
+
+
+def test_point_ops_on_the_card_count_their_launches(dev):
+    """The library's kNN users go through the kernels: knn and the
+    grouping family through knn_topk, edge features and EdgeConv through
+    knn_topk, neighbor_features through knn_gather; the EdgeConv backward
+    launches nothing more."""
+    from pdgn_tpu_torch import ops
+    from pdgn_tpu_torch.models.generator import EdgeConv
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    xyz = torch.randn(2, 300, 3, generator=g, device=dev)
+    x = torch.randn(2, 200, 24, generator=g, device=dev)
+    m = EdgeConv(24, 32, 6).to(dev)
+    _lib.LAUNCHES.clear()
+    ctr = ops.gather_points(xyz, ops.furthest_point_sample(xyz, 64))
+    ops.group_xyz(xyz, ctr, nsample=8)
+    ops.query_and_group(xyz, ctr, nsample=8)
+    ops.query_and_group(xyz, ctr, nsample=8, radius=0.3)
+    ops.edge_features(x, 6)
+    ops.neighbor_features(x, 6)
+    x.requires_grad_(True)
+    m(x).sum().backward()
+    torch.cuda.synchronize()
+    assert dict(_lib.LAUNCHES) == {"knn_topk": 4, "knn_gather": 1}
+    assert torch.isfinite(x.grad).all()
+
+
+def test_knn_kernels_refuse_what_they_cannot_take(dev):
+    from pdgn_tpu_torch.ops.kernels.knn import knn_gather, knn_topk
+
+    x = torch.zeros(1, 300, 3, device=dev)
+    with pytest.raises(ValueError):
+        knn_topk(x, x, 129)
+    with pytest.raises(ValueError):
+        knn_topk(x, x[:, :10], 11)
+    with pytest.raises(ValueError):
+        knn_gather(x, 128)

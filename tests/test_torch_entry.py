@@ -281,7 +281,7 @@ def test_no_environment_switch_on_the_kernel_path():
 def test_kernel_sources_carry_their_header_note():
     for src in ("edge_head.cu", "slot_stats.cu", "bilateral_tail.cu",
                 "edge_head_bwd.cu", "bilateral_tail_bwd.cu",
-                "local_stats.cu", "emd_cd.cu"):
+                "local_stats.cu", "emd_cd.cu", "knn.cu"):
         text = (PKG / "csrc" / src).read_text()
         head = text[:3000]
         assert "Replaces the TPU kernel" in head and "pdgn_tpu/ops/pallas/" in head

@@ -13,9 +13,11 @@ What it does, in order (any failure raises and the exit code is not 0):
    off, at the generator's stage-4 shapes (B=8), plus stage 1 for the
    plain head and the plain tail. kNN indices may differ only at near-ties
    (every mismatched neighbour's distance within 1e-5 relative of the one
-   it replaces, at most 0.1% of entries); given the kernel's indices the
-   head's other outputs are rel <= 1e-4; slot stats rel <= 1e-5; the tails
-   rel <= 1e-4. ``rel`` is max |a - b| / max |b|;
+   it replaces, at most 0.1% of entries), and the head's graph equals
+   ``knn_topk``'s; given the kernel's indices the head's other outputs are
+   rel <= 1e-4; slot stats rel <= 1e-5; the tails rel <= 1e-4; a second
+   launch of the head and of slot stats gives the same bits. ``rel`` is
+   max |a - b| / max |b|;
 3. drives the main path: ``generate()`` (the ``--phase sample`` entry) at
    full width, 256 clouds in batches of 128 from a seeded random init,
    with every launch counter set to 0 just before and read just after;
@@ -29,9 +31,11 @@ What it does, in order (any failure raises and the exit code is not 0):
    shapes, the kernel, its plain version and (where one PyTorch call
    computes the same function) that call, beside the least time the card
    could take (max of bytes / 3.35 TB/s and FLOP / 67 TFLOP/s, the H100
-   SXM fp32 figures without tensor cores); holds each kernel's B=128
-   outputs against its plain version's with phase 2's tolerances and
-   near-tie rule.
+   SXM fp32 figures without tensor cores; the edge head's products, which
+   its kernel runs on the tensor cores, at 3xTF32's 495 / 3 TFLOP/s, so
+   the other kernels' bounds are upper estimates until their own
+   redesign); holds each kernel's B=128 outputs against its plain
+   version's with phase 2's tolerances and near-tie rule.
 
 The train slice, in the same phases:
 
@@ -121,6 +125,7 @@ import sys
 import time
 
 PEAK_FLOPS = 67e12       # H100 SXM fp32, no tensor cores (data sheet)
+PEAK_TF32X3 = 495e12 / 3  # dense TF32 (data sheet), three passes a product
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3 bytes/s (data sheet)
 K = 10                   # neighbours per stage (num_k 20 halved)
 SEED = 2024
@@ -226,20 +231,31 @@ def tail_inputs(stage: int, B: int, gated: bool, gen, dev):
 
 # ------------------------------------------------------- kernel vs plain
 def compare_head(args, label: str) -> float:
-    """The edge head's kernel against its plain version on ``args``: kNN
-    indices equal except at near-ties, the other outputs (given the
-    kernel's indices) rel <= 1e-4. Returns the largest absolute error."""
+    """The edge head's kernel against its plain version on ``args``: two
+    launches bit-identical, the graph equal to ``knn_topk``'s (k+1, slot 0
+    dropped) and to the plain one's except at near-ties, the other outputs
+    (given the kernel's indices) rel <= 1e-4. Returns the largest absolute
+    error."""
     import torch
     from pdgn_tpu_torch.ops.kernels.edge_head import (edge_head,
                                                       head_reference_given_idx)
+    from pdgn_tpu_torch.ops.kernels.knn import knn_topk
     from pdgn_tpu_torch.ops.knn import knn_exclude_first
     from pdgn_tpu_torch.ops.pairwise import self_pairwise_sqdist
 
     (x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge, pcat,
      ppoint, k, window) = args
+    names = ("inte", "partial", "stats", "wfea", "wxyz", "wstats")
     got = edge_head(*args)
+    again = edge_head(*args)
     torch.cuda.synchronize()
     idx_k = got[0]
+    for name, a, b in zip(("idx",) + names, got, again):
+        require(a is None or torch.equal(a, b),
+                f"head {label}: {name} differs between two launches")
+    require(torch.equal(idx_k, knn_topk(x_knn, x_knn, k + 1)[..., 1:]),
+            f"head {label}: the graph is not knn_topk's")
+    del again
     idx_p = knn_exclude_first(self_pairwise_sqdist(x_knn), k)
     mism = idx_k != idx_p
     frac = float(mism.float().mean())
@@ -259,7 +275,6 @@ def compare_head(args, label: str) -> float:
     want = head_reference_given_idx(x, wn_flat, conv_a, pb_point, a_merge,
                                     wen, pb_merge, pcat, ppoint, idx_k, k,
                                     window)
-    names = ("inte", "partial", "stats", "wfea", "wxyz", "wstats")
     err = 0.0
     for name, g, w in zip(names, got[1:], want):
         if w is None:
@@ -273,11 +288,16 @@ def compare_head(args, label: str) -> float:
 
 
 def compare_slot_stats(h, label: str) -> float:
-    """Slot stats' kernel against its plain version: rel <= 1e-5."""
+    """Slot stats' kernel against its plain version: rel <= 1e-5; two
+    launches bit-identical."""
+    import torch
     from pdgn_tpu_torch.ops.kernels.slot_stats import (slot_moment_stats,
                                                        stats_plain)
 
     s_k, S_k = slot_moment_stats(h, K)
+    s_2, S_2 = slot_moment_stats(h, K)
+    require(torch.equal(s_k, s_2) and torch.equal(S_k, S_2),
+            f"slot_stats {label}: two launches differ")
     s_p, S_p = stats_plain(h, K)
     e1, e2 = rel(s_k, s_p), rel(S_k, S_p)
     log(f"  slot_stats {label}: s rel {e1:.3e}, S rel {e2:.3e}")
@@ -411,8 +431,10 @@ def main_path(dev) -> dict:
 
 
 # ------------------------------------------------------------ phase 4: times
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FLOPS * 1e3
+def bound(flops: float, nbytes: float, t_ops: float = 0.0):
+    """The least time (ms) and what sets it: ``flops`` at the fp32 SIMT rate
+    plus ``t_ops`` ms of work counted at other rates, against ``nbytes``."""
+    t_ops += flops / PEAK_FLOPS * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -436,18 +458,24 @@ def time_kernels(dev, gen) -> dict:
     n, c, cx, four_fin, two_f = stage_dims(4)
     args = head_inputs(4, B, True, gen, dev)
     rows = B * n
-    flops = (2.0 * B * n * n * c                       # kNN distances
-             + 2.0 * rows * c * four_fin                 # x @ conv_a
-             + 2.0 * rows * hk * window * c * four_fin   # window conv
-             + 2.0 * rows * (K + 1) * c * two_f          # merge partial
-             + 2.0 * rows * K * 32)                      # weight-net rows
+    # the least work: x[idx] W = (x W)[idx], so one product of every point
+    # with the 7 window blocks and the k+1 merge blocks, at 3xTF32's
+    # fp32-accurate tensor-core rate; kNN distances (the xs half is the same
+    # for every point of a cloud and drops out of the ranking) and the
+    # gather adds at the fp32 SIMT rate
+    products = 2.0 * rows * c * ((window + 1) * four_fin + (K + 1) * two_f)
+    simt = (2.0 * B * n * n * c                          # kNN distances
+            + 1.0 * rows * hk * window * four_fin        # window sums
+            + 1.0 * rows * K * two_f                     # merge sums
+            + 1.0 * rows * K * 32)                       # weight-net rows
+    t_ops = (products / PEAK_TF32X3 + simt / PEAK_FLOPS) * 1e3
     nbytes = 4.0 * (rows * c + B * cx + rows * 64        # x, xs, pcat+ppoint
                     + (window + 1) * c * four_fin + (K + 1) * c * two_f
                     + B * (four_fin + two_f)             # weights, biases
                     + rows * K                           # idx
                     + rows * hk * four_fin + rows * two_f + 2 * four_fin
                     + rows * K * 32 + 2 * K * 32)        # outputs
-    b, by = bound(flops, nbytes)
+    b, by = bound(0.0, nbytes, t_ops)
     res["edge_head"] = {
         "ms": time_ms(lambda: edge_head(*args), 3),
         "plain_ms": time_ms(lambda: head_plain(*args), 2),

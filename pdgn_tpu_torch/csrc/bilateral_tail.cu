@@ -37,8 +37,8 @@ int pdgn_bilateral_tail(const float* partial, const float* inte,
                                 two_fin, softmax, g, stream);
   if (err != cudaSuccess) return (int)err;
   PlainA a{g, K};
-  Epilogue epi{y, bias, partial, 0, two_f};
-  gemm(a, wi, rows, K, two_f, epi, nullptr, stream);
+  Epilogue epi{y, bias, partial, two_f};
+  gemm(a, wi, rows, K, two_f, epi, stream);
   PDGN_CHECK_LAUNCH();
   return (int)cudaSuccess;
 }

@@ -227,7 +227,7 @@ int pdgn_bilateral_tail_bwd(
   PDGN_CHECK_LAUNCH();
   float* dg = g;
   gemm(PlainA{dy, two_f}, wi_t, rows, two_f, K,
-       Epilogue{dg, nullptr, nullptr, 0, K}, nullptr, stream);
+       Epilogue{dg, nullptr, nullptr, K}, stream);
   PDGN_CHECK_LAUNCH();
   const int nchunk = (rows + 255) / 256;
   chunk_colsum(PlainA{dy, two_f}, (long long)rows, two_f, 256, colsum, stream);
@@ -247,7 +247,7 @@ int pdgn_bilateral_tail_bwd(
     PDGN_CHECK_LAUNCH();
     const int hrows = rows * k;
     gemm(PlainA{dv, two_fin}, w2k_t, hrows, two_fin, kHid,
-         Epilogue{d_h, nullptr, nullptr, 0, kHid}, nullptr, stream);
+         Epilogue{d_h, nullptr, nullptr, kHid}, stream);
     PDGN_CHECK_LAUNCH();
     gemm_tn(PlainA{h, kHid}, PlainA{dv, two_fin}, (long long)hrows, kHid,
             two_fin, tn_scratch, d_w2k, stream);

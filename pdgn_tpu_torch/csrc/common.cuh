@@ -1,6 +1,6 @@
 // Shared device code of the port's kernels: the LeakyReLU of the generator,
 // a deterministic cross-block column reduction and a simple tiled fp32 GEMM
-// whose A operand comes through a loader (plain rows or gathered rows).
+// whose A operand comes through a loader (plain rows or computed ones).
 //
 // Everything sits in an anonymous namespace: each .cu file compiles its own
 // copy, so the objects link into one library without clashing symbols.
@@ -53,33 +53,27 @@ struct PlainA {
   }
 };
 
-// out = (addend + acc) + bias[row / bias_div]; bias_div == 0 -> one bias row.
-// bias and addend may be null.
+// out = (addend + acc) + bias[col]; bias and addend may be null.
 struct Epilogue {
   float* out;
   const float* bias;
   const float* addend;  // nullable (M, Nout)
-  int bias_div;
   int Nout;
-  __device__ __forceinline__ float operator()(int row, int col,
-                                              float acc) const {
+  __device__ __forceinline__ void operator()(int row, int col,
+                                             float acc) const {
     size_t o = (size_t)row * Nout + col;
     float v = addend ? addend[o] + acc : acc;
-    if (bias) v += bias[(size_t)(bias_div ? row / bias_div : 0) * Nout + col];
+    if (bias) v += bias[col];
     out[o] = v;
-    return v;
   }
 };
 
-// stats (nullable): per row-block column sums and sums of squares of the
-// stored output, laid out (gridDim.y, 2, Nout) for column_reduce.
 template <class ALoad>
 __global__ void __launch_bounds__(kThreads)
 gemm_kernel(ALoad A, const float* __restrict__ W, int M, int K, int Nout,
-            Epilogue epi, float* __restrict__ stats) {
+            Epilogue epi) {
   __shared__ float As[kBK][kBM + 4];
   __shared__ float Bs[kBK][kBN + 4];
-  __shared__ float red[2][16][kBN];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -124,8 +118,6 @@ gemm_kernel(ALoad A, const float* __restrict__ W, int M, int K, int Nout,
     __syncthreads();
   }
 
-  float cs[4] = {0.f, 0.f, 0.f, 0.f};
-  float cq[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     int gr = row0 + ty + 16 * i;
@@ -133,38 +125,17 @@ gemm_kernel(ALoad A, const float* __restrict__ W, int M, int K, int Nout,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       int gc = col0 + tx + 16 * j;
-      if (gc >= Nout) continue;
-      float v = epi(gr, gc, acc[i][j]);
-      cs[j] += v;
-      cq[j] += v * v;
-    }
-  }
-  if (stats != nullptr) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      red[0][ty][tx + 16 * j] = cs[j];
-      red[1][ty][tx + 16 * j] = cq[j];
-    }
-    __syncthreads();
-    if (tid < 2 * kBN) {
-      int which = tid / kBN, c = tid % kBN;
-      int gc = col0 + c;
-      float s = 0.f;
-      for (int t = 0; t < 16; ++t) s += red[which][t][c];
-      if (gc < Nout) stats[((size_t)blockIdx.y * 2 + which) * Nout + gc] = s;
+      if (gc < Nout) epi(gr, gc, acc[i][j]);
     }
   }
 }
 
 template <class ALoad>
 inline void gemm(ALoad A, const float* W, int M, int K, int Nout, Epilogue epi,
-                 float* stats, cudaStream_t stream) {
+                 cudaStream_t stream) {
   dim3 grid((Nout + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_kernel<ALoad><<<grid, kThreads, 0, stream>>>(A, W, M, K, Nout, epi,
-                                                    stats);
+  gemm_kernel<ALoad><<<grid, kThreads, 0, stream>>>(A, W, M, K, Nout, epi);
 }
-
-inline int gemm_row_blocks(int M) { return (M + kBM - 1) / kBM; }
 
 // ------------------------------------------------------ transposed GEMM
 // out[Kd, Nout] = sum over r < R of A(r, i) * B(r, o): the weight gradient

@@ -1,138 +1,394 @@
 // Edge-conv stage head for Hopper (sm_90a).
 //
 // Replaces the TPU kernel pdgn_tpu/ops/pallas/edge_head.py::_head_kernel
-// (launcher _head_pallas): self-kNN with the row minimum dropped, neighbour
-// gathers, the window convolution in block channel order, the merge conv's
-// fp32 partial, the gated stages' weight-net gather, and the batch-norm sums
-// of all of them.
+// (launcher _head_pallas): self-kNN with the row minimum dropped, the window
+// convolution in block channel order, the merge conv's fp32 partial, the
+// gated stages' weight-net rows, and the batch-norm sums of all of them:
+//   inte[p, wp]  = x[p] conv_a + pb_point + sum_{t<window} x[idx[p, wp+t]] Wn_t
+//   partial[p]   = x[p] A + pb_merge + sum_{j<k} x[idx[p, j]] We_j
+//   wfea/wxyz[p] = pcat[idx[p, j(s)]] + ppoint[p] in the (window, j) order.
 //
-// What bounds it on the H100: operations. At stage 4 (N=1024, C=128, 4Fin=1024,
-// 2F=512) one cloud costs ~8.1 GFLOP of window conv, ~1.5 GFLOP of merge
-// partial and ~0.5 GFLOP of kNN distances against ~40 MB of traffic, so the
-// fp32 FMA rate (67 TFLOP/s) is the ceiling.
+// What bounds it on the H100: operations. x[idx] W = (x W)[idx], so the
+// least work is one product of every point with every weight block, 7 of
+// C x 4Fin and k+1 of C x 2F a point: at stage 4, B=128 (N=1024, C=128,
+// 4Fin=1024, 2F=512) 429.5 GFLOP, 2.6 ms at 3xTF32's fp32-accurate 165
+// TFLOP/s; then 4.7 GFLOP of gather adds and 34.4 GFLOP of kNN distances at
+// 67 TFLOP/s (fp32 SIMT). Gathering first and multiplying the gathered rows
+// costs 35 products of C x 4Fin a point for the window alone, 4.4x the work.
 //
-// The simple design: several plain launches instead of one fused body.
-//   1. knn_select (knn.cu, the knn_topk kernel's selection): self-kNN of
-//      x_knn for k+1 by the fp32 norm expansion, ascending, lowest index
-//      first on ties, slot 0 dropped. The TPU's packed bf16 keys are not
-//      ported: the graph is the fp32-exact one.
-//   2. gemm_kernel with a gathered A operand, twice: once for the window conv
-//      (A row (n, wp) = [x[idx[n, wp..wp+window-1]] | x[n]], W = [wn; conv_a]),
-//      once for the merge partial (A row n = [x[idx[n, :]] | x[n]],
-//      W = [wen; a_merge]). Rows are read straight from device memory by index:
-//      Hopper has indexed loads, so the TPU's one-hot MXU gathers are gone.
-//   3. wnet_kernel: the 32-channel weight-net gather in the generator's
-//      (window, j) slot order, plus its sums.
-//   4. Batch-norm sums go per block into scratch and column_reduce adds them
-//      in a fixed order (deterministic statistics).
+// The design: the kNN, then two launches a chunk of clouds:
+//   1. pdgn::knn_select (knn.cu, the knn_topk kernel's selection): self-kNN
+//      of x_knn for k+1 by the fp32 norm expansion, ascending, lowest index
+//      first on ties, slot 0 dropped.
+//   2. head_product_kernel: P = x W_all on the tensor cores in 3xTF32
+//      (mma_tf32x3.cuh), W_all = [Wn_0 | .. | Wn_{window-1} | conv_a |
+//      We_0 | .. | We_{k-1} | A] packed by the wrapper. 128 x 128 tiles,
+//      8 warps of 64 x 32, operands staged through a 3-stage cp.async ring.
+//      P is scratch, (clouds of the chunk * N, ld); the wrapper cuts the
+//      batch into chunks of clouds (at most 1 GiB of P) to bound it.
+//   3. head_gather_kernel: a warp a point, float4 columns: the window sums
+//      inte[p, wp] = P_conv_a[p] + pb_point + sum_t P_Wn_t[idx[p, wp+t]]
+//      (t ascending), partial[p] = P_A[p] + sum_j P_We_j[idx[p, j]] (j
+//      ascending) + pb_merge, and the weight-net rows. Batch-norm sums
+//      accumulate per warp in shared memory; the warps fold in a fixed
+//      order and a persistent grid writes one partial a block, which
+//      column_reduce adds in a fixed order: deterministic statistics.
 #include "common.cuh"
 #include "knn.cuh"
-
-#include <math.h>
+#include "mma_tf32x3.cuh"
 
 namespace {
 
-// A row (p, r) with p = b*N + n: slot s < S reads x[b, idx[p, r + s], :],
-// the last slot reads x[p, :] itself (the central term rides the product).
-struct GatherA {
-  const float* x;
-  const int* idx;
-  int N, C, k, R, S;
-  __device__ __forceinline__ float load(int row, int kk) const {
-    int s = kk / C, c = kk - s * C;
-    int p = row / R, r = row - p * R;
-    int src;
-    if (s < S) {
-      int b = p / N;
-      src = b * N + idx[(size_t)p * k + r + s];
-    } else {
-      src = p;
+// ------------------------------------------------ 2. the dense product
+constexpr int kPM = 128, kPN = 128, kPK = 32;
+constexpr int kPStages = 3;
+constexpr int kPMT = 4, kPNT = 4;  // a warp's (16 x 8) tiles: 64 x 32
+constexpr int kPWarpsN = kPN / (8 * kPNT);
+constexpr int kPThreads = 32 * (kPM / (16 * kPMT)) * kPWarpsN;
+constexpr int kALd = kPK + 4;  // A rows padded: a-fragment reads hit 32 banks
+constexpr int kBLd = kPN + 8;  // B rows padded: b-fragment reads hit 32 banks
+constexpr int kAStage = kPM * kALd;
+constexpr int kBStage = kPK * kBLd;
+constexpr int kPSmemBytes = kPStages * (kAStage + kBStage) * 4;  // 107,520
+
+// P (M, ld) = A (M, K) @ W (K, ld), all row-major; K and ld multiples of 4,
+// rows 16-byte aligned. Out-of-range operand granules are zero-filled.
+__global__ void __launch_bounds__(kPThreads, 2)
+head_product_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                    int M, int K, int ld, float* __restrict__ P) {
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                       // [stage][kPM][kALd]
+  float* Bs = smem + kPStages * kAStage;  // [stage][kPK][kBLd]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * kPM, n0 = blockIdx.x * kPN;
+  const int wm = (warp / kPWarpsN) * 16 * kPMT;
+  const int wn = (warp % kPWarpsN) * 8 * kPNT;
+  const int ktiles = (K + kPK - 1) / kPK;
+
+  auto load = [&](int stage, int kt) {
+    const int k0 = kt * kPK;
+    float* as = As + stage * kAStage;
+    float* bs = Bs + stage * kBStage;
+#pragma unroll
+    for (int i = 0; i < kPM * kPK / 4 / kPThreads; ++i) {
+      const int e = tid + i * kPThreads;
+      const int r = e >> 3, q = e & 7;
+      const int gr = m0 + r, gk = k0 + 4 * q;
+      const bool ok = gr < M && gk < K;
+      cp_async16(as + r * kALd + 4 * q, ok ? A + (size_t)gr * K + gk : A,
+                 ok ? 16 : 0);
     }
-    return x[(size_t)src * C + c];
-  }
-};
+#pragma unroll
+    for (int i = 0; i < kPK * kPN / 4 / kPThreads; ++i) {
+      const int e = tid + i * kPThreads;
+      const int r = e >> 5, q = e & 31;
+      const int gk = k0 + r, gc = n0 + 4 * q;
+      const bool ok = gk < K && gc < ld;
+      cp_async16(bs + r * kBLd + 4 * q, ok ? W + (size_t)gk * ld + gc : W,
+                 ok ? 16 : 0);
+    }
+  };
 
-constexpr int kWRows = 64;  // points per weight-net block
+  float acc[kPMT][kPNT][4];
+#pragma unroll
+  for (int i = 0; i < kPMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kPNT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
 
-// One thread per (slot s, channel ch) of the 32-channel projection; slot s
-// reads extraction index (s % 2) * hk + s / 2, the generator's (window, j)
-// order, so the flat outputs line up with the block channel layout.
-__global__ void wnet_kernel(const float* __restrict__ pcat,
-                            const float* __restrict__ ppoint,
-                            const int* __restrict__ idx, int N, int k,
-                            int rows, float* __restrict__ wfea,
-                            float* __restrict__ wxyz,
-                            float* __restrict__ scratch) {
-  const int col = threadIdx.x;  // < k * 32
-  const int s = col / 32, ch = col % 32;
-  const int hk = k / 2;
-  const int j = (s % 2) * hk + s / 2;
-  const int r0 = blockIdx.x * kWRows;
-  const int r1 = min(r0 + kWRows, rows);
-  float sum = 0.f, sq = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    int b = r / N;
-    int src = b * N + idx[(size_t)r * k + j];
-    float v = pcat[(size_t)src * 32 + ch] + ppoint[(size_t)r * 32 + ch];
-    if (ch < 16)
-      wfea[(size_t)r * k * 16 + s * 16 + ch] = v;
-    else
-      wxyz[(size_t)r * k * 16 + s * 16 + ch - 16] = v;
-    sum += v;
-    sq += v * v;
+#pragma unroll
+  for (int s = 0; s < kPStages - 1; ++s) {
+    if (s < ktiles) load(s, s);
+    cp_async_commit();
   }
-  float* o = scratch + (size_t)blockIdx.x * 2 * k * 32;
-  o[col] = sum;
-  o[k * 32 + col] = sq;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kPStages - 2>();
+    __syncthreads();
+    const int nk = kt + kPStages - 1;  // refills the stage read at kt - 1
+    if (nk < ktiles) load(nk % kPStages, nk);
+    cp_async_commit();
+    const float* as = As + (kt % kPStages) * kAStage + (wm + g) * kALd + t;
+    const float* bs = Bs + (kt % kPStages) * kBStage + t * kBLd + wn + g;
+#pragma unroll
+    for (int kk = 0; kk < kPK; kk += 8) {
+      uint32_t bhi[kPNT][2], blo[kPNT][2];
+#pragma unroll
+      for (int nt = 0; nt < kPNT; ++nt) {
+        split_tf32(bs[kk * kBLd + nt * 8], bhi[nt][0], blo[nt][0]);
+        split_tf32(bs[(kk + 4) * kBLd + nt * 8], bhi[nt][1], blo[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < kPMT; ++mt) {
+        const float* a = as + mt * 16 * kALd + kk;
+        uint32_t ahi[4], alo[4];
+        split_tf32(a[0], ahi[0], alo[0]);
+        split_tf32(a[8 * kALd], ahi[1], alo[1]);
+        split_tf32(a[4], ahi[2], alo[2]);
+        split_tf32(a[8 * kALd + 4], ahi[3], alo[3]);
+#pragma unroll
+        for (int nt = 0; nt < kPNT; ++nt)
+          mma_tf32x3(acc[mt][nt], ahi, alo, bhi[nt], blo[nt]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < kPMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kPNT; ++nt) {
+      const int r = m0 + wm + mt * 16 + g;
+      const int c = n0 + wn + nt * 8 + 2 * t;  // even, and ld % 4 == 0
+      if (c >= ld) continue;
+      if (r < M)
+        *reinterpret_cast<float2*>(P + (size_t)r * ld + c) =
+            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      if (r + 8 < M)
+        *reinterpret_cast<float2*>(P + (size_t)(r + 8) * ld + c) =
+            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+}
+
+// ------------------------------------------------- 3. the gather pass
+__device__ __forceinline__ float4 operator+(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float4 operator*(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+
+constexpr int kProj = 32;  // weight-net channels: 16 fea + 16 xyz
+
+// Pointers are offset to the chunk: P (rows, ld), idx (rows, K) with
+// in-cloud indices, pb_* (clouds, width), outputs (rows, ...); four_fin,
+// two_f and ld are multiples of 4 and every row 16-byte aligned (float4
+// columns). Shared memory: per warp [2][four_fin] and, gated, [2][K * 32]
+// floats of sums.
+template <int K>
+__global__ void __launch_bounds__(256)
+head_gather_kernel(const float* __restrict__ P, int ld,
+                   const int* __restrict__ idx, int rows, int N, int four_fin,
+                   int two_f, const float* __restrict__ pb_point,
+                   const float* __restrict__ pb_merge,
+                   const float* __restrict__ pcat,
+                   const float* __restrict__ ppoint, float* __restrict__ inte,
+                   float* __restrict__ partial, float* __restrict__ wfea,
+                   float* __restrict__ wxyz, float* __restrict__ stats_part,
+                   float* __restrict__ w_part) {
+  constexpr int HK = K / 2, WIN = HK + 1;
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool gated = pcat != nullptr;
+  const int sw = 2 * four_fin + (gated ? 2 * K * kProj : 0);  // per warp
+  float* st = smem + warp * sw;
+  float* wst = st + 2 * four_fin;
+  for (int e = threadIdx.x; e < warps * sw; e += blockDim.x) smem[e] = 0.f;
+  __syncthreads();
+
+  const int U = four_fin / 4, U2 = two_f / 4, ldv = ld / 4;
+  const float4* Pv = reinterpret_cast<const float4*>(P);
+  const float4* pbv = reinterpret_cast<const float4*>(pb_point);
+  const float4* pbm = reinterpret_cast<const float4*>(pb_merge);
+  float4* intev = reinterpret_cast<float4*>(inte);
+  float4* partv = reinterpret_cast<float4*>(partial);
+  float4* ssum = reinterpret_cast<float4*>(st);
+  float4* ssq = reinterpret_cast<float4*>(st + four_fin);
+  const size_t ca = (size_t)WIN * U;          // conv_a's columns
+  const size_t we = (size_t)(WIN + 1) * U;    // We_0's columns
+  const size_t am = we + (size_t)K * U2;      // A's columns
+
+  for (int p = blockIdx.x * warps + warp; p < rows;
+       p += gridDim.x * warps) {
+    const int b = p / N;
+    const int mine = lane < K ? idx[(size_t)p * K + lane] : 0;
+    int row[K];  // the neighbours' rows in the chunk
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      row[j] = b * N + __shfl_sync(0xffffffffu, mine, j);
+    const size_t self = (size_t)p * ldv;
+
+    for (int u = lane; u < U; u += 32) {
+      const float4 point = Pv[self + ca + u] + pbv[(size_t)b * U + u];
+      float4 acc[HK];
+#pragma unroll
+      for (int wp = 0; wp < HK; ++wp) acc[wp] = point;
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+#pragma unroll
+        for (int t = 0; t < WIN; ++t)
+          if (j - t >= 0 && j - t < HK)
+            acc[j - t] = acc[j - t] + Pv[(size_t)row[j] * ldv + t * U + u];
+      float4 s = acc[0], q = acc[0] * acc[0];
+      intev[(size_t)p * HK * U + u] = acc[0];
+#pragma unroll
+      for (int wp = 1; wp < HK; ++wp) {
+        intev[((size_t)p * HK + wp) * U + u] = acc[wp];
+        s = s + acc[wp];
+        q = q + acc[wp] * acc[wp];
+      }
+      ssum[u] = ssum[u] + s;
+      ssq[u] = ssq[u] + q;
+    }
+
+    for (int u = lane; u < U2; u += 32) {
+      float4 a = Pv[self + am + u];
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        a = a + Pv[(size_t)row[j] * ldv + we + (size_t)j * U2 + u];
+      partv[(size_t)p * U2 + u] = a + pbm[(size_t)b * U2 + u];
+    }
+
+    if (gated) {
+      // slot s reads neighbour j = (s % 2) * HK + s / 2; channel = lane
+      const float pp = ppoint[(size_t)p * kProj + lane];
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        const int j = (s % 2) * HK + s / 2;
+        const float v = pcat[(size_t)row[j] * kProj + lane] + pp;
+        if (lane < kProj / 2)
+          wfea[((size_t)p * K + s) * (kProj / 2) + lane] = v;
+        else
+          wxyz[((size_t)p * K + s) * (kProj / 2) + lane - kProj / 2] = v;
+        wst[s * kProj + lane] += v;
+        wst[K * kProj + s * kProj + lane] += v * v;
+      }
+    }
+  }
+  __syncthreads();
+
+  // fold the warps in a fixed order: one partial a block
+  float* o = stats_part + (size_t)blockIdx.x * 2 * four_fin;
+  for (int e = threadIdx.x; e < 2 * four_fin; e += blockDim.x) {
+    float v = 0.f;
+    for (int w = 0; w < warps; ++w) v += smem[w * sw + e];
+    o[e] = v;
+  }
+  if (gated) {
+    float* ow = w_part + (size_t)blockIdx.x * 2 * K * kProj;
+    for (int e = threadIdx.x; e < 2 * K * kProj; e += blockDim.x) {
+      float v = 0.f;
+      for (int w = 0; w < warps; ++w) v += smem[w * sw + 2 * four_fin + e];
+      ow[e] = v;
+    }
+  }
+}
+
+constexpr int kGSmemMax = 200 * 1024;
+
+template <int K>
+cudaError_t launch_gather(int grid, const float* P, int ld, const int* idx,
+                          int rows, int N, int four_fin, int two_f,
+                          const float* pb_point, const float* pb_merge,
+                          const float* pcat, const float* ppoint, float* inte,
+                          float* partial, float* wfea, float* wxyz,
+                          float* stats_part, float* w_part,
+                          cudaStream_t stream) {
+  const int per_warp =
+      (2 * four_fin + (pcat != nullptr ? 2 * K * kProj : 0)) * 4;
+  int warps = kGSmemMax / per_warp;
+  if (warps > 8) warps = 8;
+  if (warps < 1) return cudaErrorInvalidValue;
+  const int smem = warps * per_warp;
+  cudaError_t err = cudaFuncSetAttribute(
+      head_gather_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  head_gather_kernel<K><<<grid, warps * 32, smem, stream>>>(
+      P, ld, idx, rows, N, four_fin, two_f, pb_point, pb_merge, pcat, ppoint,
+      inte, partial, wfea, wxyz, stats_part, w_part);
+  return cudaGetLastError();
+}
+
+cudaError_t gather_for_k(int k, int grid, const float* P, int ld,
+                         const int* idx, int rows, int N, int four_fin,
+                         int two_f, const float* pb_point,
+                         const float* pb_merge, const float* pcat,
+                         const float* ppoint, float* inte, float* partial,
+                         float* wfea, float* wxyz, float* stats_part,
+                         float* w_part, cudaStream_t stream) {
+#define PDGN_GATHER_K(KK)                                                   \
+  case KK:                                                                  \
+    return launch_gather<KK>(grid, P, ld, idx, rows, N, four_fin, two_f,   \
+                             pb_point, pb_merge, pcat, ppoint, inte,       \
+                             partial, wfea, wxyz, stats_part, w_part,      \
+                             stream);
+  switch (k) {
+    PDGN_GATHER_K(2)
+    PDGN_GATHER_K(4)
+    PDGN_GATHER_K(6)
+    PDGN_GATHER_K(8)
+    PDGN_GATHER_K(10)
+    PDGN_GATHER_K(12)
+    PDGN_GATHER_K(16)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PDGN_GATHER_K
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (B,N,C) per-point features; x_knn (B,N,Cf) the features the graph is
-// built from. w_conv ((window+1)*C, 4Fin) = [wn; conv_a],
-// w_merge ((k+1)*C, 2F) = [wen; a_merge]. pcat/ppoint may be null (plain
-// stage). conv_scratch holds (rows_conv/64, 2, 4Fin) floats, w_scratch
-// (ceil(B*N/64), 2, k*32).
+// x (B, N, C) per-point features, C % 4 == 0 (the wrapper pads), 16-byte
+// aligned; x_knn (B, N, Cf) the features the graph is built from. w_all
+// (C, ld) = [Wn_0 | .. | Wn_{window-1} | conv_a | We_0 | .. | We_{k-1} | A],
+// zero-padded to ld % 4 == 0 columns; four_fin and two_f multiples of 4,
+// pb_* 16-byte aligned. pcat/ppoint null: plain stage. Clouds go in
+// chunks of `chunk`: P holds (chunk * N, ld) floats, stats_part
+// (ceil(B / chunk) * grid, 2, four_fin), w_part (.., 2, k*32).
 int pdgn_edge_head(const float* x, const float* x_knn, int B, int N, int C,
-                   int Cf, int k, const float* w_conv,
-                   const float* pb_point, int four_fin, const float* w_merge,
-                   const float* pb_merge, int two_f, const float* pcat,
-                   const float* ppoint, int* idx, float* inte, float* partial,
-                   float* stats, float* conv_scratch, float* wfea, float* wxyz,
-                   float* wstats, float* w_scratch, cudaStream_t stream) {
-  const int rows = B * N;
+                   int Cf, int k, const float* w_all, int ld, int four_fin,
+                   int two_f, const float* pb_point,
+                   const float* pb_merge, const float* pcat,
+                   const float* ppoint, int* idx, float* inte,
+                   float* partial, float* stats, float* wfea, float* wxyz,
+                   float* wstats, float* P, int chunk, int grid,
+                   float* stats_part, float* w_part, cudaStream_t stream) {
+  if (C % 4 || ld % 4 || four_fin % 4 || two_f % 4 || chunk < 1 || grid < 1)
+    return (int)cudaErrorInvalidValue;
   const int hk = k / 2;
-  const int window = hk + 1;
-
   cudaError_t err = pdgn::knn_select(x_knn, x_knn, B, N, N, Cf, k + 1, 1,
                                      /*direct=*/false, idx, nullptr, stream);
   if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(head_product_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kPSmemBytes);
+  if (err != cudaSuccess) return (int)err;
 
-  // window conv: rows (b, n, wp), output written straight into inte
-  const int rows_conv = rows * hk;
-  GatherA a_conv{x, idx, N, C, k, hk, window};
-  Epilogue e_conv{inte, pb_point, nullptr, N * hk, four_fin};
-  gemm(a_conv, w_conv, rows_conv, (window + 1) * C, four_fin, e_conv,
-       conv_scratch, stream);
-  PDGN_CHECK_LAUNCH();
-  column_reduce(conv_scratch, gemm_row_blocks(rows_conv), 2 * four_fin, stats,
-                stream);
-  PDGN_CHECK_LAUNCH();
-
-  // merge partial: rows (b, n)
-  GatherA a_merge{x, idx, N, C, k, 1, k};
-  Epilogue e_merge{partial, pb_merge, nullptr, N, two_f};
-  gemm(a_merge, w_merge, rows, (k + 1) * C, two_f, e_merge, nullptr, stream);
-  PDGN_CHECK_LAUNCH();
-
-  if (pcat != nullptr) {
-    int nblk = (rows + kWRows - 1) / kWRows;
-    wnet_kernel<<<nblk, k * 32, 0, stream>>>(pcat, ppoint, idx, N, k, rows,
-                                             wfea, wxyz, w_scratch);
+  const bool gated = pcat != nullptr;
+  int nchunks = 0;
+  for (int b0 = 0; b0 < B; b0 += chunk, ++nchunks) {
+    const int nc = B - b0 < chunk ? B - b0 : chunk;
+    const int M = nc * N;
+    const size_t r0 = (size_t)b0 * N;
+    dim3 pgrid((ld + kPN - 1) / kPN, (M + kPM - 1) / kPM);
+    head_product_kernel<<<pgrid, kPThreads, kPSmemBytes, stream>>>(
+        x + r0 * C, w_all, M, C, ld, P);
     PDGN_CHECK_LAUNCH();
-    column_reduce(w_scratch, nblk, 2 * k * 32, wstats, stream);
+    float* sp = stats_part + (size_t)nchunks * grid * 2 * four_fin;
+    float* wp = gated ? w_part + (size_t)nchunks * grid * 2 * k * kProj
+                      : nullptr;
+    const float* pc = gated ? pcat + r0 * kProj : nullptr;
+    const float* pp = gated ? ppoint + r0 * kProj : nullptr;
+    float* wf = gated ? wfea + r0 * k * (kProj / 2) : nullptr;
+    float* wx = gated ? wxyz + r0 * k * (kProj / 2) : nullptr;
+    const int* ix = idx + r0 * k;
+    float* in = inte + r0 * hk * four_fin;
+    float* pa = partial + r0 * two_f;
+    const float* pbp = pb_point + (size_t)b0 * four_fin;
+    const float* pbm = pb_merge + (size_t)b0 * two_f;
+    err = gather_for_k(k, grid, P, ld, ix, M, N, four_fin, two_f, pbp, pbm,
+                       pc, pp, in, pa, wf, wx, sp, wp, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  column_reduce(stats_part, nchunks * grid, 2 * four_fin, stats, stream);
+  PDGN_CHECK_LAUNCH();
+  if (gated) {
+    column_reduce(w_part, nchunks * grid, 2 * k * kProj, wstats, stream);
     PDGN_CHECK_LAUNCH();
   }
   return (int)cudaSuccess;

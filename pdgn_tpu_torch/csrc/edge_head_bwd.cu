@@ -196,10 +196,10 @@ int pdgn_edge_head_bwd(
 
   // 1. input-side products (no bias, no addend)
   gemm(dy, w_conv_t, (int)rows_conv, four_fin, wc,
-       Epilogue{dp, nullptr, nullptr, 0, wc}, nullptr, stream);
+       Epilogue{dp, nullptr, nullptr, wc}, stream);
   PDGN_CHECK_LAUNCH();
-  gemm(dpart, w_merge_t, rows, two_f, mc, Epilogue{dm, nullptr, nullptr, 0, mc},
-       nullptr, stream);
+  gemm(dpart, w_merge_t, rows, two_f, mc, Epilogue{dm, nullptr, nullptr, mc},
+       stream);
   PDGN_CHECK_LAUNCH();
 
   // 2. weight gradients, rows reduced in split blocks

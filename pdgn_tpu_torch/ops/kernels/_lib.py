@@ -39,9 +39,9 @@ _L = ctypes.c_longlong
 # argument types of every exported C function (pointers and the stream as
 # c_void_p: ctypes would otherwise pass a 32-bit int and cut the pointer)
 _SIGNATURES = {
-    "pdgn_edge_head": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
-                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "pdgn_slot_stats": [_P, _L, _P, _P, _P],
+    "pdgn_edge_head": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I]
+                      + [_P] * 11 + [_P, _I, _I, _P, _P, _P],
+    "pdgn_slot_stats": [_P, _L, _I, _P, _P, _P],
     "pdgn_bilateral_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _P, _P, _P],
     "pdgn_edge_head_bwd": [_P, _P, _P] + [_I] * 6 + [_P] * 10 + [_P] * 14
@@ -137,7 +137,8 @@ def library() -> ctypes.CDLL:
 
 
 # a grid's y dimension holds at most 65535 blocks: the GEMMs put 64-row
-# tiles there, the gate kernel 32-point tiles
+# tiles there (the head's product 128-row ones), the gate kernel 32-point
+# tiles
 MAX_GRID_Y = 65535
 # rows per split of the transposed (weight-gradient) GEMMs: kSplitRows in
 # csrc/common.cuh; their scratch holds one (Kd, Nout) partial per split
@@ -162,6 +163,19 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of ``device`` (the persistent grids' size)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def aligned(t):
+    """``t``, or a copy of it if its data is not 16-byte aligned (the
+    kernels stage operands by 16-byte ``cp.async`` copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ptr(t) -> int | None:

@@ -82,10 +82,28 @@ def head_plain(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
         idx, k, window)
 
 
+def pack_head_weights(wn_flat, conv_a, a_merge, wen, k: int, window: int):
+    """``W_all = [Wn_0 | .. | Wn_{window-1} | conv_a | We_0 | .. | We_{k-1}
+    | A]``, shape ``(C, (window+1)*4Fin + (k+1)*2F)``: one product
+    ``x @ W_all`` gives every term the head gathers, since ``x[idx] @ W =
+    (x @ W)[idx]``."""
+    C, four_fin = conv_a.shape
+    two_f = a_merge.shape[-1]
+    wn = wn_flat.reshape(window, C, four_fin).permute(1, 0, 2)
+    we = wen.reshape(k, C, two_f).permute(1, 0, 2)
+    return torch.cat([wn.reshape(C, window * four_fin), conv_a,
+                      we.reshape(C, k * two_f), a_merge], dim=1)
+
+
+# bytes of the product scratch P per chunk of clouds
+_P_BUDGET = 1 << 30
+
+
 def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
                 pcat, ppoint, k: int, window: int):
     """Launch ``csrc/edge_head.cu`` (CUDA tensors, checked by
-    :func:`edge_head`)."""
+    :func:`edge_head`): the kNN, then per chunk of clouds the product
+    ``P = x @ W_all`` and the gather pass."""
     B, N, C = x.shape
     cf = x_knn.shape[-1]
     hk = k // 2
@@ -93,29 +111,40 @@ def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     two_f = a_merge.shape[-1]
     dev = x.device
     f32 = dict(device=dev, dtype=torch.float32)
-    rows = B * N
-    _lib.check_rows(rows * hk, 64, "edge_head")
-    w_conv = torch.cat([wn_flat, conv_a], dim=0).contiguous()
-    w_merge = torch.cat([wen, a_merge], dim=0).contiguous()
+    _lib.check_rows(B, 1, "edge_head")
+    # the product's operands: depth and columns padded to 16-byte rows
+    c4 = -(-C // 4) * 4
+    w_all = pack_head_weights(wn_flat, conv_a, a_merge, wen, k, window)
+    ld = -(-w_all.shape[1] // 4) * 4
+    w_all = torch.nn.functional.pad(
+        w_all, (0, ld - w_all.shape[1], 0, c4 - C)).contiguous()
+    xa = (_lib.aligned(x) if c4 == C
+          else torch.nn.functional.pad(x, (0, c4 - C)).contiguous())
+    pb_point, pb_merge = _lib.aligned(pb_point), _lib.aligned(pb_merge)
+    chunk = max(1, min(B, _P_BUDGET // (N * ld * 4),
+                       _lib.MAX_GRID_Y * 128 // N))
+    grid = 2 * _lib.sm_count(dev)
+    parts = -(-B // chunk) * grid
+    P = torch.empty(chunk * N, ld, **f32)
+    stats_part = torch.empty(parts, 2, four_fin, **f32)
     idx = torch.empty(B, N, k, device=dev, dtype=torch.int32)
     inte = torch.empty(B, N, hk * four_fin, **f32)
     partial = torch.empty(B, N, two_f, **f32)
     stats = torch.empty(2, four_fin, **f32)
-    conv_scratch = torch.empty(-(-rows * hk // 64), 2, four_fin, **f32)
     gated = pcat is not None
     if gated:
         wfea = torch.empty(B, N, k * PROJ // 2, **f32)
         wxyz = torch.empty(B, N, k * PROJ // 2, **f32)
         wstats = torch.empty(2, k * PROJ, **f32)
-        w_scratch = torch.empty(-(-rows // 64), 2, k * PROJ, **f32)
+        w_part = torch.empty(parts, 2, k * PROJ, **f32)
     else:
-        wfea = wxyz = wstats = w_scratch = None
+        wfea = wxyz = wstats = w_part = None
     p = _lib.ptr
     _lib.check(_lib.library().pdgn_edge_head(
-        p(x), p(x_knn), B, N, C, cf, k, p(w_conv), p(pb_point),
-        four_fin, p(w_merge), p(pb_merge), two_f, p(pcat), p(ppoint),
-        p(idx), p(inte), p(partial), p(stats), p(conv_scratch), p(wfea),
-        p(wxyz), p(wstats), p(w_scratch), _lib.stream_handle(dev)),
+        p(xa), p(x_knn), B, N, c4, cf, k, p(w_all), ld, four_fin, two_f,
+        p(pb_point), p(pb_merge), p(pcat), p(ppoint), p(idx), p(inte),
+        p(partial), p(stats), p(wfea), p(wxyz), p(wstats), p(P), chunk,
+        grid, p(stats_part), p(w_part), _lib.stream_handle(dev)),
         "pdgn_edge_head")
     _lib.LAUNCHES["edge_head"] += 1
     return idx, inte, partial, stats, wfea, wxyz, wstats
@@ -276,6 +305,9 @@ def edge_head(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     if x.device.type == "cuda":
         if k not in _SUPPORTED_K:
             raise ValueError(f"edge_head kernel: k={k} not in {_SUPPORTED_K}")
+        if four_fin % 4 or two_f % 4:
+            raise ValueError(f"edge_head kernel: 4Fin={four_fin} and "
+                             f"2F={two_f} must be multiples of 4")
     elif x.device.type != "cpu":
         raise ValueError(f"edge_head: unsupported device {x.device}")
     out = _Head.apply(k, window, x, x_knn, wn_flat, conv_a, pb_point,

@@ -16,7 +16,6 @@ import torch
 from pdgn_tpu_torch.ops.kernels import _lib
 
 _H = 64
-_ROWS_PER_BLOCK = 1024
 
 
 def stats_plain(h_flat: torch.Tensor, k: int):
@@ -31,13 +30,15 @@ def stats_kernel(h_flat: torch.Tensor, k: int):
     :func:`slot_moment_stats`)."""
     B, N, kh = h_flat.shape
     rows = B * N * k
-    f32 = dict(device=h_flat.device, dtype=torch.float32)
-    nblk = -(-rows // _ROWS_PER_BLOCK)
+    dev = h_flat.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    h = _lib.aligned(h_flat)
+    nblk = _lib.sm_count(dev)          # a persistent grid, a block an SM
     scratch = torch.empty(nblk, _H * _H + _H, **f32)
     out = torch.empty(_H * _H + _H, **f32)
     _lib.check(_lib.library().pdgn_slot_stats(
-        h_flat.data_ptr(), rows, scratch.data_ptr(), out.data_ptr(),
-        _lib.stream_handle(h_flat.device)), "pdgn_slot_stats")
+        h.data_ptr(), rows, nblk, scratch.data_ptr(), out.data_ptr(),
+        _lib.stream_handle(dev)), "pdgn_slot_stats")
     _lib.LAUNCHES["slot_stats"] += 1
     return out[_H * _H:], out[:_H * _H].reshape(_H, _H)
 

@@ -41,7 +41,9 @@ def _rel(a, b):
 
 @pytest.mark.parametrize("N,C,cx,k,gated", [(100, 40, 0, 6, False),
                                             (130, 24, 16, 10, True),
-                                            (64, 32, 32, 16, True)])
+                                            (64, 32, 32, 16, True),
+                                            (128, 32, 0, 10, False),
+                                            (256, 128, 128, 10, True)])
 def test_edge_head_kernel_matches_plain(dev, N, C, cx, k, gated):
     g = torch.Generator(device=dev).manual_seed(N + k)
     B, four_fin, two_f = 3, 4 * (C + cx), 2 * (C + cx)
@@ -83,6 +85,68 @@ def test_slot_stats_kernel_matches_plain(dev, rows):
     s, S = slot_moment_stats(h, 2)
     s_p, S_p = stats_plain(h, 2)
     assert _rel(s, s_p) <= 1e-5 and _rel(S, S_p) <= 1e-5
+
+
+def test_edge_head_kernel_reruns_are_bit_identical(dev):
+    """Two launches on the same inputs (stage-4 widths, gated, the batch cut
+    into chunks of two clouds) give the same bits in every output, and the
+    chunked and the whole batch both match the plain version."""
+    from pdgn_tpu_torch.ops.kernels import edge_head as eh
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, N, C, cx, k = 5, 256, 128, 128, 10
+    cf = C + cx
+    window = k // 2 + 1
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    x = r(B, N, C)
+    ops = head_operands(x, r(1, window, 2 * cf, 4 * cf) * 0.05,
+                        r(4 * cf) * 0.1, r(2 * k * 2 * cf, 2 * cf) * 0.03,
+                        k, r(B, cx))
+    args = (x,) + ops[:7] + (r(B, N, 32), r(B, N, 32), k, window)
+    budget = eh._P_BUDGET
+    try:
+        eh._P_BUDGET = 2 * N * 12800 * 4          # two clouds a chunk
+        first = edge_head(*args)
+        second = edge_head(*args)
+    finally:
+        eh._P_BUDGET = budget
+    whole = edge_head(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert torch.equal(first[0], whole[0])
+    want = head_reference_given_idx(args[0], *args[2:10], first[0], k,
+                                    window)
+    for a, c, w in zip(first[1:], whole[1:], want):
+        assert _rel(a, w) <= 1e-4 and _rel(c, w) <= 1e-4
+
+
+def test_edge_head_kernel_refuses_what_it_cannot_take(dev):
+    """The gather pass reads float4 columns: 4Fin and 2F multiples of 4."""
+    B, N, C, k = 2, 32, 8, 6
+    window = k // 2 + 1
+    x = torch.randn(B, N, C, device=dev)
+    ops = head_operands(x, torch.randn(1, window, 2 * C, 6, device=dev),
+                        torch.randn(6, device=dev),
+                        torch.randn(2 * k * 2 * C, 6, device=dev), k)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        edge_head(x, *ops[:7], None, None, k, window)
+
+
+@pytest.mark.parametrize("rows", [132 * 8 * 16 + 5, 200_000])
+def test_slot_stats_kernel_partition_edges(dev, rows):
+    """Row counts that fill no whole partition of the persistent grid (132
+    blocks of 8 warps, 16-row stages) and 200,000 rows; S exactly
+    symmetric, reruns bit-identical."""
+    h = torch.randn(rows, 1, 64, device=dev)
+    s, S = slot_moment_stats(h, 1)
+    s_p, S_p = stats_plain(h, 1)
+    assert _rel(s, s_p) <= 1e-5 and _rel(S, S_p) <= 1e-5
+    assert torch.equal(S, S.T)
+    s2, S2 = slot_moment_stats(h, 1)
+    assert torch.equal(s, s2) and torch.equal(S, S2)
 
 
 @pytest.mark.parametrize("gated,softmax,k,fin", [(True, True, 10, 12),

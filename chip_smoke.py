@@ -69,8 +69,11 @@ The test slice, in the same phases:
    shapes against shape_unit ones, as the test phase pairs them): cd rel
    <= 1e-5, cost rel <= 2e-3 (distances by direct differences against the
    norm expansion: at level -4^7 an ulp of d2 moves K by ~2e-3, the JAX
-   package's own limit); a second launch bit-identical; a set against
-   itself cd = 0 and cost/n < 1e-3 on the diagonal;
+   package's own limit); a second launch bit-identical and equal to a
+   launch that culls nothing (the culled share of the culling tests is
+   printed); a set against itself cd = 0 and cost/n < 1e-3 on the
+   diagonal; then a 2 x 2 set at n = 8192 (beyond one block's shared
+   memory) with the same tolerances;
 3e. drives the test path through the trainer's entry point
    (``PDGNTrainer.test(tile=64)``, what ``--phase test`` runs) at full
    width on 64 synthetic 2048-point clouds, loading the bundles phase 3t
@@ -84,8 +87,9 @@ The test slice, in the same phases:
    --phase test --dataset synthetic`` on the same bundles;
 4e. times the kernel on one 64x64 and one 8x8 tile beside its bound
    (max of 80 FLOP an element at 67 TFLOP/s and three expf an element at
-   16 per SM per clock), and the plain version on an 8x8 tile and, in 8x8
-   blocks, on the 64x64 tile's pairs.
+   16 per SM per clock), the 64x64 tile again with culling off, and the
+   plain version on an 8x8 tile and, in 8x8 blocks, on the 64x64 tile's
+   pairs; prints the time of the 2 x 2 set at n = 8192.
 
 The point-ops slice, in the same phases:
 
@@ -95,7 +99,9 @@ The point-ops slice, in the same phases:
    first, in order); indices equal for C <= 4 (the kernel rounds as the
    plain version does) and otherwise equal but at near-ties (phase 2's
    rule); ``knn_gather`` at C=128, k=10: nbr bit-equal to
-   ``grouping(x, idx)``, the gradient of sum(nbr^2) rel <= 1e-5;
+   ``grouping(x, idx)``, the gradient of sum(nbr^2) rel <= 1e-5; and the
+   stage-4 head's graph input (1024 points, C = 128 + 128 with the xs half
+   constant over a cloud), k=11;
 3p. drives the public ``pdgn_tpu_torch.ops`` API at full width on 35
    clouds from ``generate()`` (FPS, grouping, ball query, dilated groups,
    interpolation, edge features, ``neighbor_features``, ``EdgeConv``
@@ -104,9 +110,21 @@ The point-ops slice, in the same phases:
    kernel graph of the path against its plain version and prints the
    path's wall time (the median of 5 warm passes; the first, counted
    pass is printed too, cold);
-4p. times ``knn_topk`` at the path's three shapes and ``knn_gather``
-   beside the plain version, ``torch.cdist`` + ``torch.topk`` (two calls,
-   a yardstick) and the bound.
+4p. times ``knn_topk`` at the path's three shapes, at the stage-4 head's
+   graph input at B=128, and ``knn_gather`` beside the plain version,
+   ``torch.cdist`` + ``torch.topk`` (two calls, a yardstick) and the bound.
+
+The widened shapes (the card path's limits beyond the default model),
+after 2p:
+
+2w. the head, its backward and the gated tail with its backward at stage
+   4, B=8, k = 14 and 18 (``--num_k`` 28 and 36); the plain head with 4Fin
+   and 2F no multiples of 4; ``local_mean_cov`` at k=24 over 20,000
+   points; each against its plain version with phase 2's and 2t's
+   tolerances and timed once (one line each; their speed is not a goal);
+   then ``generate()`` at full width with num_k 28 and 36 (launch counters
+   set to 0 just before and read just after, each stage held to the plain
+   CPU path's outputs as in phase 3) and its clouds/s at B=32.
 
 Last, it prints the ``{"kernels": [...]}`` line (``launches`` summed over
 the sample, train, test and point-ops runs, ``launches_by_path`` each),
@@ -175,7 +193,7 @@ def time_ms(fn, reps: int) -> float:
 
 
 # ------------------------------------------------------------------ inputs
-def head_inputs(stage: int, B: int, gated: bool, gen, dev):
+def head_inputs(stage: int, B: int, gated: bool, gen, dev, k: int = K):
     """Prepared operands of the edge head at a stage's full-width shapes,
     from seeded random features and weights."""
     import torch
@@ -183,7 +201,7 @@ def head_inputs(stage: int, B: int, gated: bool, gen, dev):
 
     n, c, cx, four_fin, two_f = stage_dims(stage)
     cf = c + cx
-    window = K // 2 + 1
+    window = k // 2 + 1
 
     def r(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
@@ -193,20 +211,20 @@ def head_inputs(stage: int, B: int, gated: bool, gen, dev):
     conv_kernel = r(1, window, 2 * cf, four_fin,
                     scale=(2 * cf * window) ** -0.5)
     conv_bias = r(four_fin, scale=0.1)
-    merge_kernel = r(2 * K * 2 * cf, two_f, scale=(4 * K * cf) ** -0.5)
-    ops = head_operands(x, conv_kernel, conv_bias, merge_kernel, K, xs)
+    merge_kernel = r(2 * k * 2 * cf, two_f, scale=(4 * k * cf) ** -0.5)
+    ops = head_operands(x, conv_kernel, conv_bias, merge_kernel, k, xs)
     pcat = r(B, n, 32) if gated else None
     ppoint = r(B, n, 32) if gated else None
     x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge, window = ops
     return (x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
-            pcat, ppoint, K, window)
+            pcat, ppoint, k, window)
 
 
-def tail_inputs(stage: int, B: int, gated: bool, gen, dev):
+def tail_inputs(stage: int, B: int, gated: bool, gen, dev, k: int = K):
     import torch
 
     n, _, _, four_fin, two_f = stage_dims(stage)
-    hk = K // 2
+    hk = k // 2
     two_fin = four_fin // 2
 
     def r(*shape, scale=1.0, shift=0.0):
@@ -220,13 +238,13 @@ def tail_inputs(stage: int, B: int, gated: bool, gen, dev):
     bias = r(two_f, scale=0.1)
     if not gated:
         return (partial, inte, None, isc, ish, None, None, None, None, wi,
-                bias, K, True)
-    h = r(B, n, K * 64, scale=0.5)
+                bias, k, True)
+    h = r(B, n, k * 64, scale=0.5)
     w2k = r(64, two_fin, scale=0.125)
     w2b = r(two_fin, scale=0.1)
     s2 = r(two_fin, scale=0.2, shift=1.0)
     t2 = r(two_fin, scale=0.1)
-    return (partial, inte, h, isc, ish, w2k, w2b, s2, t2, wi, bias, K, True)
+    return (partial, inte, h, isc, ish, w2k, w2b, s2, t2, wi, bias, k, True)
 
 
 # ------------------------------------------------------- kernel vs plain
@@ -539,13 +557,13 @@ def time_kernels(dev, gen) -> dict:
 
 
 # ----------------------------------------------- the train slice: phase 2t
-def head_bwd_case(stage: int, B: int, gated: bool, gen, dev):
+def head_bwd_case(stage: int, B: int, gated: bool, gen, dev, k: int = K):
     """Operands, the kernel's graph and forward, and random cotangents of
     the head at a stage's full-width shapes."""
     import torch
     from pdgn_tpu_torch.ops.kernels.edge_head import edge_head
 
-    args = head_inputs(stage, B, gated, gen, dev)
+    args = head_inputs(stage, B, gated, gen, dev, k)
     idx, inte = edge_head(*args)[:2]
     n, _, _, four_fin, two_f = stage_dims(stage)
 
@@ -554,7 +572,7 @@ def head_bwd_case(stage: int, B: int, gated: bool, gen, dev):
 
     cts = [r(*inte.shape), r(B, n, two_f), r(2, four_fin, scale=0.01)]
     if gated:
-        cts += [r(B, n, K * 16), r(B, n, K * 16), r(2, K * 32, scale=0.01)]
+        cts += [r(B, n, k * 16), r(B, n, k * 16), r(2, k * 32, scale=0.01)]
     return args, idx, inte, cts
 
 
@@ -635,7 +653,7 @@ def local_case(B: int, M: int, N: int, gen, dev):
     return src.contiguous(), centers, g_mu, g_cov
 
 
-def compare_local(case, label: str):
+def compare_local(case, label: str, k: int = 20):
     """Forward: neighbour sets equal except at near-ties (at most 0.1% of
     the centers, each mismatched neighbour within 1e-5 relative distance of
     the one it replaces); mu and cov rel <= 1e-4 over the centers whose sets
@@ -649,7 +667,6 @@ def compare_local(case, label: str):
                                                         stats_given_idx)
 
     src, centers, g_mu, g_cov = case
-    k = 20
     idx_k, mu, cov = fwd_kernel(src, centers, k)
     idx_p = knn_direct(src, centers, k)
     set_k = torch.sort(idx_k, -1).values
@@ -698,6 +715,123 @@ def check_train_kernels(gen, dev) -> dict:
     errs["local_stats_fwd"], errs["local_stats_bwd"] = compare_local(
         local_case(8, 1024, 2048, gen, dev), "M=1024 N=2048 B=8")
     return errs
+
+
+# ------------------------------------------ the widened shapes: phase 2w
+WIDE_K = (14, 18)        # the head's and tails' k at --num_k 28 and 36
+WIDE_B = 32              # clouds a batch of the widened generators' runs
+
+
+def odd_head_inputs(B: int, gen, dev):
+    """The plain stage-1 head with 4Fin = 130 and 2F = 66 (no multiples of
+    4: the gather pass takes scalar columns)."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.edge_head import head_operands
+
+    n, c = 128, 32
+    window = K // 2 + 1
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    x = r(B, n, c)
+    ops = head_operands(x, r(1, window, 2 * c, 130, scale=0.05),
+                        r(130, scale=0.1), r(2 * K * 2 * c, 66, scale=0.03),
+                        K)
+    x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge, window = ops
+    return (x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
+            None, None, K, window)
+
+
+def check_wide_shapes(gen, dev) -> dict:
+    """Phase 2w: the shapes the kernels took since they were widened, each
+    against its plain version with phase 2's and 2t's tolerances and timed
+    once (their speed is not a goal): the head, its backward and the gated
+    tail with its backward at stage 4, B=8, k in WIDE_K (k=18 takes the
+    tail's run-time-k gate); the plain head with 4Fin and 2F off float4;
+    ``local_mean_cov`` at k=24 over 20,000 points (the run-time-k kNN, the
+    points streamed through shared memory); then ``generate()`` at full
+    width with num_k 28 and 36, launch counters set to 0 just before and
+    read just after, and each stage held to the plain CPU path's outputs
+    as in phase 3."""
+    import numpy as np
+    import torch
+    from pdgn_tpu_torch.ops.kernels import _lib
+    from pdgn_tpu_torch.ops.kernels.bilateral_tail import (tail,
+                                                           tail_bwd_kernel)
+    from pdgn_tpu_torch.ops.kernels.edge_head import (edge_head,
+                                                      head_bwd_kernel)
+    from pdgn_tpu_torch.ops.kernels.local_stats import fwd_kernel
+    from pdgn_tpu_torch.train.generate import build_generator, generate
+
+    out = {"times_ms": {}, "generate": {}}
+    times = out["times_ms"]
+
+    def timed(label, fn, reps):
+        times[label] = time_ms(fn, reps)
+        log(f"  time {label}: {times[label]:.3f} ms")
+
+    for k in WIDE_K:
+        args = head_inputs(4, 8, True, gen, dev, k)
+        compare_head(args, f"stage 4 B=8 k={k}")
+        timed(f"edge_head stage 4 B=8 gated k={k}", lambda: edge_head(*args),
+              3)
+        case = head_bwd_case(4, 8, True, gen, dev, k)
+        compare_head_bwd(case, f"stage 4 B=8 k={k}")
+        (x, _, wn, ca, _, am, wen, _, pcat, ppoint, _, _), idx, inte, cts = case
+        timed(f"edge_head_bwd stage 4 B=8 gated k={k}",
+              lambda: head_bwd_kernel(x, idx, inte, wn, ca, am, wen, pcat,
+                                      ppoint, cts, k), 3)
+        del args, case, x, idx, inte, cts
+        targs = tail_inputs(4, 8, True, gen, dev, k)
+        compare_tail(targs, f"stage 4 B=8 gated k={k}")
+        timed(f"bilateral_tail_gated stage 4 B=8 k={k}",
+              lambda: tail(*targs), 3)
+        dy = torch.randn(*targs[0].shape, generator=gen, device=dev)
+        compare_tail_bwd(targs, dy, f"stage 4 B=8 k={k}")
+        timed(f"bilateral_tail_gated_bwd stage 4 B=8 k={k}",
+              lambda: tail_bwd_kernel(*targs[1:10], dy, k, True), 3)
+        del targs, dy
+
+    args = odd_head_inputs(8, gen, dev)
+    compare_head(args, "stage 1 B=8 4Fin=130 2F=66 (scalar columns)")
+    timed("edge_head stage 1 B=8 4Fin=130 2F=66", lambda: edge_head(*args),
+          5)
+    del args
+
+    case = local_case(2, 2048, 20000, gen, dev)
+    compare_local(case, "k=24 M=2048 N=20000 B=2", k=24)
+    timed("local_stats_fwd k=24 M=2048 N=20000 B=2",
+          lambda: fwd_kernel(case[0], case[1], 24), 5)
+    del case
+
+    for num_k in (2 * k for k in WIDE_K):
+        model = build_generator(SEED, dev, num_k=num_k)
+        torch.cuda.synchronize()
+        _lib.LAUNCHES.clear()
+        clouds = generate(WIDE_B, WIDE_B, SEED, device=dev, model=model)
+        torch.cuda.synchronize()
+        launches = dict(_lib.LAUNCHES)
+        log(f"  generate({WIDE_B}, B={WIDE_B}) at num_k {num_k}: launches "
+            f"{launches}")
+        require(clouds.shape == (WIDE_B, 2048, 3)
+                and bool(np.isfinite(clouds).all()),
+                f"num_k {num_k}: clouds {clouds.shape} or non-finite")
+        require(launches == {"edge_head": 4, "slot_stats": 3,
+                             "bilateral_tail_gated": 3,
+                             "bilateral_tail_plain": 1},
+                f"num_k {num_k}: launches {launches}")
+        stages = stage_check(model, dev)
+        t0 = time.perf_counter()
+        generate(2 * WIDE_B, WIDE_B, SEED, device=dev, model=model)
+        torch.cuda.synchronize()
+        cps = 2 * WIDE_B / (time.perf_counter() - t0)
+        log(f"  time generate() at num_k {num_k}, B={WIDE_B}: {cps:.1f} "
+            f"clouds/s")
+        out["generate"][num_k] = {"launches": launches, "stages": stages,
+                                  "clouds_per_s": cps}
+        del model
+    return out
 
 
 # ----------------------------------------------- the train slice: phase 3t
@@ -905,14 +1039,17 @@ CHAIR_CLOUDS = 662       # the shapenet15k chair test split (bench.py:457-459)
 SFU_RATE = 132 * 16 * 1.98e9   # expf: 16 per SM per clock, 132 SMs, 1.98 GHz
 
 
-def eval_clouds(n_clouds: int):
+EMD_WIDE_N = 8192       # an n beyond one block's shared memory
+
+
+def eval_clouds(n_clouds: int, n: int = EMD_N):
     """The test phase's two kinds of clouds at full width: synthetic shapes
     as the reference set keeps them (shape_unit), and the same shapes
     bbox-normalised as the phase leaves generated clouds."""
     from pdgn_tpu_torch.data.shapenet import SyntheticShapes
     from pdgn_tpu_torch.train.trainer import normalize_point_clouds
 
-    ref = SyntheticShapes(size=2 * n_clouds, num_points=EMD_N).full_clouds()
+    ref = SyntheticShapes(size=2 * n_clouds, num_points=n).full_clouds()
     return normalize_point_clouds(ref[n_clouds:], "shape_bbox"), ref[:n_clouds]
 
 
@@ -936,11 +1073,58 @@ def compare_emd_cd(a, b, label: str) -> float:
     return max(max_abs(cd, cd_p), max_abs(cost, cost_p))
 
 
-def check_emd_cd(dev) -> float:
-    """Phase 2e: 2 x 4 sets at n = 2048 against the plain version, two
-    launches bit-identical, identical pairs cd = 0 and cost/n < 1e-3."""
+def culled_share(a, b) -> float:
+    """The share of the culling tests (rounds 1-8) that skipped a
+    sub-tile, counted by the kernel on ``a`` x ``b``."""
     import torch
-    from pdgn_tpu_torch.ops.kernels.emd_cd import emd_cd
+    from pdgn_tpu_torch.ops.kernels.emd_cd import emd_cd_kernel
+
+    counts = torch.zeros(2, device=a.device, dtype=torch.int64)
+    emd_cd_kernel(a, b, counts=counts)
+    seen, culled = counts.tolist()
+    return culled / max(seen, 1)
+
+
+def box_cull_count(a, b, pairs: int = 8):
+    """The share of the row sweeps' culling tests (a warp's 256-row group
+    box against a 32-column box) that pass in rounds 1-4, counted on the
+    host from the kernel's own Morton order and boxes and its test
+    (level * gap^2 < -110) over ``pairs`` pairs (a_i, b_{7i+3}): what the
+    culling can skip, before a launch measures it."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.emd_cd import morton_order, tile_boxes
+
+    a, b = a.cpu(), b.cpu()
+
+    def boxes(x):
+        x = torch.gather(x, 1, morton_order(x)[..., None].expand_as(x))
+        return tile_boxes(x)
+
+    ba, bb = boxes(a), boxes(b)
+    shares = []
+    for r in range(1, 5):
+        level = -4.0 ** (7 - r)
+        hit = tot = 0
+        for i in range(pairs):
+            rows = ba[i % a.shape[0]]
+            cols = bb[(7 * i + 3) % b.shape[0]]
+            g = rows.reshape(-1, 8, 6)        # 8 boxes of 32 rows a group
+            glo, ghi = g[..., :3].amin(1), g[..., 3:].amax(1)
+            gap = torch.maximum(glo[:, None] - cols[None, :, 3:],
+                                cols[None, :, :3] - ghi[:, None]).clamp_min(0)
+            cut = level * (gap ** 2).sum(-1) < -110.0
+            hit += int(cut.sum())
+            tot += cut.numel()
+        shares.append(hit / tot)
+    return shares
+
+
+def check_emd_cd(dev) -> float:
+    """Phase 2e: 2 x 4 sets at n = 2048 and 2 x 2 at n = 8192 against the
+    plain version, two launches bit-identical (and equal to a launch that
+    culls nothing), identical pairs cd = 0 and cost/n < 1e-3."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.emd_cd import emd_cd, emd_cd_kernel
 
     gen, ref = eval_clouds(4)
     a = torch.from_numpy(gen[:2]).to(dev)
@@ -950,6 +1134,18 @@ def check_emd_cd(dev) -> float:
     cd2, cost2 = emd_cd(a, b)
     require(torch.equal(cd1, cd2) and torch.equal(cost1, cost2),
             "emd_cd: two launches differ")
+    cd0, cost0 = emd_cd_kernel(a, b, cull=False)
+    require(torch.equal(cd1, cd0) and torch.equal(cost1, cost0),
+            "emd_cd: culling changed the result")
+    log(f"  emd_cd culled share of the culling tests: "
+        f"{culled_share(a, b):.4f}; culling keeps the bits")
+    gw, rw = eval_clouds(2, EMD_WIDE_N)
+    aw = torch.from_numpy(gw).to(dev)
+    bw = torch.from_numpy(rw).to(dev)
+    err = max(err, compare_emd_cd(aw, bw, f"2x2 sets, n={EMD_WIDE_N}"))
+    log(f"  emd_cd culled share at n={EMD_WIDE_N}: "
+        f"{culled_share(aw, bw):.4f}")
+    del aw, bw
     cd, cost = emd_cd(b, b)
     diag_cd = torch.diagonal(cd)
     diag_emd = torch.diagonal(cost) / EMD_N
@@ -1095,10 +1291,19 @@ def time_emd_cd(dev) -> dict:
     import torch
     from pdgn_tpu_torch.ops.kernels.emd_cd import emd_cd, emd_cd_plain
 
+    from pdgn_tpu_torch.ops.kernels.emd_cd import emd_cd_kernel
+
     gen, ref = eval_clouds(TEST_TILE)
     a = torch.from_numpy(gen).to(dev)
     b = torch.from_numpy(ref).to(dev)
     ms64 = time_ms(lambda: emd_cd(a, b), 2)
+    ms64_all = time_ms(lambda: emd_cd_kernel(a, b, cull=False), 1)
+    share = culled_share(a, b)
+    counted = box_cull_count(a, b)
+    log(f"  emd_cd 64x64 tile: culling off {ms64_all:.3f} ms; culled share "
+        f"of the culling tests {share:.4f}; by the box count, the row "
+        f"sweeps' tests that pass in rounds 1-4: "
+        f"{[round(c, 4) for c in counted]}")
     ms8 = time_ms(lambda: emd_cd(a[:8], b[:8]), 5)
     plain8 = time_ms(lambda: emd_cd_plain(a[:8], b[:8]), 2)
 
@@ -1122,10 +1327,19 @@ def time_emd_cd(dev) -> dict:
         f"{b8:.3f} ms; plain 8x8: {plain8:.3f} ms ({plain8 / 64:.3f} ms a "
         f"pair), plain over the 64x64 tile's pairs: {plain64:.3f} ms")
     err = compare_emd_cd(a[:8], b[:8], "8x8 tile of the timed sets")
+    gw, rw = eval_clouds(2, EMD_WIDE_N)
+    aw = torch.from_numpy(gw).to(dev)
+    bw = torch.from_numpy(rw).to(dev)
+    msw = time_ms(lambda: emd_cd(aw, bw), 2)
+    bw_ms, _ = emd_bound(2, 2, EMD_WIDE_N)
+    log(f"  time emd_cd 2x2 pairs at n={EMD_WIDE_N}: {msw:.3f} ms, bound "
+        f"{bw_ms:.3f} ms")
     return {"ms": ms64, "plain_ms": plain64, "bound_ms": b64,
             "bound_by": by, "library_ms": None, "max_abs_err": err,
             "ms_8x8": ms8, "bound_ms_8x8": b8, "plain_ms_8x8": plain8,
-            "plain_ms_per_pair": plain8 / 64,
+            "plain_ms_per_pair": plain8 / 64, "ms_no_cull": ms64_all,
+            "culled_share": share, "box_cull_count_rounds_1_4": counted,
+            f"ms_2x2_n{EMD_WIDE_N}": msw,
             "shape": f"{TEST_TILE}x{TEST_TILE} pairs of {EMD_N}-point clouds "
                      f"(plain: 64 tiles of 8x8)"}
 
@@ -1231,9 +1445,24 @@ def check_knn_kernels(gen, dev) -> dict:
         require(torch.equal(idx[..., 0].long(), pair.expand(B, N))
                 and torch.equal(idx[..., 1].long(), pair.expand(B, N) + 1),
                 f"knn_topk C={C}: a duplicated pair is not first, in order")
+    err = max(err, compare_knn_topk(*head_graph_input(B, gen, dev), K + 1,
+                                    f"the head's graph, C=128+128, k={K + 1} "
+                                    f"B={B}"))
     x = torch.randn(B, PO_ROWS, 128, generator=gen, device=dev)
     return {"knn_topk": err,
             "knn_gather": compare_knn_gather(x, K, f"C=128 k={K} B={B}")}
+
+
+def head_graph_input(B: int, gen, dev):
+    """The stage-4 head's kNN input: ``[xs broadcast | x]``, 1024 points of
+    128 + 128 channels (the xs half constant over a cloud)."""
+    import torch
+
+    n, c, cx, _, _ = stage_dims(4)
+    x = torch.randn(B, n, c, generator=gen, device=dev)
+    xs = torch.randn(B, 1, cx, generator=gen, device=dev)
+    q = torch.cat([xs.expand(B, n, cx), x], dim=-1).contiguous()
+    return q, q
 
 
 # ----------------------------------------- the point-ops slice: phase 3p
@@ -1435,9 +1664,26 @@ def time_knn(inputs, dev) -> dict:
         rows.append(row)
         for key in tot:
             tot[key] += row[key]
+    # the head's graph at stage 4, B=128 (not a 3p call): its least work
+    # counts the x half only, the xs half drops out of the ranking
+    q, _ = head_graph_input(128, torch.Generator(device=dev).manual_seed(
+        SEED), dev)
+    b, by = knn_bound(128, q.shape[1], q.shape[1], 128, K + 1, True)
+    label = f"head graph 128x{q.shape[1]} self, C=128+128, k={K + 1}"
+    head = {"shape": label, "ms": time_ms(lambda: knn_topk(q, q, K + 1), 5),
+            "plain_ms": time_ms(lambda: knn_topk_reference(q, q, K + 1), 2),
+            "cdist_topk_ms": time_ms(lambda: torch.topk(
+                torch.cdist(q, q), K + 1, largest=False), 3),
+            "bound_ms": b, "bound_by": by}
+    log(f"  knn_topk {label}: {head['ms']:.4f} ms, plain "
+        f"{head['plain_ms']:.3f} ms, cdist + topk (two calls) "
+        f"{head['cdist_topk_ms']:.4f} ms, bound {b:.4f} ms ({by})")
+    err = max(err, compare_knn_topk(q, q, K + 1, label))
+    del q
     res = {"knn_topk": dict(tot, bound_by=max(rows, key=lambda r: r[
         "bound_ms"])["bound_by"], library_ms=None, max_abs_err=err,
-        by_shape=rows, shape="the three 3p calls together: " + "; ".join(
+        by_shape=rows, head_graph=head,
+        shape="the three 3p calls together: " + "; ".join(
             r["shape"] for r in rows))}
 
     B, M, C = x128.shape
@@ -1546,6 +1792,9 @@ def main(argv=None) -> int:
     log("phase 2p: knn_topk and knn_gather against their plain versions "
         "(B=8)")
     errs.update(check_knn_kernels(gen, dev))
+    log("phase 2w: the widened shapes against their plain versions, timed "
+        "once")
+    wide = check_wide_shapes(gen, dev)
 
     log("phase 3: main path, generate() at full width")
     path = main_path(dev)
@@ -1611,6 +1860,7 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": build_s,
                        "kernels": kernels, "times": times, "path": path,
+                       "wide": wide,
                        "train": train, "test": test,
                        "point_ops": point_ops}, f, indent=1)
     print(json.dumps({"card": smi,

@@ -149,9 +149,13 @@ def main(argv=None) -> None:
         _trainer(args).test()
         print(" [*] Test finished!")
         return
+    if args.phase == 'cls':
+        print(" [!] phase 'cls' maps to extract_feature(), which the "
+              "reference never defines (dead phase, main.py:108-109); "
+              "nothing to run.")
+        sys.exit(1)
     if args.phase != 'sample':
-        print(f" [!] phase '{args.phase}' is not ported to pdgn_tpu_torch; "
-              "use pdgn_tpu (main.py) for it.")
+        print(f" [!] unknown phase '{args.phase}'")
         sys.exit(2)
 
     from pdgn_tpu_torch.train.generate import generate

@@ -162,6 +162,116 @@ gate_bwd_kernel(const float* __restrict__ inte, const float* __restrict__ h,
   }
 }
 
+// k > kMaxK: as gate_bwd_kernel, with h staged in dynamic shared memory
+// (kSubP * k * kHid floats) and no per-slot arrays: pass 1 takes the
+// softmax's m and z online, pass 2 writes d_inte and sums u . du, pass 3
+// recomputes u and du and writes dv (tail_gate.cuh's slot_logit each time)
+__global__ void __launch_bounds__(256)
+gate_bwd_wide_kernel(const float* __restrict__ inte,
+                     const float* __restrict__ h,
+                     const float* __restrict__ isc,
+                     const float* __restrict__ ish,
+                     const float* __restrict__ w2k,
+                     const float* __restrict__ w2b,
+                     const float* __restrict__ s2,
+                     const float* __restrict__ t2,
+                     const float* __restrict__ dg, int rows, int k,
+                     int two_fin, int softmax, float* __restrict__ d_inte,
+                     float* __restrict__ dv, float* __restrict__ scratch) {
+  __shared__ float sw[kHid * kTC];
+  __shared__ float red[kSubP][kSums][kTC];
+  extern __shared__ float shw[];
+
+  const int tid = threadIdx.x;
+  const int cl = tid % kTC;
+  const int pl = tid / kTC;
+  const int c0 = blockIdx.x * kTC;
+  const int c = c0 + cl;
+  const int hk = k / 2;
+  const int four_fin = 2 * two_fin;
+
+  for (int e = tid; e < kHid * kTC; e += 256) {
+    int hh = e / kTC, cc = e % kTC;
+    sw[e] = (c0 + cc < two_fin) ? w2k[(size_t)hh * two_fin + c0 + cc] : 0.f;
+  }
+  const bool live_c = c < two_fin;
+  const float bias = live_c ? w2b[c] : 0.f;
+  const float sc = live_c ? s2[c] : 0.f;
+  const float sh = live_c ? t2[c] : 0.f;
+  const float isc0 = live_c ? isc[c] : 0.f, isc1 = live_c ? isc[two_fin + c] : 0.f;
+  const float ish0 = live_c ? ish[c] : 0.f, ish1 = live_c ? ish[two_fin + c] : 0.f;
+
+  float sums[kSums];
+#pragma unroll
+  for (int m = 0; m < kSums; ++m) sums[m] = 0.f;
+
+  const int p_begin = blockIdx.y * kBlockP;
+  const int p_end = min(rows, p_begin + kBlockP);
+  const int width = k * kHid;
+  for (int p0 = p_begin; p0 < p_end; p0 += kSubP) {
+    __syncthreads();
+    for (int e = tid; e < kSubP * width; e += 256) {
+      int pp = e / width, rem = e % width;
+      shw[e] = (p0 + pp < p_end) ? h[(size_t)(p0 + pp) * width + rem] : 0.f;
+    }
+    __syncthreads();
+    const int p = p0 + pl;
+    if (p >= p_end || !live_c) continue;
+    const float* hp = shw + pl * width;
+    float m = 0.f, z = 1.f;
+    if (softmax) online_softmax(hp, sw, k, cl, bias, sc, sh, m, z);
+    const size_t base = (size_t)p * hk * four_fin;
+    float dot = 0.f;
+    for (int s = 0; s < k; ++s) {
+      const float lu = slot_logit(hp, sw, s, cl, bias, sc, sh);
+      const float u = softmax ? expf(lu - m) / z : lu;
+      const int j = s % 2;
+      const size_t o = base + (size_t)(s / 2) * four_fin + j * two_fin + c;
+      const float in = inte[o];
+      const float gpre = in * (j ? isc1 : isc0) + (j ? ish1 : ish0);
+      const float dgv = dg[o];
+      const float dgpre = leaky_grad(gpre, dgv * u);
+      d_inte[o] = dgpre * (j ? isc1 : isc0);
+      sums[j] += dgpre * in;
+      sums[2 + j] += dgpre;
+      if (softmax) dot += u * (dgv * leaky(gpre));
+    }
+    for (int s = 0; s < k; ++s) {
+      float a = 0.f;
+#pragma unroll 16
+      for (int hh = 0; hh < kHid; ++hh)
+        a = fmaf(hp[s * kHid + hh], sw[hh * kTC + cl], a);
+      const float v = a + bias;
+      const float upre = v * sc + sh;
+      const float lu = leaky(upre);
+      const int j = s % 2;
+      const size_t o = base + (size_t)(s / 2) * four_fin + j * two_fin + c;
+      const float gpre = inte[o] * (j ? isc1 : isc0) + (j ? ish1 : ish0);
+      const float du = dg[o] * leaky(gpre);
+      const float da =
+          softmax ? (expf(lu - m) / z) * (du - dot) : du;
+      const float dpre = leaky_grad(upre, da);
+      sums[4] += dpre * v;
+      sums[5] += dpre;
+      const float dvs = dpre * sc;
+      sums[6] += dvs;
+      dv[((size_t)p * k + s) * two_fin + c] = dvs;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kSums; ++m) red[pl][m][cl] = sums[m];
+  __syncthreads();
+  if (pl == 0 && live_c) {
+    float* o = scratch + (size_t)blockIdx.y * kSums * two_fin;
+#pragma unroll
+    for (int m = 0; m < kSums; ++m) {
+      float s = 0.f;
+      for (int q = 0; q < kSubP; ++q) s += red[q][m][cl];
+      o[(size_t)m * two_fin + c] = s;
+    }
+  }
+}
+
 constexpr int kPlainRows = 64;  // rows (point, window) per plain-stage block
 
 // plain stage: d_inte = LeakyReLU'(inte*isc + ish) * dg * isc, one thread per
@@ -236,12 +346,23 @@ int pdgn_bilateral_tail_bwd(
 
   // 3.-4. through the gate
   if (h != nullptr) {
-    if (k > kMaxK) return (int)cudaErrorInvalidValue;
+    if (k > kMaxWideK) return (int)cudaErrorInvalidValue;
     const int nblk = (rows + kBlockP - 1) / kBlockP;
     dim3 grid((two_fin + kTC - 1) / kTC, nblk);
-    gate_bwd_kernel<<<grid, 256, 0, stream>>>(inte, h, isc, ish, w2k, w2b, s2,
-                                              t2, dg, rows, k, two_fin,
-                                              softmax, d_inte, dv, sum_scratch);
+    if (k <= kMaxK) {
+      gate_bwd_kernel<<<grid, 256, 0, stream>>>(
+          inte, h, isc, ish, w2k, w2b, s2, t2, dg, rows, k, two_fin, softmax,
+          d_inte, dv, sum_scratch);
+    } else {
+      const int smem = kSubP * k * kHid * (int)sizeof(float);
+      err = cudaFuncSetAttribute(gate_bwd_wide_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return (int)err;
+      gate_bwd_wide_kernel<<<grid, 256, smem, stream>>>(
+          inte, h, isc, ish, w2k, w2b, s2, t2, dg, rows, k, two_fin, softmax,
+          d_inte, dv, sum_scratch);
+    }
     PDGN_CHECK_LAUNCH();
     column_reduce(sum_scratch, nblk, kSums * two_fin, sums, stream);
     PDGN_CHECK_LAUNCH();

@@ -253,7 +253,7 @@ inline void chunk_colsum(ALoad A, long long rows, int ncol, int chunk,
 // counting sort builds it: integer atomics count and place the entries, and
 // one block per row sorts its list, so every sum over a list is taken in the
 // same order on every run (no float atomics anywhere). A row's list holds
-// at most M entries; kNN graphs have hub rows named by most of the sample.
+// at most M entries; kNN graphs have hub rows named by many of the sample.
 __global__ void adj_count_kernel(const int* __restrict__ idx, long long total,
                                  int MK, int N, int* __restrict__ count) {
   long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -302,53 +302,66 @@ __global__ void adj_fill_kernel(const int* __restrict__ idx, long long total,
 }
 
 constexpr int kSortThreads = 128;
+constexpr int kSortSmemCap = 8192;  // list entries sorted in shared memory
 
-// one block per row: bitonic sort of its list in shared memory (padded to a
-// power of two with INT_MAX); rows of zero or one entry return at once
-__global__ void __launch_bounds__(kSortThreads)
-adj_sort_kernel(const int* __restrict__ offsets, int* __restrict__ entries) {
-  extern __shared__ int s_list[];
-  const int q = blockIdx.x;
-  const int a = offsets[q], d = offsets[q + 1] - a;
-  if (d < 2) return;
+// Ascending sort of list[0, d) by the bitonic network whose comparators all
+// put the smaller value first (the flip form: the first step of each merge
+// pairs i with i ^ (size - 1)). Positions d .. P-1 of the padded length P
+// are an implicit +inf and never move, so the list sorts in place.
+__device__ void sort_list(int* list, int d) {
   int P = 1;
   while (P < d) P <<= 1;
-  for (int i = threadIdx.x; i < P; i += kSortThreads)
-    s_list[i] = i < d ? entries[a + i] : 0x7fffffff;
-  __syncthreads();
   for (int size = 2; size <= P; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < P; i += kSortThreads) {
-        int j = i ^ stride;
-        if (j > i) {
-          int u = s_list[i], v = s_list[j];
-          if ((u > v) == ((i & size) == 0)) {
-            s_list[i] = v;
-            s_list[j] = u;
+      const int flip = stride == size >> 1 ? size - 1 : stride;
+      for (int i = threadIdx.x; i < d; i += kSortThreads) {
+        const int j = i ^ flip;
+        if (j > i && j < d) {
+          const int u = list[i], v = list[j];
+          if (u > v) {
+            list[i] = v;
+            list[j] = u;
           }
         }
       }
       __syncthreads();
     }
   }
+}
+
+// one block per row; rows of zero or one entry return at once. A list of
+// at most kSortSmemCap entries sorts in shared memory, a longer one (a hub
+// row named by more centers) in place in device memory.
+__global__ void __launch_bounds__(kSortThreads)
+adj_sort_kernel(const int* __restrict__ offsets, int* __restrict__ entries,
+                int cap) {
+  extern __shared__ int s_list[];
+  const int q = blockIdx.x;
+  const int a = offsets[q], d = offsets[q + 1] - a;
+  if (d < 2) return;
+  if (d > cap) {
+    sort_list(entries + a, d);
+    return;
+  }
+  for (int i = threadIdx.x; i < d; i += kSortThreads)
+    s_list[i] = entries[a + i];
+  __syncthreads();
+  sort_list(s_list, d);
   for (int i = threadIdx.x; i < d; i += kSortThreads)
     entries[a + i] = s_list[i];
 }
 
 // count/cursor: scratch of B*N ints each; offsets B*N + 1; entries B*M*K.
-// Entry ids are global (b*M*K + m*K + slot), so B*M*K must fit an int, and
-// a row's list (at most M entries, padded to a power of two) must fit one
-// block's shared memory: M <= 32768.
+// Entry ids are global (b*M*K + m*K + slot), so B*M*K must fit an int.
 inline cudaError_t reverse_adjacency(const int* idx, int B, int M, int K,
                                      int N, int* count, int* cursor,
                                      int* offsets, int* entries,
                                      cudaStream_t stream) {
   const long long total = (long long)B * M * K;
   const int n = B * N;
-  int cap = 1;
-  while (cap < M) cap <<= 1;
+  if (total >= (1LL << 31)) return cudaErrorInvalidValue;
+  const int cap = M < kSortSmemCap ? M : kSortSmemCap;
   const int smem = cap * (int)sizeof(int);
-  if (cap > 32768) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       adj_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -361,7 +374,7 @@ inline cudaError_t reverse_adjacency(const int* idx, int B, int M, int K,
   adj_scan_kernel<<<1, 1024, 0, stream>>>(count, n, offsets, cursor);
   adj_fill_kernel<<<blocks, threads, 0, stream>>>(idx, total, M * K, N,
                                                   cursor, entries);
-  adj_sort_kernel<<<n, kSortThreads, smem, stream>>>(offsets, entries);
+  adj_sort_kernel<<<n, kSortThreads, smem, stream>>>(offsets, entries, cap);
   return cudaGetLastError();
 }
 

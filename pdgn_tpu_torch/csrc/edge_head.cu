@@ -26,13 +26,18 @@
 //      8 warps of 64 x 32, operands staged through a 3-stage cp.async ring.
 //      P is scratch, (clouds of the chunk * N, ld); the wrapper cuts the
 //      batch into chunks of clouds (at most 1 GiB of P) to bound it.
-//   3. head_gather_kernel: a warp a point, float4 columns: the window sums
+//   3. head_gather_kernel<k>: a warp a point, float4 columns: the window sums
 //      inte[p, wp] = P_conv_a[p] + pb_point + sum_t P_Wn_t[idx[p, wp+t]]
 //      (t ascending), partial[p] = P_A[p] + sum_j P_We_j[idx[p, j]] (j
 //      ascending) + pb_merge, and the weight-net rows. Batch-norm sums
 //      accumulate per warp in shared memory; the warps fold in a fixed
 //      order and a persistent grid writes one partial a block, which
 //      column_reduce adds in a fixed order: deterministic statistics.
+//      Unrolled for k in {2, 4, 6, 8, 10, 12, 16}; head_gather_any_kernel
+//      takes any even k (k + 1 <= 128, knn_select's longest list) at run
+//      time, the neighbour rows staged per warp in shared memory, with the
+//      same sums in the same order, in float4 columns or, when 4Fin or 2F is
+//      not a multiple of 4, in scalar ones.
 #include "common.cuh"
 #include "knn.cuh"
 #include "mma_tf32x3.cuh"
@@ -276,7 +281,150 @@ head_gather_kernel(const float* __restrict__ P, int ld,
   }
 }
 
+// Any even K at run time (the gather of head_gather_kernel<K>, the window
+// sums t ascending and the merge sums j ascending as there). V = float4
+// (four_fin, two_f multiples of 4, float4 columns) or float (any widths).
+// Shared memory per warp: [2][four_fin] sums, gated [2][K * 32] more, then
+// kRowSlots ints of neighbour rows.
+constexpr int kRowSlots = 128;
+
+__device__ __forceinline__ float4 vsq(float4 a) { return a * a; }
+__device__ __forceinline__ float vsq(float a) { return a * a; }
+
+template <class V>
+__global__ void __launch_bounds__(256)
+head_gather_any_kernel(const float* __restrict__ P, int ld,
+                       const int* __restrict__ idx, int rows, int N, int K,
+                       int four_fin, int two_f,
+                       const float* __restrict__ pb_point,
+                       const float* __restrict__ pb_merge,
+                       const float* __restrict__ pcat,
+                       const float* __restrict__ ppoint,
+                       float* __restrict__ inte, float* __restrict__ partial,
+                       float* __restrict__ wfea, float* __restrict__ wxyz,
+                       float* __restrict__ stats_part,
+                       float* __restrict__ w_part) {
+  constexpr int VW = sizeof(V) / sizeof(float);
+  const int HK = K / 2, WIN = HK + 1;
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool gated = pcat != nullptr;
+  const int ss = 2 * four_fin + (gated ? 2 * K * kProj : 0);  // sums
+  const int sw = (ss + kRowSlots + 3) & ~3;                   // per warp
+  float* st = smem + warp * sw;
+  float* wst = st + 2 * four_fin;
+  int* srow = reinterpret_cast<int*>(st + ss);
+  for (int e = threadIdx.x; e < warps * sw; e += blockDim.x) smem[e] = 0.f;
+  __syncthreads();
+
+  const int U = four_fin / VW, U2 = two_f / VW, ldv = ld / VW;
+  const V* Pv = reinterpret_cast<const V*>(P);
+  const V* pbv = reinterpret_cast<const V*>(pb_point);
+  const V* pbm = reinterpret_cast<const V*>(pb_merge);
+  V* intev = reinterpret_cast<V*>(inte);
+  V* partv = reinterpret_cast<V*>(partial);
+  V* ssum = reinterpret_cast<V*>(st);
+  V* ssq = reinterpret_cast<V*>(st + four_fin);
+  const size_t ca = (size_t)WIN * U;
+  const size_t we = (size_t)(WIN + 1) * U;
+  const size_t am = we + (size_t)K * U2;
+
+  for (int p = blockIdx.x * warps + warp; p < rows;
+       p += gridDim.x * warps) {
+    const int b = p / N;
+    __syncwarp();  // the previous point's rows are read
+    for (int j = lane; j < K; j += 32)
+      srow[j] = b * N + idx[(size_t)p * K + j];
+    __syncwarp();
+    const size_t self = (size_t)p * ldv;
+
+    for (int u = lane; u < U; u += 32) {
+      const V point = Pv[self + ca + u] + pbv[(size_t)b * U + u];
+      V s = point, q = point;
+      for (int wp = 0; wp < HK; ++wp) {
+        V acc = point;
+        for (int t = 0; t < WIN; ++t)
+          acc = acc + Pv[(size_t)srow[wp + t] * ldv + t * U + u];
+        intev[((size_t)p * HK + wp) * U + u] = acc;
+        if (wp == 0) {
+          s = acc;
+          q = vsq(acc);
+        } else {
+          s = s + acc;
+          q = q + vsq(acc);
+        }
+      }
+      ssum[u] = ssum[u] + s;
+      ssq[u] = ssq[u] + q;
+    }
+
+    for (int u = lane; u < U2; u += 32) {
+      V a = Pv[self + am + u];
+      for (int j = 0; j < K; ++j)
+        a = a + Pv[(size_t)srow[j] * ldv + we + (size_t)j * U2 + u];
+      partv[(size_t)p * U2 + u] = a + pbm[(size_t)b * U2 + u];
+    }
+
+    if (gated) {
+      const float pp = ppoint[(size_t)p * kProj + lane];
+      for (int s = 0; s < K; ++s) {
+        const int j = (s % 2) * HK + s / 2;
+        const float v = pcat[(size_t)srow[j] * kProj + lane] + pp;
+        if (lane < kProj / 2)
+          wfea[((size_t)p * K + s) * (kProj / 2) + lane] = v;
+        else
+          wxyz[((size_t)p * K + s) * (kProj / 2) + lane - kProj / 2] = v;
+        wst[s * kProj + lane] += v;
+        wst[K * kProj + s * kProj + lane] += v * v;
+      }
+    }
+  }
+  __syncthreads();
+
+  float* o = stats_part + (size_t)blockIdx.x * 2 * four_fin;
+  for (int e = threadIdx.x; e < 2 * four_fin; e += blockDim.x) {
+    float v = 0.f;
+    for (int w = 0; w < warps; ++w) v += smem[w * sw + e];
+    o[e] = v;
+  }
+  if (gated) {
+    float* ow = w_part + (size_t)blockIdx.x * 2 * K * kProj;
+    for (int e = threadIdx.x; e < 2 * K * kProj; e += blockDim.x) {
+      float v = 0.f;
+      for (int w = 0; w < warps; ++w) v += smem[w * sw + 2 * four_fin + e];
+      ow[e] = v;
+    }
+  }
+}
+
 constexpr int kGSmemMax = 200 * 1024;
+
+template <class V>
+cudaError_t launch_gather_any(int k, int grid, const float* P, int ld,
+                              const int* idx, int rows, int N, int four_fin,
+                              int two_f, const float* pb_point,
+                              const float* pb_merge, const float* pcat,
+                              const float* ppoint, float* inte,
+                              float* partial, float* wfea, float* wxyz,
+                              float* stats_part, float* w_part,
+                              cudaStream_t stream) {
+  if (k < 2 || k % 2 || k > kRowSlots) return cudaErrorInvalidValue;
+  const int ss = 2 * four_fin + (pcat != nullptr ? 2 * k * kProj : 0);
+  const int per_warp = ((ss + kRowSlots + 3) & ~3) * 4;
+  int warps = kGSmemMax / per_warp;
+  if (warps > 8) warps = 8;
+  if (warps < 1) return cudaErrorInvalidValue;
+  const int smem = warps * per_warp;
+  cudaError_t err = cudaFuncSetAttribute(
+      head_gather_any_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  head_gather_any_kernel<V><<<grid, warps * 32, smem, stream>>>(
+      P, ld, idx, rows, N, k, four_fin, two_f, pb_point, pb_merge, pcat,
+      ppoint, inte, partial, wfea, wxyz, stats_part, w_part);
+  return cudaGetLastError();
+}
 
 template <int K>
 cudaError_t launch_gather(int grid, const float* P, int ld, const int* idx,
@@ -315,6 +463,11 @@ cudaError_t gather_for_k(int k, int grid, const float* P, int ld,
                              pb_point, pb_merge, pcat, ppoint, inte,       \
                              partial, wfea, wxyz, stats_part, w_part,      \
                              stream);
+  if (four_fin % 4 || two_f % 4)
+    return launch_gather_any<float>(k, grid, P, ld, idx, rows, N, four_fin,
+                                    two_f, pb_point, pb_merge, pcat, ppoint,
+                                    inte, partial, wfea, wxyz, stats_part,
+                                    w_part, stream);
   switch (k) {
     PDGN_GATHER_K(2)
     PDGN_GATHER_K(4)
@@ -324,7 +477,10 @@ cudaError_t gather_for_k(int k, int grid, const float* P, int ld,
     PDGN_GATHER_K(12)
     PDGN_GATHER_K(16)
     default:
-      return cudaErrorInvalidValue;
+      return launch_gather_any<float4>(k, grid, P, ld, idx, rows, N,
+                                       four_fin, two_f, pb_point, pb_merge,
+                                       pcat, ppoint, inte, partial, wfea,
+                                       wxyz, stats_part, w_part, stream);
   }
 #undef PDGN_GATHER_K
 }
@@ -334,10 +490,11 @@ cudaError_t gather_for_k(int k, int grid, const float* P, int ld,
 extern "C" {
 
 // x (B, N, C) per-point features, C % 4 == 0 (the wrapper pads), 16-byte
-// aligned; x_knn (B, N, Cf) the features the graph is built from. w_all
-// (C, ld) = [Wn_0 | .. | Wn_{window-1} | conv_a | We_0 | .. | We_{k-1} | A],
-// zero-padded to ld % 4 == 0 columns; four_fin and two_f multiples of 4,
-// pb_* 16-byte aligned. pcat/ppoint null: plain stage. Clouds go in
+// aligned; x_knn (B, N, Cf) the features the graph is built from; even k,
+// k + 1 <= 128. w_all (C, ld) = [Wn_0 | .. | Wn_{window-1} | conv_a | We_0 |
+// .. | We_{k-1} | A], zero-padded to ld % 4 == 0 columns; pb_* 16-byte
+// aligned when four_fin and two_f are multiples of 4 (float4 columns; other
+// widths take scalar ones). pcat/ppoint null: plain stage. Clouds go in
 // chunks of `chunk`: P holds (chunk * N, ld) floats, stats_part
 // (ceil(B / chunk) * grid, 2, four_fin), w_part (.., 2, k*32).
 int pdgn_edge_head(const float* x, const float* x_knn, int B, int N, int C,
@@ -348,7 +505,7 @@ int pdgn_edge_head(const float* x, const float* x_knn, int B, int N, int C,
                    float* partial, float* stats, float* wfea, float* wxyz,
                    float* wstats, float* P, int chunk, int grid,
                    float* stats_part, float* w_part, cudaStream_t stream) {
-  if (C % 4 || ld % 4 || four_fin % 4 || two_f % 4 || chunk < 1 || grid < 1)
+  if (C % 4 || ld % 4 || k < 2 || k % 2 || chunk < 1 || grid < 1)
     return (int)cudaErrorInvalidValue;
   const int hk = k / 2;
   cudaError_t err = pdgn::knn_select(x_knn, x_knn, B, N, N, Cf, k + 1, 1,

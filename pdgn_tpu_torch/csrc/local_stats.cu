@@ -30,13 +30,50 @@
 //     indices (common.cuh: counting sort, lists in ascending order), so each
 //     point adds its centers' terms in a fixed order: deterministic, no float
 //     atomics. One thread per source point.
+// The forward above is unrolled for k in {8, 16, 20, 32} with src in one
+// block's shared memory (N <= 19,000). Any other k <= 128, or a larger N,
+// takes knn_select (knn.cu, the knn_topk kernel's selection, whose direct
+// distance is this one's, rounded alike, and whose ties go the same way)
+// with the source points streamed through shared memory in tiles, then
+// local_moments_kernel: the same moments in the same order, one thread a
+// center.
 #include "common.cuh"
+#include "knn.cuh"
 
 #include <math.h>
 
 namespace {
 
 constexpr int kCenters = 128;  // centers per block (one per thread)
+constexpr int kSmemPoints = 19000;  // src in one block's shared memory
+
+// The shifted sums of a neighbourhood (offsets e from the center, in slot
+// order), then mu and the biased covariance
+struct Moments {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+  float q00 = 0.f, q01 = 0.f, q02 = 0.f, q11 = 0.f, q12 = 0.f, q22 = 0.f;
+
+  __device__ __forceinline__ void add(float e0, float e1, float e2) {
+    s0 += e0; s1 += e1; s2 += e2;
+    q00 = fmaf(e0, e0, q00); q01 = fmaf(e0, e1, q01); q02 = fmaf(e0, e2, q02);
+    q11 = fmaf(e1, e1, q11); q12 = fmaf(e1, e2, q12); q22 = fmaf(e2, e2, q22);
+  }
+
+  __device__ __forceinline__ void write(int K, float c0, float c1, float c2,
+                                        float* mo, float* co) const {
+    const float inv = 1.f / (float)K;
+    const float m0 = s0 * inv, m1 = s1 * inv, m2 = s2 * inv;  // mu - c
+    mo[0] = c0 + m0;
+    mo[1] = c1 + m1;
+    mo[2] = c2 + m2;
+    const float v00 = q00 * inv - m0 * m0, v01 = q01 * inv - m0 * m1;
+    const float v02 = q02 * inv - m0 * m2, v11 = q11 * inv - m1 * m1;
+    const float v12 = q12 * inv - m1 * m2, v22 = q22 * inv - m2 * m2;
+    co[0] = v00; co[1] = v01; co[2] = v02;
+    co[3] = v01; co[4] = v11; co[5] = v12;
+    co[6] = v02; co[7] = v12; co[8] = v22;
+  }
+};
 
 template <int K>
 __global__ void __launch_bounds__(kCenters)
@@ -85,31 +122,39 @@ local_stats_fwd_kernel(const float* __restrict__ src,
     }
   }
 
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  float q00 = 0.f, q01 = 0.f, q02 = 0.f, q11 = 0.f, q12 = 0.f, q22 = 0.f;
+  Moments mom;
   int* io = idx_out + ((size_t)b * M + t) * K;
 #pragma unroll
   for (int s = 0; s < K; ++s) {
     int j = bi[s];
     io[s] = j;
-    float e0 = s_pts[j] - c0, e1 = s_pts[N + j] - c1, e2 = s_pts[2 * N + j] - c2;
-    s0 += e0; s1 += e1; s2 += e2;
-    q00 = fmaf(e0, e0, q00); q01 = fmaf(e0, e1, q01); q02 = fmaf(e0, e2, q02);
-    q11 = fmaf(e1, e1, q11); q12 = fmaf(e1, e2, q12); q22 = fmaf(e2, e2, q22);
+    mom.add(s_pts[j] - c0, s_pts[N + j] - c1, s_pts[2 * N + j] - c2);
   }
-  const float inv = 1.f / (float)K;
-  const float m0 = s0 * inv, m1 = s1 * inv, m2 = s2 * inv;  // mu - c
-  float* mo = mu_out + ((size_t)b * M + t) * 3;
-  mo[0] = c0 + m0;
-  mo[1] = c1 + m1;
-  mo[2] = c2 + m2;
-  float* co = cov_out + ((size_t)b * M + t) * 9;
-  const float v00 = q00 * inv - m0 * m0, v01 = q01 * inv - m0 * m1;
-  const float v02 = q02 * inv - m0 * m2, v11 = q11 * inv - m1 * m1;
-  const float v12 = q12 * inv - m1 * m2, v22 = q22 * inv - m2 * m2;
-  co[0] = v00; co[1] = v01; co[2] = v02;
-  co[3] = v01; co[4] = v11; co[5] = v12;
-  co[6] = v02; co[7] = v12; co[8] = v22;
+  mom.write(K, c0, c1, c2, mu_out + ((size_t)b * M + t) * 3,
+            cov_out + ((size_t)b * M + t) * 9);
+}
+
+// any k: the moments of the k points knn_select chose, one thread a center
+__global__ void __launch_bounds__(kCenters)
+local_moments_kernel(const float* __restrict__ src,
+                     const float* __restrict__ centers,
+                     const int* __restrict__ idx, int N, int M, int K,
+                     float* __restrict__ mu_out,
+                     float* __restrict__ cov_out) {
+  const int b = blockIdx.y;
+  const int t = blockIdx.x * kCenters + threadIdx.x;
+  if (t >= M) return;
+  const float* sb = src + (size_t)b * N * 3;
+  const float* cp = centers + ((size_t)b * M + t) * 3;
+  const float c0 = cp[0], c1 = cp[1], c2 = cp[2];
+  const int* ib = idx + ((size_t)b * M + t) * K;
+  Moments mom;
+  for (int s = 0; s < K; ++s) {
+    const float* y = sb + (size_t)ib[s] * 3;
+    mom.add(y[0] - c0, y[1] - c1, y[2] - c2);
+  }
+  mom.write(K, c0, c1, c2, mu_out + ((size_t)b * M + t) * 3,
+            cov_out + ((size_t)b * M + t) * 9);
 }
 
 // one thread per source point: d_src[j] = sum over its entries (t, slot) of
@@ -165,18 +210,28 @@ cudaError_t launch_fwd(const float* src, const float* centers, int B, int N,
 
 extern "C" {
 
-// src (B,N,3), centers (B,M,3) -> idx (B,M,k) int32, mu (B,M,3), cov (B,M,9).
-// N*12 bytes of src must fit one block's shared memory (N <= 19,000).
+// src (B,N,3), centers (B,M,3) -> idx (B,M,k) int32, mu (B,M,3), cov (B,M,9);
+// 1 <= k <= min(N, 128).
 int pdgn_local_stats_fwd(const float* src, const float* centers, int B, int N,
                          int M, int k, int* idx, float* mu, float* cov,
                          cudaStream_t stream) {
-  switch (k) {
-    case 8: return (int)launch_fwd<8>(src, centers, B, N, M, idx, mu, cov, stream);
-    case 16: return (int)launch_fwd<16>(src, centers, B, N, M, idx, mu, cov, stream);
-    case 20: return (int)launch_fwd<20>(src, centers, B, N, M, idx, mu, cov, stream);
-    case 32: return (int)launch_fwd<32>(src, centers, B, N, M, idx, mu, cov, stream);
-    default: return (int)cudaErrorInvalidValue;
+  if (N <= kSmemPoints) {
+    switch (k) {
+      case 8: return (int)launch_fwd<8>(src, centers, B, N, M, idx, mu, cov, stream);
+      case 16: return (int)launch_fwd<16>(src, centers, B, N, M, idx, mu, cov, stream);
+      case 20: return (int)launch_fwd<20>(src, centers, B, N, M, idx, mu, cov, stream);
+      case 32: return (int)launch_fwd<32>(src, centers, B, N, M, idx, mu, cov, stream);
+      default: break;
+    }
   }
+  cudaError_t err = pdgn::knn_select(centers, src, B, M, N, 3, k, 0,
+                                     /*direct=*/true, idx, nullptr, stream);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((M + kCenters - 1) / kCenters, B);
+  local_moments_kernel<<<grid, kCenters, 0, stream>>>(src, centers, idx, N, M,
+                                                      k, mu, cov);
+  PDGN_CHECK_LAUNCH();
+  return (int)cudaSuccess;
 }
 
 // idx (B,M,k) from the forward; g_mu (B,M,3), g_cov (B,M,9) the cotangents.

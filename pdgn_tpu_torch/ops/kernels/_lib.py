@@ -49,7 +49,8 @@ _SIGNATURES = {
     "pdgn_bilateral_tail_bwd": [_P] * 11 + [_I] * 5 + [_P] * 11 + [_P],
     "pdgn_local_stats_fwd": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "pdgn_local_stats_bwd": [_P] * 5 + [_I] * 4 + [_P] * 5 + [_P],
-    "pdgn_emd_cd": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "pdgn_emd_cd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                    _P],
     "pdgn_knn_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "pdgn_knn_gather": [_P, _I, _I, _I, _I, _P, _P, _P],
 }

@@ -19,6 +19,10 @@ import torch
 
 from pdgn_tpu_torch.ops.kernels import _lib
 
+# the gated gate kernel's widest k (csrc/tail_gate.cuh, kMaxWideK): k + 1 <=
+# 128, the graph's longest list; k <= 16 keeps its slots in registers
+MAX_K = 126
+
 
 def _leaky(x):
     return torch.where(x >= 0, x, 0.01 * x)
@@ -194,8 +198,9 @@ def tail(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi, bias,
     if k % 2:
         raise ValueError(f"tail: k must be even, got {k}")
     if partial.device.type == "cuda":
-        if h_flat is not None and (h_flat.shape[-1] != k * 64 or k > 16):
-            raise ValueError("tail kernel: needs hidden width 64 and k <= 16")
+        if h_flat is not None and (h_flat.shape[-1] != k * 64 or k > MAX_K):
+            raise ValueError(f"tail kernel: needs hidden width 64 and k <= "
+                             f"MAX_K={MAX_K}, got k={k}")
     elif partial.device.type != "cpu":
         raise ValueError(f"tail: unsupported device {partial.device}")
     if h_flat is None:

@@ -24,7 +24,9 @@ from pdgn_tpu_torch.ops.knn import knn_exclude_first
 from pdgn_tpu_torch.ops.pairwise import self_pairwise_sqdist
 
 PROJ = 32          # weight-net projection channels (16 fea + 16 xyz)
-_SUPPORTED_K = (2, 4, 6, 8, 10, 12, 16)
+# the kernel's graph is knn_select's (csrc/knn.cu) for k+1 rows: k + 1 <=
+# its longest list, the JAX knn_topk kernel's limit too
+MAX_K = 126
 
 
 def head_reference_given_idx(x, wn_flat, conv_a, pb_point, a_merge, wen,
@@ -303,11 +305,9 @@ def edge_head(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
         raise ValueError(f"edge_head: need even k, window k/2+1 and N > k "
                          f"(k={k}, window={window}, N={N})")
     if x.device.type == "cuda":
-        if k not in _SUPPORTED_K:
-            raise ValueError(f"edge_head kernel: k={k} not in {_SUPPORTED_K}")
-        if four_fin % 4 or two_f % 4:
-            raise ValueError(f"edge_head kernel: 4Fin={four_fin} and "
-                             f"2F={two_f} must be multiples of 4")
+        if k > MAX_K:
+            raise ValueError(f"edge_head kernel: k={k} > MAX_K={MAX_K} "
+                             f"(k + 1 neighbours, at most 128)")
     elif x.device.type != "cpu":
         raise ValueError(f"edge_head: unsupported device {x.device}")
     out = _Head.apply(k, window, x, x_knn, wn_flat, conv_a, pb_point,

@@ -5,17 +5,19 @@ pairwise kernel.
 :func:`emd_cd` takes the sets ``a (S, n, 3)`` and ``b (R, n, 3)`` and
 returns ``cd (S, R)`` (``dl.mean + dr.mean``) and the un-normalised
 approxmatch ``cost (S, R)`` (divide by n for EMD). CUDA tensors launch
-``csrc/emd_cd.cu`` (one block per pair; no pair copies, nothing of size
-n x m in device memory). CPU tensors run the plain version,
+``csrc/emd_cd.cu`` (one block per pair; nothing of size n x m in device
+memory) on the clouds in Morton order (:func:`morton_order`) with the boxes
+of every 32 consecutive points (:func:`tile_boxes`), which let it skip the
+exact zeros of the early rounds. CPU tensors run the plain version,
 :func:`emd_cd_plain`: ``chamfer_cd`` and ``match_cost`` over the broadcast
 pairs, which materialises several ``(S*R, n, n)`` fp32 matrices. The TPU
-kernel's ``n % 256`` rule (its VMEM row tile) is dropped: the kernel takes
-any n up to :data:`MAX_POINTS`.
+kernel's ``n % 256`` rule (its VMEM row tile) is dropped, and so is any
+size limit: the kernel streams both clouds through shared memory.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,10 +25,8 @@ from pdgn_tpu_torch.losses.chamfer import chamfer_cd
 from pdgn_tpu_torch.losses.emd import match_cost
 from pdgn_tpu_torch.ops.kernels import _lib
 
-# both clouds and four mass vectors (5 floats a point each side, plus the
-# block's 512-float reduction scratch) in one block's 227 KB shared memory:
-# (5 * 2n + 512) * 4 bytes <= 232,448
-MAX_POINTS = 5760
+BOX = 32          # points a culling box (kSub in csrc/emd_cd.cu)
+_MORTON_BITS = 10  # bits a coordinate in the Morton code
 
 
 def emd_cd_plain(a: torch.Tensor,
@@ -42,17 +42,60 @@ def emd_cd_plain(a: torch.Tensor,
     return cd.reshape(S, R), cost.reshape(S, R)
 
 
-def emd_cd_kernel(a: torch.Tensor,
-                  b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/emd_cd.cu`` on contiguous fp32 CUDA sets."""
+def _spread3(v: torch.Tensor) -> torch.Tensor:
+    """Bits 0..9 of ``v`` to bits 0, 3, .., 27."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def morton_order(x: torch.Tensor) -> torch.Tensor:
+    """``(S, n)`` int64: each cloud's points ordered by the Morton code of
+    their coordinates quantised to 10 bits inside the cloud's bounding box
+    (a stable sort: equal codes keep their order), so that consecutive
+    points lie close together. Elementwise IEEE arithmetic: the same order
+    on the CPU and the card."""
+    lo = x.amin(dim=1, keepdim=True)
+    span = (x.amax(dim=1, keepdim=True) - lo).clamp_min(1e-30)
+    top = (1 << _MORTON_BITS) - 1
+    q = ((x - lo) / span * top).to(torch.int64).clamp_(0, top)
+    code = (_spread3(q[..., 0]) | (_spread3(q[..., 1]) << 1)
+            | (_spread3(q[..., 2]) << 2))
+    return torch.argsort(code, dim=1, stable=True)
+
+
+def tile_boxes(x: torch.Tensor) -> torch.Tensor:
+    """``(S, ceil(n / BOX), 6)``: the lo xyz and hi xyz of every ``BOX``
+    consecutive points of each cloud (the last box over what is left)."""
+    S, n, _ = x.shape
+    pad = -n % BOX
+    if pad:
+        x = torch.cat([x, x[:, -1:].expand(S, pad, 3)], dim=1)
+    t = x.reshape(S, -1, BOX, 3)
+    return torch.cat([t.amin(dim=2), t.amax(dim=2)], dim=-1).contiguous()
+
+
+def emd_cd_kernel(a: torch.Tensor, b: torch.Tensor, *, cull: bool = True,
+                  counts: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/emd_cd.cu`` on contiguous fp32 CUDA sets. ``cull=False``
+    visits every element of rounds 1-8 too (the same bits, slower);
+    ``counts``, a zeroed ``(2,)`` int64 tensor, receives the culling tests
+    made and the sub-tiles they skipped."""
     S, n, _ = a.shape
     R, m = b.shape[0], b.shape[1]
-    cd = torch.empty(S, R, device=a.device, dtype=torch.float32)
-    cost = torch.empty(S, R, device=a.device, dtype=torch.float32)
+    a = torch.gather(a, 1, morton_order(a)[..., None].expand(S, n, 3))
+    b = torch.gather(b, 1, morton_order(b)[..., None].expand(R, m, 3))
+    abox, bbox = tile_boxes(a), tile_boxes(b)
+    dev = a.device
+    masses = torch.empty(S * R * 2 * (n + m), device=dev, dtype=torch.float32)
+    cd = torch.empty(S, R, device=dev, dtype=torch.float32)
+    cost = torch.empty(S, R, device=dev, dtype=torch.float32)
     p = _lib.ptr
     _lib.check(_lib.library().pdgn_emd_cd(
-        p(a), p(b), S, R, n, m, p(cd), p(cost), _lib.stream_handle(a.device)),
-        "pdgn_emd_cd")
+        p(a), p(b), p(abox), p(bbox), S, R, n, m, int(cull), p(masses),
+        p(cd), p(cost), p(counts), _lib.stream_handle(dev)), "pdgn_emd_cd")
     _lib.LAUNCHES["emd_cd"] += 1
     return cd, cost
 
@@ -78,8 +121,6 @@ def emd_cd(a: torch.Tensor,
             raise ValueError(f"{name} is on {x.device}, a on {a.device}")
     a, b = a.contiguous(), b.contiguous()
     if a.device.type == "cuda":
-        if a.shape[1] > MAX_POINTS:
-            raise ValueError(f"emd_cd kernel: at most {MAX_POINTS} points")
         return emd_cd_kernel(a, b)
     if a.device.type != "cpu":
         raise ValueError(f"emd_cd: unsupported device {a.device}")

@@ -18,8 +18,11 @@ from pdgn_tpu_torch.ops.grouping import grouping
 from pdgn_tpu_torch.ops.kernels import _lib
 from pdgn_tpu_torch.ops.knn import topk_ascending_idx
 
-_SUPPORTED_K = (8, 16, 20, 32)
-_MAX_POINTS = 19_000      # src must fit one block's shared memory (12 B/pt)
+# the kernel's limits: knn_select's longest list, and the JAX kernel's own
+# N <= 0x10000 (local_stats_ok); k in {8, 16, 20, 32} with N <= 19,000 runs
+# unrolled with src in one block's shared memory, the rest streams it
+MAX_K = 128
+MAX_POINTS = 0x10000
 
 
 def knn_direct(src: torch.Tensor, centers: torch.Tensor, k: int):
@@ -135,9 +138,16 @@ def local_mean_cov(src: torch.Tensor, centers: torch.Tensor, k: int = 20):
         raise ValueError(f"local_mean_cov: {src.shape[1]} points < k={k}")
     src, centers = src.contiguous(), centers.contiguous()
     if src.device.type == "cuda":
-        if k not in _SUPPORTED_K or src.shape[1] > _MAX_POINTS:
-            raise ValueError(f"local_stats kernel: needs k in {_SUPPORTED_K} "
-                             f"and N <= {_MAX_POINTS}")
+        B, N, M = src.shape[0], src.shape[1], centers.shape[1]
+        if not 1 <= k <= MAX_K or N > MAX_POINTS:
+            raise ValueError(f"local_stats kernel: needs 1 <= k <= MAX_K="
+                             f"{MAX_K} and N <= MAX_POINTS={MAX_POINTS}, got "
+                             f"k={k}, N={N}")
+        if B * M * k >= 2 ** 31:
+            raise ValueError(f"local_stats kernel: B*M*k = {B * M * k} "
+                             f"neighbour entries exceed int32; use a smaller "
+                             f"batch")
+        _lib.check_rows(B, 1, "local_stats")
     elif src.device.type != "cpu":
         raise ValueError(f"local_mean_cov: unsupported device {src.device}")
     return _LocalStats.apply(src, centers.detach(), k)

@@ -3,6 +3,11 @@ card, at small and ragged shapes (edges that the full-width checks of
 ``chip_smoke.py`` never hit: row counts that fill no tile, channel counts
 that are no multiple of a chunk, k other than 10).
 
+The widened shapes too: the head at any even k with k + 1 <= 128 and at
+4Fin or 2F that are no multiple of 4, the gated tail at k > 16, local
+statistics at any k <= 128 and N up to 65,536, emd_cd at any n, and a
+full-width generator at num_k 28.
+
 Marked ``cuda``; each test skips unless a CUDA card is visible (decided in
 the fixture, never at import). Run on a machine with a card with::
 
@@ -43,7 +48,10 @@ def _rel(a, b):
                                             (130, 24, 16, 10, True),
                                             (64, 32, 32, 16, True),
                                             (128, 32, 0, 10, False),
-                                            (256, 128, 128, 10, True)])
+                                            (256, 128, 128, 10, True),
+                                            (200, 24, 8, 14, True),
+                                            (150, 16, 16, 18, False),
+                                            (160, 8, 8, 126, True)])
 def test_edge_head_kernel_matches_plain(dev, N, C, cx, k, gated):
     g = torch.Generator(device=dev).manual_seed(N + k)
     B, four_fin, two_f = 3, 4 * (C + cx), 2 * (C + cx)
@@ -124,15 +132,41 @@ def test_edge_head_kernel_reruns_are_bit_identical(dev):
 
 
 def test_edge_head_kernel_refuses_what_it_cannot_take(dev):
-    """The gather pass reads float4 columns: 4Fin and 2F multiples of 4."""
-    B, N, C, k = 2, 32, 8, 6
+    """k + 1 neighbours are at most 128 (knn_select's longest list)."""
+    B, N, C, k = 2, 200, 8, 128
     window = k // 2 + 1
     x = torch.randn(B, N, C, device=dev)
-    ops = head_operands(x, torch.randn(1, window, 2 * C, 6, device=dev),
-                        torch.randn(6, device=dev),
-                        torch.randn(2 * k * 2 * C, 6, device=dev), k)
-    with pytest.raises(ValueError, match="multiples of 4"):
+    ops = head_operands(x, torch.randn(1, window, 2 * C, 8, device=dev),
+                        torch.randn(8, device=dev),
+                        torch.randn(2 * k * 2 * C, 8, device=dev), k)
+    with pytest.raises(ValueError, match="MAX_K"):
         edge_head(x, *ops[:7], None, None, k, window)
+
+
+@pytest.mark.parametrize("k,gated", [(6, False), (10, True), (22, True)])
+def test_edge_head_kernel_takes_widths_off_float4(dev, k, gated):
+    """4Fin = 6 and 2F = 10 (no multiples of 4) take scalar columns, at an
+    unrolled k and at the run-time one, and match the plain version."""
+    g = torch.Generator(device=dev).manual_seed(k)
+    B, N, C = 2, 64, 8
+    window = k // 2 + 1
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    x = r(B, N, C)
+    ops = head_operands(x, r(1, window, 2 * C, 6) * 0.1, r(6) * 0.1,
+                        r(2 * k * 2 * C, 10) * 0.05, k)
+    pcat = r(B, N, 32) if gated else None
+    ppoint = r(B, N, 32) if gated else None
+    got = edge_head(x, *ops[:7], pcat, ppoint, k, window)
+    want = head_reference_given_idx(x, *ops[1:7], pcat, ppoint, got[0], k,
+                                    window)
+    for a, b in zip(got[1:], want):
+        if b is None:
+            assert a is None
+        else:
+            assert _rel(a, b) <= 1e-4
 
 
 @pytest.mark.parametrize("rows", [132 * 8 * 16 + 5, 200_000])
@@ -151,7 +185,11 @@ def test_slot_stats_kernel_partition_edges(dev, rows):
 
 @pytest.mark.parametrize("gated,softmax,k,fin", [(True, True, 10, 12),
                                                  (True, False, 6, 40),
-                                                 (False, True, 10, 8)])
+                                                 (False, True, 10, 8),
+                                                 (True, True, 18, 12),
+                                                 (True, False, 40, 8),
+                                                 (True, True, 126, 4),
+                                                 (False, True, 30, 8)])
 def test_tail_kernel_matches_plain(dev, gated, softmax, k, fin):
     g = torch.Generator(device=dev).manual_seed(k * fin)
     B, N, two_f = 2, 37, 2 * fin
@@ -184,7 +222,10 @@ def test_generate_on_the_card_matches_shapes(dev):
 
 @pytest.mark.parametrize("N,C,cx,k,gated", [(100, 40, 0, 6, False),
                                             (130, 24, 16, 10, True),
-                                            (64, 32, 32, 16, True)])
+                                            (64, 32, 32, 16, True),
+                                            (200, 24, 8, 14, True),
+                                            (150, 16, 16, 18, True),
+                                            (140, 8, 0, 30, False)])
 def test_edge_head_backward_kernel_matches_plain(dev, N, C, cx, k, gated):
     """Given the same graph and the same random cotangents, every gradient
     of the head's backward kernel rel <= 1e-4 of autograd's."""
@@ -228,7 +269,10 @@ def test_edge_head_backward_kernel_matches_plain(dev, N, C, cx, k, gated):
 
 @pytest.mark.parametrize("gated,softmax,k,fin", [(True, True, 10, 12),
                                                  (True, False, 6, 40),
-                                                 (False, True, 10, 8)])
+                                                 (False, True, 10, 8),
+                                                 (True, True, 18, 12),
+                                                 (True, False, 40, 8),
+                                                 (True, True, 126, 4)])
 def test_tail_backward_kernel_matches_plain(dev, gated, softmax, k, fin):
     from pdgn_tpu_torch.ops.kernels.bilateral_tail import (tail_bwd_kernel,
                                                            tail_bwd_plain)
@@ -287,6 +331,145 @@ def test_local_stats_kernels_match_plain(dev, B, M, N):
                 bwd_plain(src, idx, g_mu, g_cov)) <= 1e-4
 
 
+@pytest.mark.parametrize("B,M,N,k,ties", [(2, 100, 300, 7, False),
+                                          (1, 512, 20000, 24, False),
+                                          (1, 200, 700, 128, False),
+                                          (2, 128, 128, 24, True),
+                                          (1, 300, 19500, 20, False)])
+def test_local_stats_wide_shapes_match_plain(dev, B, M, N, k, ties):
+    """local_mean_cov at a k without an unrolled instance or an N beyond
+    one block's shared memory: the same neighbour sets as the plain
+    version, mu and cov rel <= 1e-4, the backward rel <= 1e-4 given the
+    same selection; both kernels launched once."""
+    from pdgn_tpu_torch.ops.kernels.local_stats import (bwd_plain,
+                                                        knn_direct,
+                                                        local_mean_cov,
+                                                        stats_given_idx)
+
+    g = torch.Generator(device=dev).manual_seed(M + N + k)
+    src = torch.randn(B, N, 3, generator=g, device=dev)
+    if ties:
+        src[:, 1::2] = src[:, 0::2]
+        centers = src
+    else:
+        centers = torch.randn(B, M, 3, generator=g, device=dev)
+    s = src.clone().requires_grad_(True)
+    _lib.LAUNCHES.clear()
+    mu, cov = local_mean_cov(s, centers, k)
+    idx = knn_direct(src, centers, k)
+    mu_p, cov_p = stats_given_idx(src, idx)
+    assert _rel(mu, mu_p) <= 1e-4 and _rel(cov, cov_p) <= 1e-4
+    g_mu = torch.randn(B, M, 3, generator=g, device=dev)
+    g_cov = torch.randn(B, M, 9, generator=g, device=dev)
+    (d_src,) = torch.autograd.grad((mu, cov), (s,), (g_mu, g_cov))
+    assert _rel(d_src, bwd_plain(src, idx, g_mu, g_cov)) <= 1e-4
+    assert dict(_lib.LAUNCHES) == {"local_stats_fwd": 1,
+                                   "local_stats_bwd": 1}
+
+
+def test_local_stats_hub_rows_beyond_shared_memory(dev):
+    """40,000 equal points: every center's 24 neighbours are points 0..23
+    (ties, the lowest index first), so each of those rows is named by all
+    40,000 centers, a reverse-adjacency list longer than the sort's shared
+    memory; the backward still matches the plain version."""
+    from pdgn_tpu_torch.ops.kernels.local_stats import (bwd_kernel, bwd_plain,
+                                                        fwd_kernel)
+
+    N, k = 40_000, 24
+    src = torch.full((1, N, 3), 0.25, device=dev)
+    idx, mu, cov = fwd_kernel(src, src, k)
+    assert torch.equal(idx[0].long(),
+                       torch.arange(k, device=dev).expand(N, k))
+    assert bool((mu == 0.25).all()) and bool((cov == 0).all())
+    g = torch.Generator(device=dev).manual_seed(3)
+    g_mu = torch.randn(1, N, 3, generator=g, device=dev)
+    g_cov = torch.randn(1, N, 9, generator=g, device=dev)
+    assert _rel(bwd_kernel(src, idx, mu, g_mu, g_cov),
+                bwd_plain(src, idx, g_mu, g_cov)) <= 1e-4
+
+
+def test_local_stats_kernel_refuses_what_it_cannot_take(dev):
+    from pdgn_tpu_torch.ops.kernels.local_stats import local_mean_cov
+
+    x = torch.zeros(1, 200, 3, device=dev)
+    with pytest.raises(ValueError, match="MAX_K"):
+        local_mean_cov(x, x, 129)
+    big = torch.zeros(1, 0x10000 + 1, 3, device=dev)
+    with pytest.raises(ValueError, match="MAX_POINTS"):
+        local_mean_cov(big, big[:, :10], 8)
+
+
+def test_generator_full_width_num_k_28_on_the_card(dev):
+    """The full-width generator at num_k 28 (k = 14, no unrolled head
+    instance) through the kernels: finite clouds, the launch counts of a
+    forward, and each stage, fed on the card the inputs the plain CPU path
+    gave it, rel <= 1e-3 at every point whose kNN row agrees (a differing
+    row must be a near-tie)."""
+    import copy
+
+    from pdgn_tpu_torch.ops.pairwise import self_pairwise_sqdist
+    from pdgn_tpu_torch.train.generate import build_generator
+    from pdgn_tpu_torch.train.sampler import frozen_running_stats
+
+    model = build_generator(28, dev, num_k=28)
+    # B=8 as chip_smoke.py's stage check: the global branch's batch norms
+    # over fewer clouds amplify the CPU's and the card's rounding apart
+    z = torch.randn(8, 128, generator=torch.Generator().manual_seed(28))
+    _lib.LAUNCHES.clear()
+    with torch.no_grad(), frozen_running_stats(model):
+        clouds = model(z.to(dev))
+    torch.cuda.synchronize()
+    assert clouds[-1].shape == (8, 2048, 3)
+    assert all(bool(torch.isfinite(c).all()) for c in clouds)
+    assert dict(_lib.LAUNCHES) == {"edge_head": 4, "slot_stats": 3,
+                                   "bilateral_tail_gated": 3,
+                                   "bilateral_tail_plain": 1}
+
+    cpu_model = copy.deepcopy(model).cpu()
+    records = {}
+
+    def hook(name):
+        def fn(module, args, kwargs, output):
+            records[name] = (args, kwargs, output)
+        return fn
+
+    handles = [getattr(cpu_model, f"bilateral{i}").register_forward_hook(
+        hook(f"bilateral{i}"), with_kwargs=True) for i in range(1, 5)]
+    with torch.no_grad(), frozen_running_stats(cpu_model):
+        cpu_model(z)
+    for h in handles:
+        h.remove()
+
+    def to_dev(v):
+        return v.to(dev) if isinstance(v, torch.Tensor) else v
+
+    with torch.no_grad(), frozen_running_stats(model):
+        for name, (args, kwargs, want) in records.items():
+            got = getattr(model, name)(*map(to_dev, args),
+                                       **{k: to_dev(v)
+                                          for k, v in kwargs.items()})
+            idx_g, idx_w = got[3].cpu(), want[3]
+            mism = idx_g != idx_w
+            assert float(mism.float().mean()) <= 1e-3, name
+            if bool(mism.any()):
+                x = args[0]
+                xs_in = kwargs.get("xs_in")
+                if xs_in is not None:
+                    x = torch.cat([xs_in[:, None, :].expand(
+                        -1, x.shape[1], -1), x], dim=-1)
+                d = self_pairwise_sqdist(x)
+                dg, dw = d.gather(-1, idx_g.long()), d.gather(-1, idx_w.long())
+                gap = (dg - dw).abs() / torch.maximum(
+                    dg.abs(), dw.abs()).clamp_min(1e-12)
+                assert float(gap[mism].max()) <= 1e-5, name
+            keep = ~mism.any(-1)
+            keep2 = torch.cat([keep, keep], dim=1)
+            assert _rel(got[0].cpu(), want[0]) <= 1e-3, name
+            assert _rel(got[2].cpu()[keep2], want[2][keep2]) <= 1e-3, name
+            if want[1] is not None:
+                assert _rel(got[1].cpu(), want[1]) <= 1e-3, name
+
+
 def test_generator_backward_on_the_card_counts(dev):
     """A training forward and backward of the small generator on the card
     go through every forward and backward kernel once per stage."""
@@ -308,7 +491,8 @@ def test_generator_backward_on_the_card_counts(dev):
                for p in model.parameters())
 
 
-@pytest.mark.parametrize("n,S,R", [(100, 3, 2), (256, 2, 3), (1024, 2, 2)])
+@pytest.mark.parametrize("n,S,R", [(100, 3, 2), (256, 2, 3), (1024, 2, 2),
+                                   (3000, 1, 2), (8192, 1, 2)])
 def test_emd_cd_kernel_matches_plain(dev, n, S, R):
     """Every pair of two sets: CD rel <= 1e-5 and cost rel <= 2e-3 of the
     plain version (chamfer_cd + match_cost; the kernel takes distances by
@@ -334,14 +518,32 @@ def test_emd_cd_kernel_matches_plain(dev, n, S, R):
 
 
 def test_emd_cd_kernel_refuses_what_it_cannot_take(dev):
-    from pdgn_tpu_torch.ops.kernels.emd_cd import MAX_POINTS, emd_cd
+    """Unequal point counts and empty sets; there is no size limit."""
+    from pdgn_tpu_torch.ops.kernels.emd_cd import emd_cd
 
     with pytest.raises(ValueError, match="n == m"):
         emd_cd(torch.zeros(1, 64, 3, device=dev),
                torch.zeros(1, 32, 3, device=dev))
-    with pytest.raises(ValueError, match="at most"):
-        emd_cd(torch.zeros(1, MAX_POINTS + 1, 3, device=dev),
-               torch.zeros(1, MAX_POINTS + 1, 3, device=dev))
+    with pytest.raises(ValueError, match="empty"):
+        emd_cd(torch.zeros(0, 64, 3, device=dev),
+               torch.zeros(1, 64, 3, device=dev))
+
+
+def test_emd_cd_culling_keeps_the_bits(dev):
+    """Skipping the exact zeros of rounds 1-8 gives the same bits as
+    visiting every element, and on clouds spread wider than a level's
+    reach it does skip sub-tiles."""
+    from pdgn_tpu_torch.ops.kernels.emd_cd import emd_cd_kernel
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    a = torch.randn(2, 2048, 3, generator=g, device=dev)
+    b = torch.randn(3, 2048, 3, generator=g, device=dev)
+    counts = torch.zeros(2, device=dev, dtype=torch.int64)
+    cd, cost = emd_cd_kernel(a, b, counts=counts)
+    cd0, cost0 = emd_cd_kernel(a, b, cull=False)
+    assert torch.equal(cd, cd0) and torch.equal(cost, cost0)
+    seen, culled = counts.tolist()
+    assert 0 < culled < seen
 
 
 def test_test_phase_on_the_card_counts(dev, tmp_path):

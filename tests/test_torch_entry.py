@@ -59,15 +59,15 @@ RESULT_LINE = re.compile(
 @pytest.mark.parametrize("phase", ["test", "cls"])
 def test_cli_unported_phases_exit_nonzero(tmp_path, phase, capsys):
     """``--phase test`` runs on the CPU: the dumps and the reference's
-    result lines (``"%s: %.12f"``) in the run's log; a phase the port does
-    not have (``cls``, the JAX CLI's classifier) exits 2."""
+    result lines (``"%s: %.12f"``) in the run's log; ``cls`` is the
+    reference's dead phase: its message, and exit 1 as ``pdgn_tpu.cli``."""
     args = _cli_args(tmp_path, "--phase", phase, "--device", "cpu",
                      "--dataset", "synthetic", "--synthetic_size", "4")
     if phase != "test":
         with pytest.raises(SystemExit) as exc:
             cli.main(args)
-        assert exc.value.code == 2
-        assert "not ported" in capsys.readouterr().out
+        assert exc.value.code == 1
+        assert "dead phase" in capsys.readouterr().out
         return
     _lib.LAUNCHES.clear()
     cli.main(args)

@@ -17,7 +17,12 @@ What it does, in order (any failure raises and the exit code is not 0):
    ``knn_topk``'s; given the kernel's indices the head's other outputs are
    rel <= 1e-4; slot stats rel <= 1e-5; the tails rel <= 1e-4; a second
    launch of the head and of slot stats gives the same bits. ``rel`` is
-   max |a - b| / max |b|;
+   max |a - b| / max |b|. The head forward's outputs on numpy-drawn
+   operands keep the digest they had before its product moved into the
+   shared product core (``csrc/tf32x3_gemm.cuh``), and that core alone, at
+   the long chains of the gated tail's merge (depth 5,120) and of the head
+   backward (7,168, and a 35,840-row reduction in 4,096-row splits), is
+   rel <= 1e-5 of float64 with its accumulators folded;
 3. drives the main path: ``generate()`` (the ``--phase sample`` entry) at
    full width, 256 clouds in batches of 128 from a seeded random init,
    with every launch counter set to 0 just before and read just after;
@@ -31,11 +36,13 @@ What it does, in order (any failure raises and the exit code is not 0):
    shapes, the kernel, its plain version and (where one PyTorch call
    computes the same function) that call, beside the least time the card
    could take (max of bytes / 3.35 TB/s and FLOP / 67 TFLOP/s, the H100
-   SXM fp32 figures without tensor cores; the edge head's products, which
-   its kernel runs on the tensor cores, at 3xTF32's 495 / 3 TFLOP/s, so
-   the other kernels' bounds are upper estimates until their own
-   redesign); holds each kernel's B=128 outputs against its plain
-   version's with phase 2's tolerances and near-tie rule.
+   SXM fp32 figures without tensor cores; the products that the head and
+   the tails run on the tensor cores at 3xTF32's 495 / 3 TFLOP/s, so the
+   bounds of kernels still on the SIMT units are upper estimates until
+   their own redesign); holds each kernel's B=128 outputs against its
+   plain version's with phase 2's tolerances and near-tie rule; and
+   prints the gated tail's merge product alone (the shared core) against
+   ``torch.addmm`` in fp32, a yardstick the port never calls.
 
 The train slice, in the same phases:
 
@@ -51,7 +58,7 @@ The train slice, in the same phases:
    its backward rel <= 1e-4 given the same selection;
 3t. drives the train path through the trainer's entry point
    (``PDGNTrainer.train``, what ``--phase train`` runs) at full width,
-   B=35, synthetic data: four steps (one warm-up, three timed) with every
+   B=35, synthetic data: 21 steps (one warm-up, twenty timed) with every
    launch counter set to 0 just before and read just after. Checks the six
    losses are finite, every G and D parameter has a finite gradient, the G
    parameters moved, the launch counts per step (head 8 forward and 4
@@ -59,7 +66,9 @@ The train slice, in the same phases:
    stats 9 and 9), and that both checkpoint bundles were written and load
    back; prints train steps/s at B=35;
 4t. times each train kernel at the train path's B=35 shapes beside its plain
-   version and its bound, and holds its outputs to phase 2t's tolerances.
+   version and its bound, and holds its outputs to phase 2t's tolerances;
+   prints the head backward's input-gradient product alone (Gc @ W_conv
+   on the shared core) against ``torch.addmm`` in fp32.
 
 The test slice, in the same phases:
 
@@ -335,6 +344,31 @@ def compare_tail(args, label: str) -> float:
     return max_abs(y_k, y_p)
 
 
+def check_core(gen, dev) -> dict:
+    """The shared product core alone at the long chains of the gated tail's
+    merge (depth 5,120) and the head backward (Gc @ W_conv, 7,168; x^T Gc
+    over the 35,840 rows of B=35 in 4,096-row splits): folded as the port
+    runs it, rel <= 1e-5 of float64."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.tc_gemm import tc_matmul
+
+    out = {}
+    for what, rows, depth, cols, trans in (
+            ("tail merge", 1024, 5120, 512, False),
+            ("head bwd Gc @ W_conv", 1024, 7168, 128, False),
+            ("head bwd x^T Gc", 128, 35840, 1024, True)):
+        a = torch.randn(*((depth, rows) if trans else (rows, depth)),
+                        generator=gen, device=dev)
+        b = torch.randn(depth, cols, generator=gen, device=dev)
+        b *= depth ** -0.5
+        want = (a.double().T if trans else a.double()) @ b.double()
+        e = rel(tc_matmul(a, b, trans=trans), want)
+        log(f"  core {what}, depth {depth}: rel {e:.3e}")
+        require(e <= 1e-5, f"core {what}: rel {e}")
+        out[what] = e
+    return out
+
+
 # ------------------------------------------------------------ phase 3: path
 def stage_check(model, dev) -> dict:
     """Feed each stage on the card the inputs the plain CPU path gave it;
@@ -457,6 +491,29 @@ def bound(flops: float, nbytes: float, t_ops: float = 0.0):
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
+def product_yardstick(what: str, a, b, addend) -> dict:
+    """The shared product core alone (``tc_matmul``: ``addend + a @ b``,
+    folded 3xTF32) against ``torch.addmm(addend, a, b)`` in fp32 (TF32 off)
+    on the same operands: times, rates and their difference."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.tc_gemm import tc_matmul
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    got = tc_matmul(a, b, addend)
+    want = torch.addmm(addend, a, b)
+    e = rel(got, want)
+    del got, want
+    ms = time_ms(lambda: tc_matmul(a, b, addend), 3)
+    lib = time_ms(lambda: torch.addmm(addend, a, b), 3)
+    flop = 2.0 * a.shape[0] * a.shape[1] * b.shape[1]
+    log(f"  sub-yardstick {what} {tuple(a.shape)} @ {tuple(b.shape)}: "
+        f"core {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s), torch.addmm "
+        f"fp32 {lib:.3f} ms ({flop / lib / 1e9:.1f} TFLOP/s), rel {e:.3e}")
+    require(e <= 1e-5, f"{what}: the core is {e} off torch.addmm")
+    return {"what": what, "shape": f"{tuple(a.shape)} @ {tuple(b.shape)}",
+            "ms": ms, "addmm_ms": lib, "rel": e}
+
+
 def time_kernels(dev, gen) -> dict:
     """Times each kernel, its plain version and the library call at the
     main path's B=128 shapes, and holds the kernel's outputs against the
@@ -520,15 +577,17 @@ def time_kernels(dev, gen) -> dict:
     res["slot_stats"]["max_abs_err"] = compare_slot_stats(h, f"stage 4 B={B}")
     del h, hf
 
-    # gated tail, stage 4
+    # gated tail, stage 4: both products (conv_all2, the merge) on the
+    # tensor cores at 3xTF32's rate; BN folds, LeakyReLUs, the softmax, the
+    # gate and the merge's addend and bias at the fp32 SIMT rate
     targs = tail_inputs(4, B, True, gen, dev)
     two_fin = four_fin // 2
-    flops = (2.0 * rows * K * 64 * two_fin               # conv_all2
-             + 2.0 * rows * hk * four_fin * two_f        # merge GEMM
-             + 8.0 * rows * K * two_fin)                 # BN, gates, softmax
+    products = (2.0 * rows * K * 64 * two_fin            # conv_all2
+                + 2.0 * rows * hk * four_fin * two_f)    # merge
+    simt = 8.0 * rows * K * two_fin + 2.0 * rows * two_f
     nbytes = 4.0 * (rows * two_f * 2 + rows * hk * four_fin + rows * K * 64
                     + hk * four_fin * two_f + 64 * two_fin + 2 * four_fin)
-    b, by = bound(flops, nbytes)
+    b, by = bound(simt, nbytes, products / PEAK_TF32X3 * 1e3)
     res["bilateral_tail_gated"] = {
         "ms": time_ms(lambda: tail(*targs), 3),
         "plain_ms": time_ms(lambda: tail_reference(*targs), 3),
@@ -536,16 +595,25 @@ def time_kernels(dev, gen) -> dict:
         "shape": f"stage 4, B={B}, N={n}, 4Fin={four_fin}, 2F={two_f}"}
     res["bilateral_tail_gated"]["max_abs_err"] = compare_tail(
         targs, f"stage 4 B={B} gated")
+    partial, wi = targs[0].reshape(rows, two_f), targs[9]
     del targs
+    # the merge product alone against cuBLAS's fp32 SGEMM (TF32 off): a
+    # yardstick for one product of the kernel, never called by the port
+    g = torch.randn(rows, hk * four_fin, generator=gen, device=dev)
+    res["bilateral_tail_gated"]["sub_yardstick"] = product_yardstick(
+        "merge g @ wi + partial", g, wi, partial)
+    del g, partial, wi
 
     # plain tail, stage 1
     n1, _, _, four_fin1, two_f1 = stage_dims(1)
     targs = tail_inputs(1, B, False, gen, dev)
     rows1 = B * n1
-    flops = 2.0 * rows1 * hk * four_fin1 * two_f1 + 3.0 * rows1 * hk * four_fin1
+    # its merge runs on the tensor cores too
+    products = 2.0 * rows1 * hk * four_fin1 * two_f1
     nbytes = 4.0 * (rows1 * two_f1 * 2 + rows1 * hk * four_fin1
                     + hk * four_fin1 * two_f1 + 2 * four_fin1)
-    b, by = bound(flops, nbytes)
+    b, by = bound(3.0 * rows1 * hk * four_fin1 + 2.0 * rows1 * two_f1, nbytes,
+                  products / PEAK_TF32X3 * 1e3)
     res["bilateral_tail_plain"] = {
         "ms": time_ms(lambda: tail(*targs), 10),
         "plain_ms": time_ms(lambda: tail_reference(*targs), 10),
@@ -836,7 +904,7 @@ def check_wide_shapes(gen, dev) -> dict:
 
 # ----------------------------------------------- the train slice: phase 3t
 TRAIN_B = 35
-TRAIN_STEPS = 4          # one warm-up, three timed
+TRAIN_STEPS = 21         # one warm-up, twenty timed
 PER_STEP = {"edge_head": 8, "edge_head_bwd": 4, "slot_stats": 6,
             "bilateral_tail_gated": 6, "bilateral_tail_gated_bwd": 3,
             "bilateral_tail_plain": 2, "bilateral_tail_plain_bwd": 1,
@@ -930,18 +998,22 @@ def time_train_kernels(dev, gen) -> dict:
     window = hk + 1
     res = {}
 
-    # head backward, gated, stage 4: the products the backward must do
-    # (patch and window-weight gradients, centre terms once per point,
-    # merge input and weight gradients), gathers and sums not counted
+    # head backward, gated, stage 4: its least work. The cotangents summed
+    # onto their rows first (the transpose of x[idx] W = (x W)[idx]), so
+    # window+1 products of C x 4Fin a point each way for the window conv
+    # and k+1 of C x 2F each way for the merge, at 3xTF32's rate; forming
+    # dy, the gathered sums and the merge's gather at the fp32 SIMT rate
     n, c, cx, four_fin, two_f = stage_dims(4)
     case = head_bwd_case(4, B, True, gen, dev)
     args, idx, inte, cts = case
     x, _, wn, ca, pb, am, wen, pbm, pcat, ppoint, k, _ = args
     rows = B * n
-    flops = (2 * 2.0 * rows * hk * window * c * four_fin
-             + 2 * 2.0 * rows * c * four_fin
-             + 2 * 2.0 * rows * K * c * two_f
-             + 2 * 2.0 * rows * c * two_f)
+    products = (2 * 2.0 * rows * (window + 1) * c * four_fin
+                + 2 * 2.0 * rows * (K + 1) * c * two_f)
+    simt = (3.0 * rows * hk * four_fin                   # dy
+            + 1.0 * rows * hk * (window + 1) * four_fin  # A_t and S sums
+            + 1.0 * rows * K * c                         # merge gather
+            + 1.0 * rows * c)                            # d_x addend
     nbytes = 4.0 * (rows * c + rows * K + 2 * rows * hk * four_fin
                     + rows * two_f + 2 * four_fin
                     + (window + 1) * c * four_fin + (K + 1) * c * two_f
@@ -949,7 +1021,7 @@ def time_train_kernels(dev, gen) -> dict:
                     + rows * c + (window + 1) * c * four_fin
                     + (K + 1) * c * two_f + B * (four_fin + two_f)
                     + 2 * rows * 32)
-    b, by = bound(flops, nbytes)
+    b, by = bound(simt, nbytes, products / PEAK_TF32X3 * 1e3)
     kern = lambda: head_bwd_kernel(x, idx, inte, wn, ca, am, wen, pcat,  # noqa: E731
                                    ppoint, cts, k)
     plain = lambda: head_bwd_plain(x, idx, wn, ca, pb, am, wen, pbm, pcat,  # noqa: E731
@@ -961,6 +1033,16 @@ def time_train_kernels(dev, gen) -> dict:
     res["edge_head_bwd"]["max_abs_err"] = compare_head_bwd(
         case, f"stage 4 B={B}")
     del case, args, idx, inte, cts, x
+    # its input-gradient product alone, Gc (rows, 7*4Fin) @ W_conv + dxm,
+    # against cuBLAS's fp32 SGEMM
+    gc = torch.randn(rows, (window + 1) * four_fin, generator=gen,
+                     device=dev)
+    w_conv = torch.randn((window + 1) * four_fin, c, generator=gen,
+                         device=dev) * 0.03
+    dxm = torch.randn(rows, c, generator=gen, device=dev)
+    res["edge_head_bwd"]["sub_yardstick"] = product_yardstick(
+        "head bwd Gc @ W_conv + dxm", gc, w_conv, dxm)
+    del gc, w_conv, dxm
 
     # gated tail backward, stage 4
     targs = tail_inputs(4, B, True, gen, dev)
@@ -1785,6 +1867,12 @@ def main(argv=None) -> int:
             tail_inputs(1, 8, False, gen, dev), "stage 1 B=8 plain"),
     }
 
+    from pdgn_tpu_torch.ops.kernels.edge_head import HEAD_BITS, head_bits
+    bits = head_bits(dev)
+    log(f"  head forward digest {bits}")
+    require(bits == HEAD_BITS, "the head forward's bits moved")
+    core = check_core(gen, dev)
+
     log("phase 2t: train kernels against their plain versions (B=8)")
     errs.update(check_train_kernels(gen, dev))
     log(f"phase 2e: emd_cd against its plain version (n={EMD_N})")
@@ -1847,8 +1935,9 @@ def main(argv=None) -> int:
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-        if "cdist_topk_ms" in t:
-            kernels[-1]["cdist_topk_ms"] = t["cdist_topk_ms"]
+        for extra in ("cdist_topk_ms", "sub_yardstick"):
+            if extra in t:
+                kernels[-1][extra] = t[extra]
         log(f"  {name} ({t['shape']}): {t['ms']:.3f} ms, plain "
             f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
             f"({t['bound_by']}), library {t['library_ms']}")
@@ -1860,6 +1949,7 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": build_s,
                        "kernels": kernels, "times": times, "path": path,
+                       "core": core,
                        "wide": wide,
                        "train": train, "test": test,
                        "point_ops": point_ops}, f, indent=1)

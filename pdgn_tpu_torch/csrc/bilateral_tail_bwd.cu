@@ -15,9 +15,10 @@
 // recompute the gate's conv_all2, against ~60 MB of traffic.
 //
 // The simple design:
-//   1. The gate g is recomputed from inte and h (tail_gate.cuh, the
-//      forward's own kernel) rather than kept from the forward: at stage 4,
-//      B=35 it is 0.73 GB, and the TPU kernel keeps nothing of that size.
+//   1. The gate g is recomputed from inte and h by the forward's own
+//      tensor-core gate (tail_gate.cuh), so it is the forward's g bit for
+//      bit, rather than kept from the forward: at stage 4, B=35 it is
+//      0.73 GB, and the TPU kernel keeps nothing of that size.
 //   2. d_wi = g^T dy is a transposed GEMM reduced over 4096-row splits added
 //      in a fixed order; then dg = dy wi^T overwrites g's buffer.
 //   3. gate_bwd_kernel: a thread owns one (point, conv_all2 channel) as in
@@ -30,10 +31,45 @@
 
 namespace {
 
+constexpr int kTC = 64;       // conv_all2 output channels per block
+constexpr int kSubP = 4;      // points per shared-memory sub-tile
+constexpr int kBlockP = 32;   // points per block
+constexpr int kMaxK = 16;     // slots a thread keeps in registers
 constexpr int kSums = 7;  // isc j0 | isc j1 | ish j0 | ish j1 | s2 | t2 | w2b
 
 __device__ __forceinline__ float leaky_grad(float pre, float d) {
   return pre >= 0.f ? d : 0.01f * d;
+}
+
+// LeakyReLU((h_s @ w2k[:, c] + w2b) * s2 + t2) of slot s: hp the point's
+// staged h row, sw the block's (kHidden, kTC) weight tile
+__device__ __forceinline__ float slot_logit(const float* hp, const float* sw,
+                                            int s, int cl, float bias,
+                                            float sc, float sh) {
+  float a = 0.f;
+#pragma unroll 16
+  for (int hh = 0; hh < kHidden; ++hh)
+    a = fmaf(hp[s * kHidden + hh], sw[hh * kTC + cl], a);
+  return leaky((a + bias) * sc + sh);
+}
+
+// the softmax's running maximum m and normaliser z over the k slots in one
+// pass: slot s's weight is then expf(u_s - m) / z
+__device__ __forceinline__ void online_softmax(const float* hp,
+                                               const float* sw, int k, int cl,
+                                               float bias, float sc, float sh,
+                                               float& m, float& z) {
+  m = -INFINITY;
+  z = 0.f;
+  for (int s = 0; s < k; ++s) {
+    const float u = slot_logit(hp, sw, s, cl, bias, sc, sh);
+    if (u > m) {
+      z = z * expf(m - u) + 1.f;
+      m = u;
+    } else {
+      z += expf(u - m);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(256)
@@ -44,8 +80,8 @@ gate_bwd_kernel(const float* __restrict__ inte, const float* __restrict__ h,
                 const float* __restrict__ dg, int rows, int k, int two_fin,
                 int softmax, float* __restrict__ d_inte,
                 float* __restrict__ dv, float* __restrict__ scratch) {
-  __shared__ float sw[kHid][kTC];
-  __shared__ float shh[kSubP][kMaxK * kHid];
+  __shared__ float sw[kHidden][kTC];
+  __shared__ float shh[kSubP][kMaxK * kHidden];
   __shared__ float red[kSubP][kSums][kTC];
 
   const int tid = threadIdx.x;
@@ -56,7 +92,7 @@ gate_bwd_kernel(const float* __restrict__ inte, const float* __restrict__ h,
   const int hk = k / 2;
   const int four_fin = 2 * two_fin;
 
-  for (int e = tid; e < kHid * kTC; e += 256) {
+  for (int e = tid; e < kHidden * kTC; e += 256) {
     int hh = e / kTC, cc = e % kTC;
     sw[hh][cc] = (c0 + cc < two_fin) ? w2k[(size_t)hh * two_fin + c0 + cc] : 0.f;
   }
@@ -73,7 +109,7 @@ gate_bwd_kernel(const float* __restrict__ inte, const float* __restrict__ h,
 
   const int p_begin = blockIdx.y * kBlockP;
   const int p_end = min(rows, p_begin + kBlockP);
-  const int width = k * kHid;
+  const int width = k * kHidden;
   for (int p0 = p_begin; p0 < p_end; p0 += kSubP) {
     __syncthreads();
     for (int e = tid; e < kSubP * width; e += 256) {
@@ -90,8 +126,8 @@ gate_bwd_kernel(const float* __restrict__ inte, const float* __restrict__ h,
       if (s < k) {
         float a = 0.f;
 #pragma unroll 16
-        for (int hh = 0; hh < kHid; ++hh)
-          a = fmaf(shh[pl][s * kHid + hh], sw[hh][cl], a);
+        for (int hh = 0; hh < kHidden; ++hh)
+          a = fmaf(shh[pl][s * kHidden + hh], sw[hh][cl], a);
         v[s] = a + bias;
         upre[s] = v[s] * sc + sh;
         u[s] = leaky(upre[s]);
@@ -163,9 +199,9 @@ gate_bwd_kernel(const float* __restrict__ inte, const float* __restrict__ h,
 }
 
 // k > kMaxK: as gate_bwd_kernel, with h staged in dynamic shared memory
-// (kSubP * k * kHid floats) and no per-slot arrays: pass 1 takes the
+// (kSubP * k * kHidden floats) and no per-slot arrays: pass 1 takes the
 // softmax's m and z online, pass 2 writes d_inte and sums u . du, pass 3
-// recomputes u and du and writes dv (tail_gate.cuh's slot_logit each time)
+// recomputes u and du and writes dv (slot_logit each time)
 __global__ void __launch_bounds__(256)
 gate_bwd_wide_kernel(const float* __restrict__ inte,
                      const float* __restrict__ h,
@@ -178,7 +214,7 @@ gate_bwd_wide_kernel(const float* __restrict__ inte,
                      const float* __restrict__ dg, int rows, int k,
                      int two_fin, int softmax, float* __restrict__ d_inte,
                      float* __restrict__ dv, float* __restrict__ scratch) {
-  __shared__ float sw[kHid * kTC];
+  __shared__ float sw[kHidden * kTC];
   __shared__ float red[kSubP][kSums][kTC];
   extern __shared__ float shw[];
 
@@ -190,7 +226,7 @@ gate_bwd_wide_kernel(const float* __restrict__ inte,
   const int hk = k / 2;
   const int four_fin = 2 * two_fin;
 
-  for (int e = tid; e < kHid * kTC; e += 256) {
+  for (int e = tid; e < kHidden * kTC; e += 256) {
     int hh = e / kTC, cc = e % kTC;
     sw[e] = (c0 + cc < two_fin) ? w2k[(size_t)hh * two_fin + c0 + cc] : 0.f;
   }
@@ -207,7 +243,7 @@ gate_bwd_wide_kernel(const float* __restrict__ inte,
 
   const int p_begin = blockIdx.y * kBlockP;
   const int p_end = min(rows, p_begin + kBlockP);
-  const int width = k * kHid;
+  const int width = k * kHidden;
   for (int p0 = p_begin; p0 < p_end; p0 += kSubP) {
     __syncthreads();
     for (int e = tid; e < kSubP * width; e += 256) {
@@ -239,8 +275,8 @@ gate_bwd_wide_kernel(const float* __restrict__ inte,
     for (int s = 0; s < k; ++s) {
       float a = 0.f;
 #pragma unroll 16
-      for (int hh = 0; hh < kHid; ++hh)
-        a = fmaf(hp[s * kHid + hh], sw[hh * kTC + cl], a);
+      for (int hh = 0; hh < kHidden; ++hh)
+        a = fmaf(hp[s * kHidden + hh], sw[hh * kTC + cl], a);
       const float v = a + bias;
       const float upre = v * sc + sh;
       const float lu = leaky(upre);
@@ -307,9 +343,10 @@ __global__ void plain_gate_bwd_kernel(const float* __restrict__ inte,
 
 extern "C" {
 
-// Forward operands: inte (rows, k/2*4Fin), h (rows, k*64) or null (plain
-// stage: w2k..t2, w2k_t, d_h, d_w2k, dv ignored), isc/ish (4Fin), w2k (64, 2Fin),
-// w2k_t (2Fin, 64), w2b/s2/t2 (2Fin), wi_t (2F, k/2*4Fin); dy (rows, 2F).
+// Forward operands: inte (rows, k/2*4Fin) and h (rows, k*64), 16-byte
+// aligned, or h null (plain stage: w2k..t2, w2k_t, d_h, d_w2k, dv
+// ignored), isc/ish (4Fin), w2k (64, 2Fin), w2k_t (2Fin, 64), w2b/s2/t2
+// (2Fin), wi_t (2F, k/2*4Fin); dy (rows, 2F).
 // Outputs: d_inte like inte, d_h like h, d_w2k (64, 2Fin), d_wi
 // (k/2*4Fin, 2F), d_bias (2F), sums: gated (7, 2Fin) = [d_isc (4Fin) | d_ish
 // (4Fin) | d_s2 | d_t2 | d_w2b], plain (2, 4Fin) = [d_isc | d_ish].
@@ -330,7 +367,7 @@ int pdgn_bilateral_tail_bwd(
 
   // 1.-2. recompute g, d_wi = g^T dy, then dg = dy wi^T into g's buffer
   cudaError_t err = launch_gate(inte, h, isc, ish, w2k, w2b, s2, t2, rows, k,
-                                two_fin, softmax, g, stream);
+                                four_fin, K, softmax, g, stream);
   if (err != cudaSuccess) return (int)err;
   gemm_tn(PlainA{g, K}, PlainA{dy, two_f}, (long long)rows, K, two_f,
           tn_scratch, d_wi, stream);
@@ -346,7 +383,6 @@ int pdgn_bilateral_tail_bwd(
 
   // 3.-4. through the gate
   if (h != nullptr) {
-    if (k > kMaxWideK) return (int)cudaErrorInvalidValue;
     const int nblk = (rows + kBlockP - 1) / kBlockP;
     dim3 grid((two_fin + kTC - 1) / kTC, nblk);
     if (k <= kMaxK) {
@@ -354,7 +390,7 @@ int pdgn_bilateral_tail_bwd(
           inte, h, isc, ish, w2k, w2b, s2, t2, dg, rows, k, two_fin, softmax,
           d_inte, dv, sum_scratch);
     } else {
-      const int smem = kSubP * k * kHid * (int)sizeof(float);
+      const int smem = kSubP * k * kHidden * (int)sizeof(float);
       err = cudaFuncSetAttribute(gate_bwd_wide_kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
@@ -367,11 +403,11 @@ int pdgn_bilateral_tail_bwd(
     column_reduce(sum_scratch, nblk, kSums * two_fin, sums, stream);
     PDGN_CHECK_LAUNCH();
     const int hrows = rows * k;
-    gemm(PlainA{dv, two_fin}, w2k_t, hrows, two_fin, kHid,
-         Epilogue{d_h, nullptr, nullptr, kHid}, stream);
+    gemm(PlainA{dv, two_fin}, w2k_t, hrows, two_fin, kHidden,
+         Epilogue{d_h, nullptr, nullptr, kHidden}, stream);
     PDGN_CHECK_LAUNCH();
-    gemm_tn(PlainA{h, kHid}, PlainA{dv, two_fin}, (long long)hrows, kHid,
-            two_fin, tn_scratch, d_w2k, stream);
+    gemm_tn(PlainA{h, kHidden}, PlainA{dv, two_fin}, (long long)hrows,
+            kHidden, two_fin, tn_scratch, d_w2k, stream);
     PDGN_CHECK_LAUNCH();
   } else {
     const long long prow = (long long)rows * hk;

@@ -20,11 +20,10 @@
 //   1. pdgn::knn_select (knn.cu, the knn_topk kernel's selection): self-kNN
 //      of x_knn for k+1 by the fp32 norm expansion, ascending, lowest index
 //      first on ties, slot 0 dropped.
-//   2. head_product_kernel: P = x W_all on the tensor cores in 3xTF32
-//      (mma_tf32x3.cuh), W_all = [Wn_0 | .. | Wn_{window-1} | conv_a |
-//      We_0 | .. | We_{k-1} | A] packed by the wrapper. 128 x 128 tiles,
-//      8 warps of 64 x 32, operands staged through a 3-stage cp.async ring.
-//      P is scratch, (clouds of the chunk * N, ld); the wrapper cuts the
+//   2. P = x W_all on the tensor cores in 3xTF32, the shared product core
+//      (tf32x3_gemm.cuh; tc_gemm_kernel, no fold: the depth is C <= 128),
+//      W_all = [Wn_0 | .. | Wn_{window-1} | conv_a | We_0 | .. | We_{k-1} |
+//      A] packed by the wrapper. P is scratch, (clouds of the chunk * N, ld); the wrapper cuts the
 //      batch into chunks of clouds (at most 1 GiB of P) to bound it.
 //   3. head_gather_kernel<k>: a warp a point, float4 columns: the window sums
 //      inte[p, wp] = P_conv_a[p] + pb_point + sum_t P_Wn_t[idx[p, wp+t]]
@@ -40,121 +39,9 @@
 //      not a multiple of 4, in scalar ones.
 #include "common.cuh"
 #include "knn.cuh"
-#include "mma_tf32x3.cuh"
+#include "tf32x3_gemm.cuh"
 
 namespace {
-
-// ------------------------------------------------ 2. the dense product
-constexpr int kPM = 128, kPN = 128, kPK = 32;
-constexpr int kPStages = 3;
-constexpr int kPMT = 4, kPNT = 4;  // a warp's (16 x 8) tiles: 64 x 32
-constexpr int kPWarpsN = kPN / (8 * kPNT);
-constexpr int kPThreads = 32 * (kPM / (16 * kPMT)) * kPWarpsN;
-constexpr int kALd = kPK + 4;  // A rows padded: a-fragment reads hit 32 banks
-constexpr int kBLd = kPN + 8;  // B rows padded: b-fragment reads hit 32 banks
-constexpr int kAStage = kPM * kALd;
-constexpr int kBStage = kPK * kBLd;
-constexpr int kPSmemBytes = kPStages * (kAStage + kBStage) * 4;  // 107,520
-
-// P (M, ld) = A (M, K) @ W (K, ld), all row-major; K and ld multiples of 4,
-// rows 16-byte aligned. Out-of-range operand granules are zero-filled.
-__global__ void __launch_bounds__(kPThreads, 2)
-head_product_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                    int M, int K, int ld, float* __restrict__ P) {
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                       // [stage][kPM][kALd]
-  float* Bs = smem + kPStages * kAStage;  // [stage][kPK][kBLd]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * kPM, n0 = blockIdx.x * kPN;
-  const int wm = (warp / kPWarpsN) * 16 * kPMT;
-  const int wn = (warp % kPWarpsN) * 8 * kPNT;
-  const int ktiles = (K + kPK - 1) / kPK;
-
-  auto load = [&](int stage, int kt) {
-    const int k0 = kt * kPK;
-    float* as = As + stage * kAStage;
-    float* bs = Bs + stage * kBStage;
-#pragma unroll
-    for (int i = 0; i < kPM * kPK / 4 / kPThreads; ++i) {
-      const int e = tid + i * kPThreads;
-      const int r = e >> 3, q = e & 7;
-      const int gr = m0 + r, gk = k0 + 4 * q;
-      const bool ok = gr < M && gk < K;
-      cp_async16(as + r * kALd + 4 * q, ok ? A + (size_t)gr * K + gk : A,
-                 ok ? 16 : 0);
-    }
-#pragma unroll
-    for (int i = 0; i < kPK * kPN / 4 / kPThreads; ++i) {
-      const int e = tid + i * kPThreads;
-      const int r = e >> 5, q = e & 31;
-      const int gk = k0 + r, gc = n0 + 4 * q;
-      const bool ok = gk < K && gc < ld;
-      cp_async16(bs + r * kBLd + 4 * q, ok ? W + (size_t)gk * ld + gc : W,
-                 ok ? 16 : 0);
-    }
-  };
-
-  float acc[kPMT][kPNT][4];
-#pragma unroll
-  for (int i = 0; i < kPMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kPNT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kPStages - 1; ++s) {
-    if (s < ktiles) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<kPStages - 2>();
-    __syncthreads();
-    const int nk = kt + kPStages - 1;  // refills the stage read at kt - 1
-    if (nk < ktiles) load(nk % kPStages, nk);
-    cp_async_commit();
-    const float* as = As + (kt % kPStages) * kAStage + (wm + g) * kALd + t;
-    const float* bs = Bs + (kt % kPStages) * kBStage + t * kBLd + wn + g;
-#pragma unroll
-    for (int kk = 0; kk < kPK; kk += 8) {
-      uint32_t bhi[kPNT][2], blo[kPNT][2];
-#pragma unroll
-      for (int nt = 0; nt < kPNT; ++nt) {
-        split_tf32(bs[kk * kBLd + nt * 8], bhi[nt][0], blo[nt][0]);
-        split_tf32(bs[(kk + 4) * kBLd + nt * 8], bhi[nt][1], blo[nt][1]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < kPMT; ++mt) {
-        const float* a = as + mt * 16 * kALd + kk;
-        uint32_t ahi[4], alo[4];
-        split_tf32(a[0], ahi[0], alo[0]);
-        split_tf32(a[8 * kALd], ahi[1], alo[1]);
-        split_tf32(a[4], ahi[2], alo[2]);
-        split_tf32(a[8 * kALd + 4], ahi[3], alo[3]);
-#pragma unroll
-        for (int nt = 0; nt < kPNT; ++nt)
-          mma_tf32x3(acc[mt][nt], ahi, alo, bhi[nt], blo[nt]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < kPMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kPNT; ++nt) {
-      const int r = m0 + wm + mt * 16 + g;
-      const int c = n0 + wn + nt * 8 + 2 * t;  // even, and ld % 4 == 0
-      if (c >= ld) continue;
-      if (r < M)
-        *reinterpret_cast<float2*>(P + (size_t)r * ld + c) =
-            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      if (r + 8 < M)
-        *reinterpret_cast<float2*>(P + (size_t)(r + 8) * ld + c) =
-            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
-    }
-}
 
 // ------------------------------------------------- 3. the gather pass
 __device__ __forceinline__ float4 operator+(float4 a, float4 b) {
@@ -511,10 +398,6 @@ int pdgn_edge_head(const float* x, const float* x_knn, int B, int N, int C,
   cudaError_t err = pdgn::knn_select(x_knn, x_knn, B, N, N, Cf, k + 1, 1,
                                      /*direct=*/false, idx, nullptr, stream);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(head_product_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kPSmemBytes);
-  if (err != cudaSuccess) return (int)err;
 
   const bool gated = pcat != nullptr;
   int nchunks = 0;
@@ -522,10 +405,9 @@ int pdgn_edge_head(const float* x, const float* x_knn, int B, int N, int C,
     const int nc = B - b0 < chunk ? B - b0 : chunk;
     const int M = nc * N;
     const size_t r0 = (size_t)b0 * N;
-    dim3 pgrid((ld + kPN - 1) / kPN, (M + kPM - 1) / kPM);
-    head_product_kernel<<<pgrid, kPThreads, kPSmemBytes, stream>>>(
-        x + r0 * C, w_all, M, C, ld, P);
-    PDGN_CHECK_LAUNCH();
+    err = tc_gemm<false, 0>(RowsA{x + r0 * C, C}, w_all, ld, M, ld, C, C,
+                            StorePairs{P, ld}, stream);
+    if (err != cudaSuccess) return (int)err;
     float* sp = stats_part + (size_t)nchunks * grid * 2 * four_fin;
     float* wp = gated ? w_part + (size_t)nchunks * grid * 2 * k * kProj
                       : nullptr;

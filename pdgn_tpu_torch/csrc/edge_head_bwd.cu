@@ -2,102 +2,169 @@
 //
 // Replaces the TPU kernel pdgn_tpu/ops/pallas/edge_head.py::_head_bwd_kernel
 // (launcher _head_bwd_pallas): the VJP of the head for a fixed kNN graph.
-// With dy = d_inte + ds0 + 2*inte*ds1 per window (the BN sums' cotangent
-// folded in) and the forward's operands x, idx, [wn; conv_a], [wen; a_merge]:
-//   d_x       = centre terms (sum_wp dy) conv_a^T + d_partial a_merge^T
-//               + the neighbour cotangents scattered to idx
-//               (d_partial wen_j^T + sum of the windows covering slot j of
-//               dy wn^T);
-//   d_[wn; conv_a]   = sum over rows (b, n, wp) of patch^T dy;
-//   d_[wen; a_merge] = sum over rows (b, n) of [nbr | x]^T d_partial;
-//   d_pb_point[b] = sum_n sum_wp dy; d_pb_merge[b] = sum_n d_partial;
-//   gated: dwrow = [d_wfea | d_wxyz] + dws0 + 2*wrow*dws1 per slot,
-//          d_ppoint = sum over slots, d_pcat = dwrow scattered to idx.
+// With dy[p, wp] = d_inte + ds0 + 2*inte*ds1 per window (the BN sums'
+// cotangent folded in) and the forward
+//   inte[p, wp] = x[p] conv_a + pb + sum_{t<window} x[idx[p, wp+t]] Wn_t,
+//   partial[p]  = x[p] a_merge + pb_merge + sum_{j<k} x[idx[p, j]] wen_j:
+// the forward's identity x[idx] W = (x W)[idx] has a transpose: sum the
+// cotangents onto each row q first, in 4Fin space,
+//   A_t[q] = sum over the entries (p, j) naming q with t <= j < t + hk of
+//            dy[p, j - t]                                   (t < window)
+//   S[q]   = sum_wp dy[q, wp],
+// into Gc = [A_0 | .. | A_{window-1} | S], then multiply once:
+//   d_x        = Gc [Wn_0^T; ..; Wn_{window-1}^T; conv_a^T]
+//                + dm[q, k] + sum over the entries (p, j) naming q of dm[p, j],
+//                dm = d_partial [wen_0; ..; wen_{k-1}; a_merge]^T
+//   d_[wn; conv_a]   = x^T Gc
+//   d_[wen; a_merge] = [x[idx[., j]] | x]^T d_partial
+//   d_pb_point[b] = sum over the cloud's rows of S; d_pb_merge[b] = sum of
+//   d_partial; gated: dwrow = [d_wfea | d_wxyz] + dws0 + 2*wrow*dws1 per
+//   slot, d_ppoint = sum over slots, d_pcat = dwrow gathered to idx.
+// The merge gains nothing from gathering first: its k+1 blocks each go to
+// another neighbour, and dm ((k+1)*C a row) is narrower than gathered 2F
+// cotangents would be.
 //
-// What bounds it on the H100: operations. At stage 4 (N=1024, C=128,
-// 4Fin=1024, 2F=512, k=10) one cloud costs 2 x 8.3 GFLOP for the window
-// conv's input and weight gradients and 2 x 1.5 GFLOP for the merge's, about
-// twice the forward, against ~100 MB of traffic.
+// What bounds it on the H100: operations. At stage 4, B=35 (N=1024,
+// C=128, 4Fin=1024, 2F=512, k=10): window+1 = 7 products of C x 4Fin a
+// point for the input gradient and 7 for the weight gradient (65.8 + 65.8
+// GFLOP), k+1 of C x 2F each way for the merge (51.7 + 51.7), 235 GFLOP at
+// 3xTF32's 495 / 3 TFLOP/s; multiplying gathered rows instead costs 35 + 35
+// products of C x 4Fin a point.
 //
-// The simple design, plain launches over the forward's SIMT GEMM template:
-//   1. dp = dy @ [wn; conv_a]^T (dy formed in the A loader, never stored):
-//      per (row, window) the patch cotangents and, in the last C columns,
-//      the centre term. dm = d_partial @ [wen; a_merge]^T likewise.
-//   2. The weight gradients are transposed GEMMs whose reduction runs over
-//      the B*N*k/2 (conv) or B*N (merge) rows, with the forward's gathered
-//      A loader: split into 4096-row blocks, partials added in a fixed order.
-//   3. The scatter to the neighbours is a gather: the reverse adjacency of
-//      idx (common.cuh; counting sort, each list in ascending order) lets one
-//      block per point add the cotangents of every (row, slot) that names it,
-//      always in the same order. No float atomics: the gradient is
-//      deterministic.
-//   4. Per-batch bias gradients are column sums in a fixed order.
-#include "common.cuh"
+// The design:
+//   1. reverse_adjacency (common.cuh): a counting sort of idx; each row's
+//      list in ascending entry order, so every sum over it is taken in the
+//      same order on every run.
+//   2. dm = d_partial @ [wen; a_merge]^T on the shared product core
+//      (tf32x3_gemm.cuh, folded).
+//   3. cot_gather_kernel: a block a row q, threads over 4Fin (float4 when
+//      4Fin % 4 == 0): S, then each A_t over the row's list (dy formed on
+//      the fly from inte, d_inte and ds; a cloud's dy stays in L2 while its
+//      rows are gathered), written to Gc in blocks of ldf columns; and
+//      dxm[q] = dm[q, k] + the list's dm[p, j].
+//   4. d_x = dxm + Gc @ W_conv on the shared core (the addend in the
+//      epilogue).
+//   5. The weight gradients on its transposed variant: reductions over the
+//      B*N rows in 4096-row splits whose partials column_reduce adds in a
+//      fixed order (x^T Gc; the merge's A rows gathered in the loader).
+//   6. Per-batch bias gradients are column sums in a fixed order; the
+//      weight-net gradients gather over the same reverse adjacency.
+// No float atomics anywhere: the gradients are deterministic.
+#include "tf32x3_gemm.cuh"
 
 namespace {
 
-// dy(row, col) over rows (b, n, wp) of width 4Fin
-struct DyLoad {
-  const float* inte;
-  const float* dinte;
-  const float* ds;  // (2, 4Fin)
-  int four_fin;
-  __device__ __forceinline__ float load(long long row, int col) const {
-    size_t o = (size_t)row * four_fin + col;
-    return dinte[o] + ds[col] + 2.f * inte[o] * ds[four_fin + col];
-  }
-};
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+// dy = d_inte + ds0 + 2 * inte * ds1
+__device__ __forceinline__ float dyv(float di, float in, float s0, float s1) {
+  return di + s0 + 2.f * in * s1;
+}
+__device__ __forceinline__ float4 dyv(float4 di, float4 in, float4 s0,
+                                      float4 s1) {
+  return make_float4(dyv(di.x, in.x, s0.x, s1.x), dyv(di.y, in.y, s0.y, s1.y),
+                     dyv(di.z, in.z, s0.z, s1.z), dyv(di.w, in.w, s0.w, s1.w));
+}
+template <class V>
+__device__ __forceinline__ V vzero();
+template <>
+__device__ __forceinline__ float vzero<float>() {
+  return 0.f;
+}
+template <>
+__device__ __forceinline__ float4 vzero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
 
-// The forward's gathered A operand: row (p, r), slot s < S reads the
-// neighbour idx[p, r + s] of sample p / N, the last slot x[p] itself.
-struct GatherRows {
-  const float* x;
-  const int* idx;
-  int N, C, k, R, S;
-  __device__ __forceinline__ float load(long long row, int kk) const {
-    int s = kk / C, c = kk - s * C;
-    long long p = row / R;
-    int r = (int)(row - p * R);
-    long long src;
-    if (s < S) {
-      long long b = p / N;
-      src = b * N + idx[(size_t)p * k + r + s];
-    } else {
-      src = p;
-    }
-    return x[(size_t)src * C + c];
-  }
-};
-
-// d_x[q, c] = centre terms + the neighbour cotangents of every entry
-// (p, j) with idx[p, j] == q. dp: (rows*hk, (window+1)*C); dm: (rows, (k+1)*C).
-__global__ void dx_gather_kernel(const float* __restrict__ dp,
-                                 const float* __restrict__ dm,
-                                 const int* __restrict__ offsets,
-                                 const int* __restrict__ entries, int C, int k,
-                                 int hk, int window, float* __restrict__ dx) {
+// Gc[q] = [A_0 | .. | A_{window-1} | S] in blocks of ldf columns (pads 0)
+// and dxm[q] (c4 columns), one block a row q. V = float4 needs four_fin %
+// 4 == 0 and 16-byte aligned inte, d_inte, ds (then ldf = four_fin).
+template <class V>
+__global__ void cot_gather_kernel(const float* __restrict__ inte,
+                                  const float* __restrict__ d_inte,
+                                  const float* __restrict__ ds,
+                                  const float* __restrict__ dm,
+                                  const int* __restrict__ offsets,
+                                  const int* __restrict__ entries, int k,
+                                  int four_fin, int ldf, int c4,
+                                  float* __restrict__ gc,
+                                  float* __restrict__ dxm) {
+  constexpr int VW = sizeof(V) / sizeof(float);
   const long long q = blockIdx.x;
-  const int wc = (window + 1) * C;
-  const int mc = (k + 1) * C;
+  const int hk = k / 2, window = hk + 1;
   const int a = offsets[q], z = offsets[q + 1];
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float v = dm[(size_t)q * mc + k * C + c];
-    for (int wp = 0; wp < hk; ++wp)
-      v += dp[((size_t)q * hk + wp) * wc + window * C + c];
-    for (int e = a; e < z; ++e) {
-      const long long ent = entries[e];
-      const long long p = ent / k;  // global row b*N + n
-      const int j = (int)(ent - p * k);
-      float u = dm[(size_t)p * mc + j * C + c];
-      const int lo = j - window + 1 > 0 ? j - window + 1 : 0;
-      const int hi = j < hk - 1 ? j : hk - 1;
-      for (int wp = lo; wp <= hi; ++wp)
-        u += dp[((size_t)p * hk + wp) * wc + (j - wp) * C + c];
-      v += u;
+  const int U = four_fin / VW, UL = ldf / VW;
+  const V* di = reinterpret_cast<const V*>(d_inte);
+  const V* in = reinterpret_cast<const V*>(inte);
+  const V* d0 = reinterpret_cast<const V*>(ds);
+  const V* d1 = reinterpret_cast<const V*>(ds + four_fin);
+  V* out = reinterpret_cast<V*>(gc + (size_t)q * (window + 1) * ldf);
+  for (int u = threadIdx.x; u < UL; u += blockDim.x) {
+    if (u >= U) {
+      for (int t = 0; t <= window; ++t) out[t * UL + u] = vzero<V>();
+      continue;
     }
-    dx[(size_t)q * C + c] = v;
+    const V s0 = d0[u], s1 = d1[u];
+    size_t o = (size_t)q * hk * U + u;
+    V s = dyv(di[o], in[o], s0, s1);
+    for (int wp = 1; wp < hk; ++wp) {
+      o += U;
+      s = vadd(s, dyv(di[o], in[o], s0, s1));
+    }
+    out[window * UL + u] = s;
+    for (int t = 0; t < window; ++t) {
+      V acc = vzero<V>();
+      for (int e = a; e < z; ++e) {
+        const int ent = entries[e];
+        const int p = ent / k;  // global row b*N + n
+        const int j = ent - p * k;
+        if (j >= t && j < t + hk) {
+          const size_t op = ((size_t)p * hk + (j - t)) * U + u;
+          acc = vadd(acc, dyv(di[op], in[op], s0, s1));
+        }
+      }
+      out[t * UL + u] = acc;
+    }
+  }
+  const size_t mc = (size_t)(k + 1) * c4;
+  for (int c = threadIdx.x; c < c4; c += blockDim.x) {
+    float v = dm[(size_t)q * mc + (size_t)k * c4 + c];
+    for (int e = a; e < z; ++e) {
+      const int ent = entries[e];
+      const int p = ent / k;
+      const int j = ent - p * k;
+      v += dm[(size_t)p * mc + (size_t)j * c4 + c];
+    }
+    dxm[(size_t)q * c4 + c] = v;
   }
 }
+
+// The merge's A rows, reduction-major: row p, column i = j*c4 + c reads
+// x[nbr[p, j]] for j < k (nbr: the graph's global rows b*N + idx), x[p]
+// itself for j = k
+struct GatherX {
+  const float* x;
+  const int* nbr;
+  int c4, k;
+  __device__ __forceinline__ int src_row(int p, int i) const {
+    const int j = i / c4;
+    return j < k ? nbr[(size_t)p * k + j] : p;
+  }
+  __device__ __forceinline__ const float* ptr(int src, int i) const {
+    return x + (size_t)src * c4 + i % c4;
+  }
+};
+
+// S's column c of row r: Gc[r, window*ldf + c]
+struct GcS {
+  const float* gc;
+  int gw, off;
+  __device__ __forceinline__ float load(long long r, int c) const {
+    return gc[(size_t)r * gw + off + c];
+  }
+};
 
 // slot s of the weight-net rows reads extraction index j(s) = (s%2)*hk + s/2;
 // the inverse is s(j) = j < hk ? 2j : 2(j - hk) + 1
@@ -164,66 +231,84 @@ __global__ void dppoint_kernel(const float* __restrict__ dwfea,
 
 extern "C" {
 
-// Forward operands: x (B,N,C), idx (B,N,k) int32, inte (B,N,hk*4Fin);
-// w_conv_t (4Fin, (window+1)*C) = [wn_flat; conv_a]^T, w_merge_t
-// (2F, (k+1)*C) = [wen; a_merge]^T. Cotangents: d_inte like inte, d_partial
-// (B,N,2F), d_stats (2,4Fin); gated (pcat non-null) also d_wfea, d_wxyz
-// (B,N,k*16), d_wstats (2,k*32) and pcat, ppoint (B,N,32).
-// Outputs: d_x (B,N,C), d_wconv ((window+1)*C, 4Fin), d_wmerge
-// ((k+1)*C, 2F), d_pb_point (B,4Fin), d_pb_merge (B,2F); gated d_pcat,
-// d_ppoint (B,N,32). Scratch: dp (B*N*hk, (window+1)*C), dm (B*N, (k+1)*C),
-// tn_scratch (max of the two weight GEMMs' split partials), count/cursor
-// (B*N ints), offsets (B*N+1), entries (B*N*k).
+// Forward operands: x (B,N,c4) zero-padded to c4 % 4 == 0 columns, idx
+// (B,N,k) int32 and nbr = idx + b*N (the global rows), inte (B,N,hk*4Fin); w_conv ((window+1)*ldf, c4) =
+// [Wn_0^T; ..; Wn_{window-1}^T; conv_a^T] and w_merge (t4, (k+1)*c4) =
+// [wen; a_merge]^T, zero-padded blocks (ldf = 4Fin and t4 = 2F rounded up
+// to 4). Cotangents: d_inte like inte, d_partial (B,N,t4) zero-padded,
+// d_stats (2,4Fin); gated (pcat non-null) also d_wfea, d_wxyz (B,N,k*16),
+// d_wstats (2,k*32) and pcat, ppoint (B,N,32). x, w_*, d_partial, gc and,
+// when 4Fin % 4 == 0, inte, d_inte and d_stats 16-byte aligned.
+// Outputs: d_x (B,N,c4), d_wconv (c4, (window+1)*ldf), d_wmerge
+// ((k+1)*c4, t4), d_pb_point (B,4Fin), d_pb_merge (B,2F); gated d_pcat,
+// d_ppoint (B,N,32). Scratch: gc (B*N, (window+1)*ldf), dm (B*N,
+// (k+1)*c4), dxm (B*N, c4), tn_scratch (the larger of the two weight
+// products' split partials), count/cursor (B*N ints), offsets (B*N+1),
+// entries (B*N*k).
 int pdgn_edge_head_bwd(
-    const float* x, const int* idx, const float* inte, int B, int N, int C,
-    int k, int four_fin, int two_f, const float* w_conv_t,
-    const float* w_merge_t, const float* d_inte, const float* d_partial,
+    const float* x, const int* idx, const int* nbr, const float* inte, int B,
+    int N, int c4,
+    int k, int four_fin, int two_f, int ldf, int t4, const float* w_conv,
+    const float* w_merge, const float* d_inte, const float* d_partial,
     const float* d_stats, const float* pcat, const float* ppoint,
     const float* d_wfea, const float* d_wxyz, const float* d_wstats,
     float* d_x, float* d_wconv, float* d_wmerge, float* d_pb_point,
-    float* d_pb_merge, float* d_pcat, float* d_ppoint, float* dp, float* dm,
-    float* tn_scratch, int* count, int* cursor, int* offsets, int* entries,
-    cudaStream_t stream) {
+    float* d_pb_merge, float* d_pcat, float* d_ppoint, float* gc, float* dm,
+    float* dxm, float* tn_scratch, int* count, int* cursor, int* offsets,
+    int* entries, cudaStream_t stream) {
+  if (c4 % 4 || ldf % 4 || t4 % 4 || ldf < four_fin || t4 < two_f ||
+      k < 2 || k % 2)
+    return (int)cudaErrorInvalidValue;
   const int rows = B * N;
   const int hk = k / 2;
   const int window = hk + 1;
-  const long long rows_conv = (long long)rows * hk;
-  const int wc = (window + 1) * C;
-  const int mc = (k + 1) * C;
+  const int gw = (window + 1) * ldf;
+  const int mc = (k + 1) * c4;
 
-  DyLoad dy{inte, d_inte, d_stats, four_fin};
-  PlainA dpart{d_partial, two_f};
-
-  // 1. input-side products (no bias, no addend)
-  gemm(dy, w_conv_t, (int)rows_conv, four_fin, wc,
-       Epilogue{dp, nullptr, nullptr, wc}, stream);
-  PDGN_CHECK_LAUNCH();
-  gemm(dpart, w_merge_t, rows, two_f, mc, Epilogue{dm, nullptr, nullptr, mc},
-       stream);
-  PDGN_CHECK_LAUNCH();
-
-  // 2. weight gradients, rows reduced in split blocks
-  GatherRows a_conv{x, idx, N, C, k, hk, window};
-  gemm_tn(a_conv, dy, rows_conv, wc, four_fin, tn_scratch, d_wconv, stream);
-  PDGN_CHECK_LAUNCH();
-  GatherRows a_merge{x, idx, N, C, k, 1, k};
-  gemm_tn(a_merge, dpart, (long long)rows, mc, two_f, tn_scratch, d_wmerge,
-          stream);
-  PDGN_CHECK_LAUNCH();
-
-  // 3. the neighbour scatter as a gather over the reverse adjacency
+  // 1. the reverse adjacency of the graph
   cudaError_t err = reverse_adjacency(idx, B, N, k, N, count, cursor, offsets,
                                       entries, stream);
   if (err != cudaSuccess) return (int)err;
-  const int tpb = C >= 128 ? 128 : (C >= 64 ? 64 : 32);
-  dx_gather_kernel<<<rows, tpb, 0, stream>>>(dp, dm, offsets, entries, C, k,
-                                             hk, window, d_x);
+
+  // 2. the merge's cotangents of every neighbour block
+  err = tc_gemm<false, kGFold>(RowsA{d_partial, t4}, w_merge, mc, rows, mc,
+                               t4, t4, StorePairs{dm, mc}, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  // 3. the cotangents gathered onto their rows
+  const int width = four_fin % 4 ? ldf : ldf / 4;
+  int threads = (width > c4 ? width : c4) + 31;
+  threads = threads / 32 * 32;
+  if (threads > 256) threads = 256;
+  if (four_fin % 4 == 0)
+    cot_gather_kernel<float4><<<rows, threads, 0, stream>>>(
+        inte, d_inte, d_stats, dm, offsets, entries, k, four_fin, ldf, c4, gc,
+        dxm);
+  else
+    cot_gather_kernel<float><<<rows, threads, 0, stream>>>(
+        inte, d_inte, d_stats, dm, offsets, entries, k, four_fin, ldf, c4, gc,
+        dxm);
   PDGN_CHECK_LAUNCH();
 
-  // 4. per-batch bias gradients
-  chunk_colsum(dy, rows_conv, four_fin, N * hk, d_pb_point, stream);
+  // 4. the input gradient: 7 products of C x 4Fin a point
+  err = tc_gemm<false, kGFold>(RowsA{gc, gw}, w_conv, c4, rows, c4, gw, gw,
+                               AddStore{d_x, dxm, nullptr, c4, c4}, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  // 5. the weight gradients, rows reduced in split blocks
+  err = tc_gemm_tn(RowsA{x, c4}, gc, gw, rows, c4, gw, tn_scratch, d_wconv,
+                   stream);
+  if (err != cudaSuccess) return (int)err;
+  err = tc_gemm_tn(GatherX{x, nbr, c4, k}, d_partial, t4, rows, mc, t4,
+                   tn_scratch, d_wmerge, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  // 6. per-batch bias gradients
+  chunk_colsum(GcS{gc, gw, window * ldf}, (long long)rows, four_fin, N,
+               d_pb_point, stream);
   PDGN_CHECK_LAUNCH();
-  chunk_colsum(dpart, (long long)rows, two_f, N, d_pb_merge, stream);
+  chunk_colsum(PlainA{d_partial, t4}, (long long)rows, two_f, N, d_pb_merge,
+               stream);
   PDGN_CHECK_LAUNCH();
 
   if (pcat != nullptr) {

@@ -1,234 +1,335 @@
 // The gate of the edge-conv stage tail, shared by the forward
 // (bilateral_tail.cu) and the backward (bilateral_tail_bwd.cu), which
-// recomputes it instead of keeping it from the forward.
+// recomputes g from inte and h instead of keeping it:
 //   gated: g = LeakyReLU(inte*isc + ish)
 //            * softmax_slots(LeakyReLU((h@w2k + w2b)*s2 + t2))
 //   plain: g = LeakyReLU(inte*isc + ish)
-// in the block channel layout (B, N, k/2 * 4Fin).
+// (rows, ldg), slot-major: slot s, channel c < 2Fin sits at column
+// s*2Fin + c, which is the block channel (s%2)*2Fin + c of window block
+// s/2; columns [k/2*4Fin, ldg) are zero.
 //
-// k <= 16 (kMaxK): gate_kernel keeps a thread's k slot values in registers.
-// Larger even k (k + 1 <= 128, the graph's longest list): gate_wide_kernel
-// stages the k * 64 h values of its points in dynamic shared memory and
-// takes a two-pass online softmax, recomputing each slot's conv_all2 (the
-// same fmaf chain) instead of keeping k values a thread.
+// gate_tc_kernel: a block owns 64 channels of a 16-point tile, a warp one n8
+// column of them; the slot logits U_s = h_s @ w2k are m16n8k8 products
+// (3xTF32) whose B fragments (w2k, split once) stay in registers and whose
+// A fragments come from the tile's h rows, staged in shared memory together
+// with the tile's inte channels (one cp.async group; two blocks an SM).
+// Every slot's fragment sits at the same (point, channel) positions of the
+// same thread, so the softmax over the slots is thread-local: max, sum in
+// ascending slot order, one reciprocal, then the gate
+// LeakyReLU(inte*isc + ish) * weight. k <= 16 keeps the k logits in
+// registers (KR = 10 or 16 of them); wider k (up to 126) takes a two-pass
+// online softmax over chunks of 16 staged slots and recomputes each logit.
+// plain_gate_kernel is the plain stage's elementwise gate.
 #pragma once
 
 #include "common.cuh"
+#include "mma_tf32x3.cuh"
 
 #include <math.h>
 
 namespace {
 
-constexpr int kHid = 64;      // conv_all2 input width
-constexpr int kTC = 64;       // conv_all2 output channels per block
-constexpr int kSubP = 4;      // points per shared-memory sub-tile
-constexpr int kBlockP = 32;   // points per block
-constexpr int kMaxK = 16;
-constexpr int kMaxWideK = 126;
+constexpr int kGateP = 16;       // points a tile: the mma's m16
+constexpr int kGateWarps = 8;    // a warp an n8 column of channels
+constexpr int kGateC = 8 * kGateWarps;
+constexpr int kHidden = 64;      // conv_all2 input width (8 k8 steps)
+constexpr int kGateChunk = 16;   // slots staged at once
+constexpr int kGateMaxK = 126;
 
-// LeakyReLU((h_s @ w2k[:, c] + w2b) * s2 + t2) of slot s: hp the point's
-// staged h row, sw the block's (kHid, kTC) weight tile
-__device__ __forceinline__ float slot_logit(const float* hp, const float* sw,
-                                            int s, int cl, float bias,
-                                            float sc, float sh) {
-  float a = 0.f;
-#pragma unroll 16
-  for (int hh = 0; hh < kHid; ++hh)
-    a = fmaf(hp[s * kHid + hh], sw[hh * kTC + cl], a);
-  return leaky((a + bias) * sc + sh);
-}
-
-// the softmax's running maximum m and normaliser z over the k slots in one
-// pass: slot s's weight is then expf(u_s - m) / z
-__device__ __forceinline__ void online_softmax(const float* hp,
-                                               const float* sw, int k, int cl,
-                                               float bias, float sc, float sh,
-                                               float& m, float& z) {
-  m = -INFINITY;
-  z = 0.f;
-  for (int s = 0; s < k; ++s) {
-    const float u = slot_logit(hp, sw, s, cl, bias, sc, sh);
-    if (u > m) {
-      z = z * expf(m - u) + 1.f;
-      m = u;
+// issue the copies of the h rows of slots [s0, s0 + ns) of points [p0, p0
+// + 16) into sh (row stride hl floats) and, with si, of the block's 64 inte
+// channels c0.. of those slots into si (row stride hl, 64 a slot), as one
+// cp.async group; rows past the end and channels past 2Fin zero-filled.
+// 16-byte granules, 4-byte ones for inte when 2Fin % 4 != 0.
+__device__ __forceinline__ void stage_tile(float* sh, float* si, int hl,
+                                           const float* __restrict__ h,
+                                           const float* __restrict__ inte,
+                                           int rows, int k, int two_fin,
+                                           int c0, int p0, int s0, int ns) {
+  const int gran = ns * kHidden / 4;  // granules a row
+  for (int e = threadIdx.x; e < kGateP * gran; e += blockDim.x) {
+    const int r = e / gran, q = e - r * gran;
+    const bool ok = p0 + r < rows;
+    cp_async16(sh + r * hl + 4 * q,
+               ok ? h + ((size_t)(p0 + r) * k + s0) * kHidden + 4 * q : h,
+               ok ? 16 : 0);
+    if (si == nullptr) continue;
+    // granule q: slot s0 + q / 16, channels c0 + 4 * (q % 16) ..
+    const int cc = c0 + 4 * (q % 16);
+    const float* src = inte + (size_t)(p0 + r) * k * two_fin +
+                       (size_t)(s0 + q / 16) * two_fin + cc;
+    float* dst = si + r * hl + 4 * q;
+    if (two_fin % 4 == 0) {
+      const bool in = ok && cc < two_fin;
+      cp_async16(dst, in ? src : inte, in ? 16 : 0);
     } else {
-      z += expf(u - m);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(256)
-gate_kernel(const float* __restrict__ inte, const float* __restrict__ h,
-            const float* __restrict__ isc, const float* __restrict__ ish,
-            const float* __restrict__ w2k, const float* __restrict__ w2b,
-            const float* __restrict__ s2, const float* __restrict__ t2,
-            int rows, int k, int two_fin, int softmax, float* __restrict__ g) {
-  __shared__ float sw[kHid][kTC];
-  __shared__ float shh[kSubP][kMaxK * kHid];
-
-  const int tid = threadIdx.x;
-  const int cl = tid % kTC;
-  const int pl = tid / kTC;
-  const int c0 = blockIdx.x * kTC;
-  const int c = c0 + cl;
-  const int hk = k / 2;
-  const int four_fin = 2 * two_fin;
-
-  for (int e = tid; e < kHid * kTC; e += 256) {
-    int hh = e / kTC, cc = e % kTC;
-    sw[hh][cc] = (c0 + cc < two_fin) ? w2k[(size_t)hh * two_fin + c0 + cc] : 0.f;
-  }
-  const bool live_c = c < two_fin;
-  const float bias = live_c ? w2b[c] : 0.f;
-  const float sc = live_c ? s2[c] : 0.f;
-  const float sh = live_c ? t2[c] : 0.f;
-
-  const int p_begin = blockIdx.y * kBlockP;
-  const int p_end = min(rows, p_begin + kBlockP);
-  const int width = k * kHid;
-  for (int p0 = p_begin; p0 < p_end; p0 += kSubP) {
-    __syncthreads();
-    for (int e = tid; e < kSubP * width; e += 256) {
-      int pp = e / width, rem = e % width;
-      shh[pp][rem] = (p0 + pp < p_end) ? h[(size_t)(p0 + pp) * width + rem] : 0.f;
-    }
-    __syncthreads();
-    const int p = p0 + pl;
-    if (p >= p_end || !live_c) continue;
-
-    float u[kMaxK];
-#pragma unroll
-    for (int s = 0; s < kMaxK; ++s) {
-      if (s < k) {
-        float a = 0.f;
-#pragma unroll 16
-        for (int hh = 0; hh < kHid; ++hh)
-          a = fmaf(shh[pl][s * kHid + hh], sw[hh][cl], a);
-        u[s] = leaky((a + bias) * sc + sh);
+      for (int v = 0; v < 4; ++v) {
+        const bool in = ok && cc + v < two_fin;
+        cp_async4(dst + v, in ? src + v : inte, in ? 4 : 0);
       }
     }
-    if (softmax) {
-      float m = u[0];
+  }
+  cp_async_commit();
+}
+
+// LeakyReLU((h_s @ w2k + w2b) * s2 + t2) at this thread's four fragment
+// positions (points g, g + 8; channels 2t, 2t + 1 of its warp's column)
+__device__ __forceinline__ void slot_logits(const float* hs, int hl, int g,
+                                            int t, const uint32_t bhi[8][2],
+                                            const uint32_t blo[8][2],
+                                            const float bias[2],
+                                            const float sc[2],
+                                            const float shf[2], float u[4]) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int s = 1; s < kMaxK; ++s)
-        if (s < k) m = fmaxf(m, u[s]);
-      float z = 0.f;
+  for (int ks = 0; ks < kHidden / 8; ++ks) {
+    const float* a = hs + g * hl + ks * 8 + t;
+    uint32_t ahi[4], alo[4];
+    split_tf32(a[0], ahi[0], alo[0]);
+    split_tf32(a[8 * hl], ahi[1], alo[1]);
+    split_tf32(a[4], ahi[2], alo[2]);
+    split_tf32(a[8 * hl + 4], ahi[3], alo[3]);
+    mma_tf32x3(d, ahi, alo, bhi[ks], blo[ks]);
+  }
 #pragma unroll
-      for (int s = 0; s < kMaxK; ++s)
-        if (s < k) {
-          u[s] = expf(u[s] - m);
-          z += u[s];
+  for (int q = 0; q < 4; ++q)
+    u[q] = leaky((d[q] + bias[q & 1]) * sc[q & 1] + shf[q & 1]);
+}
+
+// KR > 0: k <= KR logits a thread in registers; KR == 0: any even k <=
+// kGateMaxK, two passes. Dynamic shared memory: 2 x 16 rows of hl floats
+// (h, then the tile's inte channels, staged together so that their loads
+// are in flight at once); two blocks an SM overlap one's loads with the
+// other's products.
+template <int KR>
+__global__ void __launch_bounds__(32 * kGateWarps, 2)
+gate_tc_kernel(const float* __restrict__ inte, const float* __restrict__ h,
+               const float* __restrict__ isc, const float* __restrict__ ish,
+               const float* __restrict__ w2k, const float* __restrict__ w2b,
+               const float* __restrict__ s2, const float* __restrict__ t2,
+               int rows, int k, int two_fin, int ldg, int softmax,
+               float* __restrict__ g_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kc = k < kGateChunk ? k : kGateChunk;
+  const int hl = kc * kHidden + 4;  // row stride: a-fragment reads hit 32 banks
+  const int c0 = blockIdx.x * kGateC;
+  const int cl = warp * 8 + 2 * t;  // the pair's first channel in the block
+  const int c = c0 + cl;            // and c + 1
+  const bool live[2] = {c < two_fin, c + 1 < two_fin};
+
+  // w2k's fragments of this warp's column (b0 = w2k[ks*8 + t][n0 + g],
+  // b1 = w2k[ks*8 + t + 4][n0 + g]), split once
+  uint32_t bhi[8][2], blo[8][2];
+  const int cb = blockIdx.x * kGateC + warp * 8 + g;
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const float b0 = cb < two_fin ? w2k[(size_t)(ks * 8 + t) * two_fin + cb]
+                                  : 0.f;
+    const float b1 =
+        cb < two_fin ? w2k[(size_t)(ks * 8 + t + 4) * two_fin + cb] : 0.f;
+    split_tf32(b0, bhi[ks][0], blo[ks][0]);
+    split_tf32(b1, bhi[ks][1], blo[ks][1]);
+  }
+  // per column q of the pair: conv_all2's bias and folded BN, and inte's
+  // folded BN at block channel (slot parity)*2Fin + c + q
+  float bias[2] = {0.f, 0.f}, sc[2] = {0.f, 0.f}, shf[2] = {0.f, 0.f};
+  float isc_p[2][2] = {}, ish_p[2][2] = {};
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    if (!live[q]) continue;
+    bias[q] = w2b[c + q];
+    sc[q] = s2[c + q];
+    shf[q] = t2[c + q];
+#pragma unroll
+    for (int par = 0; par < 2; ++par) {
+      isc_p[par][q] = isc[par * two_fin + c + q];
+      ish_p[par][q] = ish[par * two_fin + c + q];
+    }
+  }
+
+  // gate slot s (its inte staged in si at sl) at the thread's positions
+  // with softmax weights w[4]
+  auto write = [&](const float* si, int p0, int s, int sl, const float w[4]) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = g + 8 * half;
+      if (p0 + r >= rows) continue;
+      const float* x = si + r * hl + sl * kHidden + cl;
+      float* o = g_out + (size_t)(p0 + r) * ldg + s * two_fin + c;
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float a = s & 1 ? isc_p[1][q] : isc_p[0][q];
+        const float b = s & 1 ? ish_p[1][q] : ish_p[0][q];
+        if (live[q]) o[q] = leaky(x[q] * a + b) * w[2 * half + q];
+      }
+    }
+  };
+
+  const int tiles = (rows + kGateP - 1) / kGateP;
+  if constexpr (KR > 0) {
+    float* sh = smem;
+    float* si = sh + kGateP * hl;
+    for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+      const int p0 = tile * kGateP;
+      __syncthreads();  // the previous tile's rows are read
+      stage_tile(sh, si, hl, h, inte, rows, k, two_fin, c0, p0, 0, k);
+      cp_async_wait<0>();
+      __syncthreads();
+      float u[KR][4];
+#pragma unroll
+      for (int s = 0; s < KR; ++s)
+        if (s < k)
+          slot_logits(sh + s * kHidden, hl, g, t, bhi, blo, bias, sc, shf,
+                      u[s]);
+      if (softmax) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float m = u[0][q];
+#pragma unroll
+          for (int s = 1; s < KR; ++s)
+            if (s < k) m = fmaxf(m, u[s][q]);
+          float z = 0.f;
+#pragma unroll
+          for (int s = 0; s < KR; ++s)
+            if (s < k) {
+              u[s][q] = expf(u[s][q] - m);
+              z += u[s][q];
+            }
+          const float rz = 1.f / z;
+#pragma unroll
+          for (int s = 0; s < KR; ++s)
+            if (s < k) u[s][q] *= rz;
         }
+      }
 #pragma unroll
-      for (int s = 0; s < kMaxK; ++s)
-        if (s < k) u[s] = u[s] / z;
+      for (int s = 0; s < KR; ++s)
+        if (s < k) write(si, p0, s, s, u[s]);
     }
-    const size_t base = (size_t)p * hk * four_fin;
+  } else {
+    float* sh = smem;
+    float* si = sh + kGateP * hl;
+    for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+      const int p0 = tile * kGateP;
+      // pass 1: the running maximum m and normaliser z over the slots
+      float m[4], z[4];
 #pragma unroll
-    for (int s = 0; s < kMaxK; ++s) {
-      if (s < k) {
-        int ch = (s % 2) * two_fin + c;           // block channel in 4Fin
-        size_t o = base + (size_t)(s / 2) * four_fin + ch;
-        g[o] = leaky(inte[o] * isc[ch] + ish[ch]) * u[s];
+      for (int q = 0; q < 4; ++q) {
+        m[q] = -INFINITY;
+        z[q] = 0.f;
+      }
+      for (int s0 = 0; s0 < k && softmax; s0 += kGateChunk) {
+        const int ns = k - s0 < kGateChunk ? k - s0 : kGateChunk;
+        __syncthreads();
+        stage_tile(sh, nullptr, hl, h, inte, rows, k, two_fin, c0, p0, s0,
+                   ns);
+        cp_async_wait<0>();
+        __syncthreads();
+        for (int s = 0; s < ns; ++s) {
+          float u[4];
+          slot_logits(sh + s * kHidden, hl, g, t, bhi, blo, bias, sc, shf, u);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (u[q] > m[q]) {
+              z[q] = z[q] * expf(m[q] - u[q]) + 1.f;
+              m[q] = u[q];
+            } else {
+              z[q] += expf(u[q] - m[q]);
+            }
+          }
+        }
+      }
+      // pass 2: recompute each logit, weight it, gate
+      for (int s0 = 0; s0 < k; s0 += kGateChunk) {
+        const int ns = k - s0 < kGateChunk ? k - s0 : kGateChunk;
+        __syncthreads();
+        stage_tile(sh, si, hl, h, inte, rows, k, two_fin, c0, p0, s0, ns);
+        cp_async_wait<0>();
+        __syncthreads();
+        for (int s = 0; s < ns; ++s) {
+          float u[4];
+          slot_logits(sh + s * kHidden, hl, g, t, bhi, blo, bias, sc, shf, u);
+          if (softmax) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) u[q] = expf(u[q] - m[q]) / z[q];
+          }
+          write(si, p0, s0 + s, s, u);
+        }
       }
     }
   }
 }
 
-// k > kMaxK: shw (dynamic) holds kSubP * k * kHid floats of h
-__global__ void __launch_bounds__(256)
-gate_wide_kernel(const float* __restrict__ inte, const float* __restrict__ h,
-                 const float* __restrict__ isc, const float* __restrict__ ish,
-                 const float* __restrict__ w2k, const float* __restrict__ w2b,
-                 const float* __restrict__ s2, const float* __restrict__ t2,
-                 int rows, int k, int two_fin, int softmax,
-                 float* __restrict__ g) {
-  __shared__ float sw[kHid * kTC];
-  extern __shared__ float shw[];
-
-  const int tid = threadIdx.x;
-  const int cl = tid % kTC;
-  const int pl = tid / kTC;
-  const int c0 = blockIdx.x * kTC;
-  const int c = c0 + cl;
-  const int hk = k / 2;
-  const int four_fin = 2 * two_fin;
-
-  for (int e = tid; e < kHid * kTC; e += 256) {
-    int hh = e / kTC, cc = e % kTC;
-    sw[e] = (c0 + cc < two_fin) ? w2k[(size_t)hh * two_fin + c0 + cc] : 0.f;
-  }
-  const bool live_c = c < two_fin;
-  const float bias = live_c ? w2b[c] : 0.f;
-  const float sc = live_c ? s2[c] : 0.f;
-  const float sh = live_c ? t2[c] : 0.f;
-
-  const int p_begin = blockIdx.y * kBlockP;
-  const int p_end = min(rows, p_begin + kBlockP);
-  const int width = k * kHid;
-  for (int p0 = p_begin; p0 < p_end; p0 += kSubP) {
-    __syncthreads();
-    for (int e = tid; e < kSubP * width; e += 256) {
-      int pp = e / width, rem = e % width;
-      shw[e] = (p0 + pp < p_end) ? h[(size_t)(p0 + pp) * width + rem] : 0.f;
-    }
-    __syncthreads();
-    const int p = p0 + pl;
-    if (p >= p_end || !live_c) continue;
-    const float* hp = shw + pl * width;
-    float m = 0.f, z = 1.f;
-    if (softmax) online_softmax(hp, sw, k, cl, bias, sc, sh, m, z);
-    const size_t base = (size_t)p * hk * four_fin;
-    for (int s = 0; s < k; ++s) {
-      const float u = slot_logit(hp, sw, s, cl, bias, sc, sh);
-      const float w = softmax ? expf(u - m) / z : u;
-      int ch = (s % 2) * two_fin + c;
-      size_t o = base + (size_t)(s / 2) * four_fin + ch;
-      g[o] = leaky(inte[o] * isc[ch] + ish[ch]) * w;
-    }
-  }
-}
-
+// g[p, c] = LeakyReLU(inte[p, c] * isc[c % 4Fin] + ish[c % 4Fin]) for c < K,
+// 0 in the pad columns [K, ldg)
 __global__ void plain_gate_kernel(const float* __restrict__ inte,
                                   const float* __restrict__ isc,
-                                  const float* __restrict__ ish,
-                                  long long total, int four_fin,
+                                  const float* __restrict__ ish, long long rows,
+                                  int K, int ldg, int four_fin,
                                   float* __restrict__ g) {
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  int ch = (int)(e % four_fin);
-  g[e] = leaky(inte[e] * isc[ch] + ish[ch]);
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= rows * ldg) return;
+  const long long p = e / ldg;
+  const int col = (int)(e - p * ldg);
+  float v = 0.f;
+  if (col < K) {
+    const int ch = col % four_fin;
+    v = leaky(inte[p * K + col] * isc[ch] + ish[ch]);
+  }
+  g[e] = v;
 }
 
-// g (rows, k/2*4Fin) for the gated (h non-null) or the plain stage
+template <int KR>
+cudaError_t launch_gate_tc(int k, const float* inte, const float* h,
+                           const float* isc, const float* ish,
+                           const float* w2k, const float* w2b,
+                           const float* s2, const float* t2, int rows,
+                           int two_fin, int ldg, int softmax, float* g,
+                           cudaStream_t stream) {
+  const int kc = k < kGateChunk ? k : kGateChunk;
+  const int smem = 2 * kGateP * (kc * kHidden + 4) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gate_tc_kernel<KR>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (rows + kGateP - 1) / kGateP;
+  dim3 grid((two_fin + kGateC - 1) / kGateC, tiles < 65535 ? tiles : 65535);
+  gate_tc_kernel<KR><<<grid, 32 * kGateWarps, smem, stream>>>(
+      inte, h, isc, ish, w2k, w2b, s2, t2, rows, k, two_fin, ldg, softmax, g);
+  return cudaGetLastError();
+}
+
+// g (rows, ldg) of the gated (h non-null) or the plain stage; ldg >= k/2 *
+// 4Fin. h and inte 16-byte aligned (the gated stage's copies).
 inline cudaError_t launch_gate(const float* inte, const float* h,
                                const float* isc, const float* ish,
                                const float* w2k, const float* w2b,
                                const float* s2, const float* t2, int rows,
-                               int k, int two_fin, int softmax, float* g,
-                               cudaStream_t stream) {
-  if (h != nullptr) {
-    if (k > kMaxWideK) return cudaErrorInvalidValue;
-    dim3 grid((two_fin + kTC - 1) / kTC, (rows + kBlockP - 1) / kBlockP);
-    if (k <= kMaxK) {
-      gate_kernel<<<grid, 256, 0, stream>>>(inte, h, isc, ish, w2k, w2b, s2,
-                                            t2, rows, k, two_fin, softmax, g);
-    } else {
-      const int smem = kSubP * k * kHid * (int)sizeof(float);
-      cudaError_t err = cudaFuncSetAttribute(
-          gate_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem);
-      if (err != cudaSuccess) return err;
-      gate_wide_kernel<<<grid, 256, smem, stream>>>(inte, h, isc, ish, w2k,
-                                                    w2b, s2, t2, rows, k,
-                                                    two_fin, softmax, g);
-    }
-  } else {
-    long long total = (long long)rows * (k / 2) * 2 * two_fin;
+                               int k, int four_fin, int ldg, int softmax,
+                               float* g, cudaStream_t stream) {
+  const int K = (k / 2) * four_fin;
+  if (h == nullptr) {
+    const long long total = (long long)rows * ldg;
     plain_gate_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        inte, isc, ish, total, 2 * two_fin, g);
+        inte, isc, ish, rows, K, ldg, four_fin, g);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  if (four_fin % 2 || k > kGateMaxK) return cudaErrorInvalidValue;
+  const int two_fin = four_fin / 2;
+  cudaError_t err;
+  if (k <= 10)
+    err = launch_gate_tc<10>(k, inte, h, isc, ish, w2k, w2b, s2, t2, rows,
+                             two_fin, ldg, softmax, g, stream);
+  else if (k <= kGateChunk)
+    err = launch_gate_tc<kGateChunk>(k, inte, h, isc, ish, w2k, w2b, s2, t2,
+                                     rows, two_fin, ldg, softmax, g, stream);
+  else
+    err = launch_gate_tc<0>(k, inte, h, isc, ish, w2k, w2b, s2, t2, rows,
+                            two_fin, ldg, softmax, g, stream);
+  if (err == cudaSuccess && ldg > K)  // pad columns meet wi's zero rows
+    err = cudaMemset2DAsync(g + K, sizeof(float) * ldg, 0,
+                            sizeof(float) * (ldg - K), rows, stream);
+  return err;
 }
 
 }  // namespace

@@ -42,9 +42,8 @@ _SIGNATURES = {
     "pdgn_edge_head": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I]
                       + [_P] * 11 + [_P, _I, _I, _P, _P, _P],
     "pdgn_slot_stats": [_P, _L, _I, _P, _P, _P],
-    "pdgn_bilateral_tail": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _P, _P, _P],
-    "pdgn_edge_head_bwd": [_P, _P, _P] + [_I] * 6 + [_P] * 10 + [_P] * 14
+    "pdgn_bilateral_tail": [_P] * 10 + [_I, _P] + [_I] * 6 + [_P] * 3,
+    "pdgn_edge_head_bwd": [_P] * 4 + [_I] * 8 + [_P] * 10 + [_P] * 15
                           + [_P],
     "pdgn_bilateral_tail_bwd": [_P] * 11 + [_I] * 5 + [_P] * 11 + [_P],
     "pdgn_local_stats_fwd": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -53,6 +52,7 @@ _SIGNATURES = {
                     _P],
     "pdgn_knn_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "pdgn_knn_gather": [_P, _I, _I, _I, _I, _P, _P, _P],
+    "pdgn_tc_gemm": [_P, _I, _P] + [_I] * 5 + [_P] * 5,
 }
 
 _lock = threading.Lock()
@@ -137,11 +137,11 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-# a grid's y dimension holds at most 65535 blocks: the GEMMs put 64-row
-# tiles there (the head's product 128-row ones), the gate kernel 32-point
-# tiles
+# a grid's y dimension holds at most 65535 blocks: the SIMT GEMMs put
+# 64-row tiles there, the tensor-core product core (csrc/tf32x3_gemm.cuh)
+# 128-row ones, the tail backward's gate kernel 32-point tiles
 MAX_GRID_Y = 65535
-# rows per split of the transposed (weight-gradient) GEMMs: kSplitRows in
+# rows per split of the transposed (weight-gradient) products: kSplitRows in
 # csrc/common.cuh; their scratch holds one (Kd, Nout) partial per split
 TN_SPLIT_ROWS = 4096
 

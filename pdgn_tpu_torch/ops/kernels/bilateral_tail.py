@@ -19,7 +19,7 @@ import torch
 
 from pdgn_tpu_torch.ops.kernels import _lib
 
-# the gated gate kernel's widest k (csrc/tail_gate.cuh, kMaxWideK): k + 1 <=
+# the gated gate kernel's widest k (csrc/tail_gate.cuh, kGateMaxK): k + 1 <=
 # 128, the graph's longest list; k <= 16 keeps its slots in registers
 MAX_K = 126
 
@@ -50,16 +50,27 @@ def tail_reference(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2,
 def tail_kernel(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
                 bias, k: int, softmax: bool):
     """Launch ``csrc/bilateral_tail.cu`` (CUDA tensors, checked by
-    :func:`tail`)."""
+    :func:`tail`): the gate, then the merge on the tensor cores. The merge's
+    operands go by 16-byte ``cp.async`` granules, so ``wi`` is padded with
+    zeros to ``(ldg, ldw)``, both multiples of 4, and ``g`` has ``ldg``
+    columns (the plain stage's pad columns are zero)."""
     B, N, two_f = partial.shape
-    four_fin = inte_flat.shape[-1] // (k // 2)
-    _lib.check_rows(B * N, 32, "bilateral_tail")
-    g = torch.empty_like(inte_flat)
+    rows = B * N
+    kd = inte_flat.shape[-1]                      # k/2 * 4Fin
+    four_fin = kd // (k // 2)
+    ldg, ldw = -(-kd // 4) * 4, -(-two_f // 4) * 4
+    _lib.check_rows(rows, 128, "bilateral_tail")
+    if (ldg, ldw) != tuple(wi.shape):
+        wi = torch.nn.functional.pad(wi, (0, ldw - two_f, 0, ldg - kd))
+    wi = _lib.aligned(wi.contiguous())
+    inte_flat = _lib.aligned(inte_flat)
+    h_flat = None if h_flat is None else _lib.aligned(h_flat)
+    g = torch.empty(rows, ldg, device=partial.device, dtype=torch.float32)
     y = torch.empty_like(partial)
     p = _lib.ptr
     _lib.check(_lib.library().pdgn_bilateral_tail(
         p(partial), p(inte_flat), p(h_flat), p(isc), p(ish), p(w2k), p(w2b),
-        p(s2), p(t2), p(wi), p(bias), B * N, k, four_fin // 2, two_f,
+        p(s2), p(t2), p(wi), ldw, p(bias), rows, k, four_fin, two_f, ldg,
         int(softmax), p(g), p(y), _lib.stream_handle(partial.device)),
         "pdgn_bilateral_tail")
     _lib.LAUNCHES["bilateral_tail_gated" if h_flat is not None
@@ -82,6 +93,8 @@ def tail_bwd_kernel(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi, dy,
     f32 = dict(device=dev, dtype=torch.float32)
     gated = h_flat is not None
     _lib.check_rows(rows, 32, "bilateral_tail_bwd")
+    inte_flat = _lib.aligned(inte_flat)
+    h_flat = None if h_flat is None else _lib.aligned(h_flat)
     dy = dy.contiguous()
     wi_t = wi.T.contiguous()
     d_inte = torch.empty_like(inte_flat)

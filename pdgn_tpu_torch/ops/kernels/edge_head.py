@@ -152,12 +152,52 @@ def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     return idx, inte, partial, stats, wfea, wxyz, wstats
 
 
+def _up4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def pack_head_bwd_weights(wn_flat, conv_a, a_merge, wen, k: int,
+                          window: int):
+    """The backward's product operands, blocks zero-padded to 16-byte rows
+    (``c4``, ``ldf``, ``t4``: C, 4Fin, 2F rounded up to 4): ``W_conv =
+    [Wn_0^T; ..; Wn_{window-1}^T; conv_a^T]`` of shape ``((window+1)*ldf,
+    c4)``, so that ``Gc @ W_conv`` with ``Gc = [A_0 | .. | S]`` is the
+    window conv's input gradient, and ``W_merge = [wen_0; ..; wen_{k-1};
+    a_merge]^T`` of shape ``(t4, (k+1)*c4)``."""
+    C, four_fin = conv_a.shape
+    two_f = a_merge.shape[-1]
+    c4, ldf, t4 = _up4(C), _up4(four_fin), _up4(two_f)
+    pad = torch.nn.functional.pad
+    w_conv = torch.cat([wn_flat.reshape(window, C, four_fin), conv_a[None]])
+    w_conv = pad(w_conv, (0, ldf - four_fin, 0, c4 - C)).transpose(1, 2)
+    w_merge = torch.cat([wen, a_merge]).reshape(k + 1, C, two_f)
+    w_merge = pad(w_merge, (0, t4 - two_f, 0, c4 - C)).permute(2, 0, 1)
+    return (w_conv.reshape((window + 1) * ldf, c4).contiguous(),
+            w_merge.reshape(t4, (k + 1) * c4).contiguous())
+
+
+def unpack_head_bwd_grads(d_wconv, d_wmerge, C: int, four_fin: int,
+                          two_f: int, k: int, window: int):
+    """``d_wconv (c4, (window+1)*ldf) = x^T Gc`` and ``d_wmerge ((k+1)*c4,
+    t4)`` cut back to ``d_wn_flat, d_conv_a, d_a_merge, d_wen``."""
+    c4, ldf, t4 = _up4(C), _up4(four_fin), _up4(two_f)
+    d_wc = d_wconv.reshape(c4, window + 1, ldf)[:C, :, :four_fin]
+    d_wc = d_wc.permute(1, 0, 2).reshape((window + 1) * C, four_fin)
+    d_wm = d_wmerge.reshape(k + 1, c4, t4)[:, :C, :two_f]
+    d_wm = d_wm.reshape((k + 1) * C, two_f)
+    return d_wc[:window * C], d_wc[window * C:], d_wm[k * C:], d_wm[:k * C]
+
+
 def head_bwd_kernel(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
                     ppoint, cts, k: int):
     """Launch ``csrc/edge_head_bwd.cu``. ``cts`` are the cotangents of
     ``inte, partial, stats`` and, gated, ``wfea, wxyz, wstats``. Returns
     the gradients of ``x, wn_flat, conv_a, pb_point, a_merge, wen,
-    pb_merge, pcat, ppoint`` (the last two ``None`` for the plain stage)."""
+    pb_merge, pcat, ppoint`` (the last two ``None`` for the plain stage).
+
+    The products' operands go by 16-byte ``cp.async`` granules: x,
+    ``d_partial`` and the weight blocks are zero-padded to ``c4``, ``t4``
+    and ``ldf`` columns, and the padded gradients are cut back here."""
     B, N, C = x.shape
     hk = k // 2
     window = hk + 1
@@ -167,42 +207,51 @@ def head_bwd_kernel(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
     f32 = dict(device=dev, dtype=torch.float32)
     i32 = dict(device=dev, dtype=torch.int32)
     rows = B * N
-    _lib.check_rows(rows * hk, 64, "edge_head_bwd")
-    w_conv_t = torch.cat([wn_flat, conv_a], dim=0).T.contiguous()
-    w_merge_t = torch.cat([wen, a_merge], dim=0).T.contiguous()
+    _lib.check_rows(rows, 128, "edge_head_bwd")
+    c4, ldf, t4 = _up4(C), _up4(four_fin), _up4(two_f)
+    pad = torch.nn.functional.pad
+    w_conv, w_merge = pack_head_bwd_weights(wn_flat, conv_a, a_merge, wen, k,
+                                            window)
+    xp = _lib.aligned(pad(x, (0, c4 - C)).contiguous())
     gated = pcat is not None
-    d_inte, d_partial, d_stats = (c.contiguous() for c in cts[:3])
+    d_inte, d_stats = (_lib.aligned(c.contiguous()) for c in cts[0:3:2])
+    d_partial = _lib.aligned(pad(cts[1], (0, t4 - two_f)).contiguous())
+    inte = _lib.aligned(inte)
     d_wfea = d_wxyz = d_wstats = None
     if gated:
         d_wfea, d_wxyz, d_wstats = (c.contiguous() for c in cts[3:6])
-    wc, mc = (window + 1) * C, (k + 1) * C
-    d_x = torch.empty(B, N, C, **f32)
-    d_wconv = torch.empty(wc, four_fin, **f32)
-    d_wmerge = torch.empty(mc, two_f, **f32)
+    gw, mc = (window + 1) * ldf, (k + 1) * c4
+    d_x = torch.empty(rows, c4, **f32)
+    d_wconv = torch.empty(c4, gw, **f32)
+    d_wmerge = torch.empty(mc, t4, **f32)
     d_pb_point = torch.empty(B, four_fin, **f32)
     d_pb_merge = torch.empty(B, two_f, **f32)
     d_pcat = torch.empty(B, N, PROJ, **f32) if gated else None
     d_ppoint = torch.empty(B, N, PROJ, **f32) if gated else None
-    dp = torch.empty(rows * hk, wc, **f32)
+    gc = torch.empty(rows, gw, **f32)
     dm = torch.empty(rows, mc, **f32)
-    splits = max(-(-rows * hk // _lib.TN_SPLIT_ROWS) * wc * four_fin,
-                 -(-rows // _lib.TN_SPLIT_ROWS) * mc * two_f)
-    tn_scratch = torch.empty(splits, **f32)
+    dxm = torch.empty(rows, c4, **f32)
+    splits = -(-rows // _lib.TN_SPLIT_ROWS)
+    tn_scratch = torch.empty(splits * max(c4 * gw, mc * t4), **f32)
+    nbr = (idx + N * torch.arange(B, **i32)[:, None, None]).contiguous()
     count = torch.empty(rows, **i32)
     cursor = torch.empty(rows, **i32)
     offsets = torch.empty(rows + 1, **i32)
     entries = torch.empty(rows * k, **i32)
     p = _lib.ptr
     _lib.check(_lib.library().pdgn_edge_head_bwd(
-        p(x), p(idx), p(inte), B, N, C, k, four_fin, two_f, p(w_conv_t),
-        p(w_merge_t), p(d_inte), p(d_partial), p(d_stats), p(pcat),
+        p(xp), p(idx), p(nbr), p(inte), B, N, c4, k, four_fin, two_f, ldf, t4,
+        p(w_conv), p(w_merge), p(d_inte), p(d_partial), p(d_stats), p(pcat),
         p(ppoint), p(d_wfea), p(d_wxyz), p(d_wstats), p(d_x), p(d_wconv),
         p(d_wmerge), p(d_pb_point), p(d_pb_merge), p(d_pcat), p(d_ppoint),
-        p(dp), p(dm), p(tn_scratch), p(count), p(cursor), p(offsets),
-        p(entries), _lib.stream_handle(dev)), "pdgn_edge_head_bwd")
+        p(gc), p(dm), p(dxm), p(tn_scratch), p(count), p(cursor),
+        p(offsets), p(entries), _lib.stream_handle(dev)),
+        "pdgn_edge_head_bwd")
     _lib.LAUNCHES["edge_head_bwd"] += 1
-    return (d_x, d_wconv[:window * C], d_wconv[window * C:], d_pb_point,
-            d_wmerge[k * C:], d_wmerge[:k * C], d_pb_merge, d_pcat, d_ppoint)
+    d_wn, d_ca, d_am, d_wen = unpack_head_bwd_grads(
+        d_wconv, d_wmerge, C, four_fin, two_f, k, window)
+    return (d_x[:, :C].reshape(B, N, C), d_wn, d_ca, d_pb_point, d_am,
+            d_wen, d_pb_merge, d_pcat, d_ppoint)
 
 
 def head_bwd_plain(x, idx, wn_flat, conv_a, pb_point, a_merge, wen,
@@ -390,3 +439,39 @@ def edge_conv_head(x, conv_kernel, conv_bias, merge_kernel, k: int,
     half = PROJ // 2
     return (idx, inte, partial, (mean, var), wfea, wxyz,
             (wm[:half], wv[:half]), (wm[half:], wv[half:]))
+
+
+# sha256 of head_bits()'s outputs from the head's kernels as they were
+# before its product moved into the shared core (csrc/tf32x3_gemm.cuh): the
+# move keeps every bit. compare_head_bits.py sets this checkout's digest
+# beside another checkout's.
+HEAD_BITS = "b419db1eeafa0979dfe8c64a02336c79b567e869ac46fd5bb683a5a58ad7f966"
+
+
+def head_bits(dev, head=None) -> str:
+    """The outputs of ``head`` (this module's :func:`edge_head` by default)
+    on operands drawn with numpy at stage-4 widths, B=2, gated: the sha256
+    of their bytes (graph, inte, partial, sums, weight-net rows). No torch
+    arithmetic runs before the kernels, so on a CUDA device the digest
+    depends on the kernels' bits alone."""
+    import hashlib
+
+    import numpy as np
+
+    head = head or edge_head
+    rng = np.random.RandomState(2024)
+    B, N, C, cf, four_fin, two_f, k = 2, 1024, 128, 256, 1024, 512, 10
+    window = k // 2 + 1
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+    out = head(r(B, N, C), r(B, N, cf), r(window * C, four_fin, scale=0.03),
+               r(C, four_fin, scale=0.03), r(B, four_fin, scale=0.1),
+               r(C, two_f, scale=0.03), r(k * C, two_f, scale=0.03),
+               r(B, two_f, scale=0.1), r(B, N, 32), r(B, N, 32), k, window)
+    digest = hashlib.sha256()
+    for o in out:
+        digest.update(o.cpu().numpy().tobytes())
+    return digest.hexdigest()

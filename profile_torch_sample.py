@@ -10,10 +10,15 @@ on ``--clouds`` synthetic clouds, sampled in batches of ``--batch``), after
 one warm-up iteration. Prints, per CUDA kernel name, its device time per
 iteration and share, plus the iteration's wall time and the share of it in
 which the device ran no kernel (negative if the kernel events overlap or are
-counted twice). Needs a CUDA card; run from the root of the repository::
+counted twice). With ``--wall`` it runs no profiler and prints each
+iteration's wall time (synchronised) and iterations per second instead:
+iterations/s of two checkouts compared in one call (this script copied into
+the other checkout's root imports that checkout's package). Needs a CUDA
+card; run from the root of the repository::
 
     python3 profile_torch_sample.py --batch 128 --out breakdown.json
     python3 profile_torch_sample.py --train --batch 35
+    python3 profile_torch_sample.py --train --batch 35 --reps 30 --wall
     python3 profile_torch_sample.py --test --batch 35 --clouds 64 --reps 2
 """
 
@@ -77,7 +82,7 @@ def test_iteration(batch: int, seed: int, dev, clouds: int, out_dir: str):
 
 
 def profile(batch: int, reps: int, seed: int, train: bool = False,
-            test: bool = False, clouds: int = 64) -> dict:
+            test: bool = False, clouds: int = 64, wall: bool = False) -> dict:
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -93,6 +98,19 @@ def profile(batch: int, reps: int, seed: int, train: bool = False,
             batch, seed, dev)
     iteration()                              # build + warm up
     torch.cuda.synchronize()
+    kind = "test phase" if test else "train step" if train else "forward"
+    if wall:
+        seconds = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            iteration()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        out_dir.cleanup()
+        return {"card": torch.cuda.get_device_name(0), "batch": batch,
+                "iteration": kind, "reps": reps,
+                "iteration_seconds": seconds,
+                "iterations_per_s": reps / sum(seconds)}
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -114,7 +132,6 @@ def profile(batch: int, reps: int, seed: int, train: bool = False,
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     wall_ms = wall_s / reps * 1e3
-    kind = "test phase" if test else "train step" if train else "forward"
     return {"card": torch.cuda.get_device_name(0), "batch": batch,
             "iteration": kind,
             "reps": reps, "wall_ms_per_iteration": wall_ms,
@@ -123,6 +140,17 @@ def profile(batch: int, reps: int, seed: int, train: bool = False,
             "kernels": [{"name": n, "ms_per_iteration": ms,
                          "share": ms / busy_ms if busy_ms else 0.0,
                          "calls_per_iteration": c} for n, ms, c in rows]}
+
+
+def print_breakdown(res: dict) -> None:
+    print(f"{res['card']}: B={res['batch']}, wall "
+          f"{res['wall_ms_per_iteration']:.3f} ms per {res['iteration']}, "
+          f"device busy {res['device_busy_ms_per_iteration']:.3f} ms, idle "
+          f"share {res['idle_share']:.3f}")
+    for k in res["kernels"][:30]:
+        print(f"{k['ms_per_iteration']:10.3f} ms {100 * k['share']:6.2f}% "
+              f"x{k['calls_per_iteration']:<4d} {k['name'][:110]}")
+
 
 
 def main(argv=None) -> None:
@@ -136,17 +164,20 @@ def main(argv=None) -> None:
                     help="profile whole test phases (sampling + metrics)")
     ap.add_argument("--clouds", type=int, default=64,
                     help="test-set size of --test")
+    ap.add_argument("--wall", action="store_true",
+                    help="no profiler: each iteration's wall time only")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     res = profile(args.batch, args.reps, args.seed, args.train, args.test,
-                  args.clouds)
-    print(f"{res['card']}: B={res['batch']}, wall "
-          f"{res['wall_ms_per_iteration']:.3f} ms per {res['iteration']}, "
-          f"device busy {res['device_busy_ms_per_iteration']:.3f} ms, idle "
-          f"share {res['idle_share']:.3f}")
-    for k in res["kernels"][:30]:
-        print(f"{k['ms_per_iteration']:10.3f} ms {100 * k['share']:6.2f}% "
-              f"x{k['calls_per_iteration']:<4d} {k['name'][:110]}")
+                  args.clouds, args.wall)
+    if args.wall:
+        secs = sorted(res["iteration_seconds"])
+        print(f"{res['card']}: B={res['batch']}, {res['reps']} "
+              f"{res['iteration']}s: {res['iterations_per_s']:.4f} per s, "
+              f"median {secs[len(secs) // 2]:.4f} s, min {secs[0]:.4f} s, "
+              f"max {secs[-1]:.4f} s")
+    else:
+        print_breakdown(res)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -6,7 +6,10 @@ that are no multiple of a chunk, k other than 10).
 The widened shapes too: the head at any even k with k + 1 <= 128 and at
 4Fin or 2F that are no multiple of 4, the gated tail at k > 16, local
 statistics at any k <= 128 and N up to 65,536, emd_cd at any n, and a
-full-width generator at num_k 28.
+full-width generator at num_k 28. The 3xTF32 gated tail and head backward
+at ragged row counts and widths off multiples of 4, twice (bit-identical);
+the head forward's digest from before its product moved into the shared
+product core; and that core alone at its longest folded chains.
 
 Marked ``cuda``; each test skips unless a CUDA card is visible (decided in
 the fixture, never at import). Run on a machine with a card with::
@@ -20,8 +23,8 @@ import torch
 
 from pdgn_tpu_torch.ops.kernels import _lib
 from pdgn_tpu_torch.ops.kernels.bilateral_tail import tail, tail_reference
-from pdgn_tpu_torch.ops.kernels.edge_head import (edge_head,
-                                                  head_operands,
+from pdgn_tpu_torch.ops.kernels.edge_head import (HEAD_BITS, edge_head,
+                                                  head_bits, head_operands,
                                                   head_reference_given_idx)
 from pdgn_tpu_torch.ops.kernels.slot_stats import (slot_moment_stats,
                                                    stats_plain)
@@ -300,6 +303,110 @@ def test_tail_backward_kernel_matches_plain(dev, gated, softmax, k, fin):
             assert a is None, i
         else:
             assert _rel(a, b) <= 1e-4, (i, _rel(a, b))
+
+
+def _odd_tail_args(g, dev, gated, k, B=3, N=45, four_fin=130, two_f=66):
+    hk, two_fin = k // 2, four_fin // 2
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    return [r(B, N, two_f), r(B, N, hk * four_fin),
+            r(B, N, k * 64) * 0.5 if gated else None,
+            r(four_fin) * 0.2 + 1, r(four_fin) * 0.1,
+            r(64, two_fin) * 0.1 if gated else None,
+            r(two_fin) * 0.1 if gated else None,
+            r(two_fin) * 0.2 + 1 if gated else None,
+            r(two_fin) * 0.1 if gated else None,
+            r(hk * four_fin, two_f) * 0.05, r(two_f) * 0.1, k, True]
+
+
+@pytest.mark.parametrize("gated,k", [(True, 10), (True, 18), (False, 10)])
+def test_tail_kernel_ragged_rows_and_odd_widths(dev, gated, k):
+    """135 rows (no whole 128-row tile of the merge, no whole 16-point tile
+    of the gate), 4Fin = 130 and 2F = 66 (wi and g padded to multiples of
+    4; 2Fin = 65 is odd), k = 10 and the wide gate's 18: rel <= 1e-4 of the
+    plain version, two launches bit-identical."""
+    args = _odd_tail_args(torch.Generator(device=dev).manual_seed(11 * k),
+                          dev, gated, k)
+    y = tail(*args)
+    assert torch.equal(y, tail(*args))
+    assert _rel(y, tail_reference(*args)) <= 1e-4
+
+
+@pytest.mark.parametrize("k,gated", [(14, True), (10, False)])
+def test_head_backward_kernel_ragged_rows_and_odd_widths(dev, k, gated):
+    """C = 30, 4Fin = 130 and 2F = 66 (no multiple of 4: the products'
+    operands padded, the cotangents gathered in scalar columns), 135 rows,
+    k = 14: every gradient rel <= 1e-4 of autograd's, two launches
+    bit-identical."""
+    from pdgn_tpu_torch.ops.kernels.edge_head import (head_bwd_kernel,
+                                                      head_bwd_plain)
+
+    g = torch.Generator(device=dev).manual_seed(13 * k)
+    B, N, C, four_fin, two_f = 3, 45, 30, 130, 66
+    window = k // 2 + 1
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    x = r(B, N, C)
+    x_knn, wn, ca, pb, am, wen, pbm, window = head_operands(
+        x, r(1, window, 2 * C, four_fin) * 0.1, r(four_fin) * 0.1,
+        r(2 * k * 2 * C, two_f) * 0.05, k)
+    pcat = r(B, N, 32) if gated else None
+    ppoint = r(B, N, 32) if gated else None
+    idx, inte = edge_head(x, x_knn, wn, ca, pb, am, wen, pbm, pcat, ppoint,
+                          k, window)[:2]
+    cts = [r(*inte.shape), r(B, N, two_f), r(2, four_fin) * 0.01]
+    if gated:
+        cts += [r(B, N, k * 16), r(B, N, k * 16), r(2, k * 32) * 0.01]
+    got = head_bwd_kernel(x, idx, inte, wn, ca, am, wen, pcat, ppoint, cts, k)
+    again = head_bwd_kernel(x, idx, inte, wn, ca, am, wen, pcat, ppoint, cts,
+                            k)
+    want = head_bwd_plain(x, idx, wn, ca, pb, am, wen, pbm, pcat, ppoint,
+                          cts, k, window)
+    for i, (a, b, c) in enumerate(zip(got, want, again)):
+        if b is None:
+            assert a is None and c is None, i
+        else:
+            assert torch.equal(a, c), i
+            assert _rel(a, b) <= 1e-4, (i, _rel(a, b))
+
+
+def test_head_forward_keeps_its_bits(dev):
+    assert head_bits(dev) == HEAD_BITS
+
+
+@pytest.mark.parametrize("depth", [5120, 7168])
+def test_product_core_folds_long_chains(dev, depth):
+    """The shared product core alone at the gated tail merge's depth
+    (5,120) and the head backward's Gc @ W_conv (7,168), 300 rows (ragged
+    tiles), with an addend and a bias: folded, rel <= 1e-5 of float64, the
+    limit of the CPU emulation (tests/test_torch_tf32x3.py)."""
+    from pdgn_tpu_torch.ops.kernels.tc_gemm import tc_matmul
+
+    g = torch.Generator(device=dev).manual_seed(depth)
+    a = torch.randn(300, depth, generator=g, device=dev)
+    b = torch.randn(depth, 68, generator=g, device=dev) * depth ** -0.5
+    addend = torch.randn(300, 68, generator=g, device=dev)
+    bias = torch.randn(68, generator=g, device=dev)
+    got = tc_matmul(a, b, addend, bias)
+    want = addend.double() + a.double() @ b.double() + bias.double()
+    assert _rel(got, want) <= 1e-5
+
+
+def test_product_core_transposed_splits(dev):
+    """a^T b over 2 * 4096 + 100 rows (three splits, the last ragged): rel
+    <= 1e-5 of float64, two launches bit-identical."""
+    from pdgn_tpu_torch.ops.kernels.tc_gemm import tc_matmul
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(2 * 4096 + 100, 132, generator=g, device=dev)
+    b = torch.randn(2 * 4096 + 100, 72, generator=g, device=dev)
+    got = tc_matmul(a, b, trans=True)
+    assert torch.equal(got, tc_matmul(a, b, trans=True))
+    assert _rel(got, a.double().T @ b.double()) <= 1e-5
 
 
 @pytest.mark.parametrize("B,M,N", [(2, 100, 300), (3, 128, 128)])

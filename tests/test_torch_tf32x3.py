@@ -11,7 +11,10 @@ kernels' own limits (the head's rel 1e-4, slot stats' 1e-5), which is why
 they take three. The tensor cores truncate their additions: the emulation
 does too (and, for the head shapes, also rounds, the split's own
 arithmetic), and shows why slot stats' kernel folds its accumulators every
-32 rows.
+32 rows, and why the shared product core (``csrc/tf32x3_gemm.cuh``) folds
+its own every 128 of depth: the gated tail's merge (depth 5,120), the head
+backward's ``Gc @ W_conv`` (7,168) and its weight gradients over 4,096-row
+splits stay within rel 1e-5 of float64 folded and miss it unfolded.
 
 ``edge_head``'s kernel moves the products ahead of the gather:
 ``x[idx] @ W = (x @ W)[idx]``. ``x @ pack_head_weights(...)`` followed by
@@ -144,6 +147,45 @@ def test_three_passes_keep_fp32_accuracy_for_slot_stats():
     assert stats(three_pass, 4) <= 1e-6
     assert stats(three_pass, None) > 1e-6
     assert stats(one_pass, 4) > 1e-5
+
+
+# tf32x3_gemm.cuh's kGFold: 4 stages of 32, 128 of depth, in k8 steps
+FOLD_STEPS = 4 * 32 // 8
+
+
+@pytest.mark.parametrize("product", ["tail merge", "head bwd Gc W_conv",
+                                     "head bwd x^T Gc"])
+def test_folded_chains_keep_fp32_accuracy(product):
+    """The long products of the shared core at their stage-4 depths, as the
+    core sums them: 8-deep mma steps with truncated additions, accumulators
+    folded every FOLD_STEPS into rounded fp32 totals; a transposed product's
+    4,096-row splits added in float64 (column_reduce) and rounded. Folded,
+    each stays within rel 1e-5 of float64; unfolded, each drifts past it
+    (~5e-5)."""
+    rng = np.random.RandomState(len(product))
+    splits = 1
+    if product == "tail merge":          # g (rows, 5120) @ wi (5120, 2F)
+        depth = 5 * 1024
+        a = rng.randn(64, depth).astype(np.float32)
+        a = np.maximum(a, 0.01 * a) * rng.rand(64, depth).astype(np.float32)
+    elif product == "head bwd Gc W_conv":  # Gc (rows, 7*4Fin) @ W_conv
+        depth = 7 * 1024
+        a = rng.randn(64, depth).astype(np.float32)
+    else:                                # x^T Gc over two 4096-row splits
+        depth, splits = 4096, 2
+        a = rng.randn(64, splits * depth).astype(np.float32)
+    b = (rng.randn(splits * depth, 64) * depth ** -0.5).astype(np.float32)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+
+    def core(fold):
+        out = np.zeros(want.shape, np.float64)
+        for s in range(splits):
+            rows = slice(s * depth, (s + 1) * depth)
+            out += mma_product(a[:, rows], b[rows], three_pass, fold)
+        return out.astype(np.float32)
+
+    assert rel(core(FOLD_STEPS), want) <= 1e-5
+    assert rel(core(None), want) > 1e-5
 
 
 def gather_sums(P, idx, pb_point, pb_merge, pcat, ppoint, k, window,

@@ -36,10 +36,9 @@ What it does, in order (any failure raises and the exit code is not 0):
    shapes, the kernel, its plain version and (where one PyTorch call
    computes the same function) that call, beside the least time the card
    could take (max of bytes / 3.35 TB/s and FLOP / 67 TFLOP/s, the H100
-   SXM fp32 figures without tensor cores; the products that the head and
-   the tails run on the tensor cores at 3xTF32's 495 / 3 TFLOP/s, so the
-   bounds of kernels still on the SIMT units are upper estimates until
-   their own redesign); holds each kernel's B=128 outputs against its
+   SXM fp32 figures without tensor cores; the products that the head, the
+   tails and their backwards run on the tensor cores at 3xTF32's 495 / 3
+   TFLOP/s); holds each kernel's B=128 outputs against its
    plain version's with phase 2's tolerances and near-tie rule; and
    prints the gated tail's merge product alone (the shared core) against
    ``torch.addmm`` in fp32, a yardstick the port never calls.
@@ -53,6 +52,8 @@ The train slice, in the same phases:
    d w2b, d s2, d t2 through the slot softmax: the plain version is 2e-4
    to 1.2e-2 off its own float64 evaluation at these shapes); there the
    kernel's error against float64 is at most twice the plain version's;
+   the g that the tail backward's gate pass writes (for d_wi = g^T dy)
+   equal to the forward gate's under ``torch.equal``;
    ``local_mean_cov`` forward with neighbour sets equal except at near-ties
    (PR 1's rule), mu and cov rel <= 1e-4 over the centers whose sets agree,
    its backward rel <= 1e-4 given the same selection;
@@ -67,8 +68,12 @@ The train slice, in the same phases:
    back; prints train steps/s at B=35;
 4t. times each train kernel at the train path's B=35 shapes beside its plain
    version and its bound, and holds its outputs to phase 2t's tolerances;
-   prints the head backward's input-gradient product alone (Gc @ W_conv
-   on the shared core) against ``torch.addmm`` in fp32.
+   ``local_mean_cov``'s forward at all 9 calls of a train step (the shape
+   loss's 3 self and 6 cross pairs over clouds of 256-2048 points), each
+   selection equal to the plain one, mu and cov rel <= 1e-4, its time and
+   bound the sums over the 9; prints the head backward's input-gradient
+   product alone (Gc @ W_conv on the shared core) against ``torch.addmm``
+   in fp32.
 
 The test slice, in the same phases:
 
@@ -128,7 +133,8 @@ after 2p:
 
 2w. the head, its backward and the gated tail with its backward at stage
    4, B=8, k = 14 and 18 (``--num_k`` 28 and 36); the plain head with 4Fin
-   and 2F no multiples of 4; ``local_mean_cov`` at k=24 over 20,000
+   and 2F no multiples of 4; the gated and plain tail with its backward at
+   4Fin = 130, 2F = 66 (odd 2Fin); ``local_mean_cov`` at k=24 over 20,000
    points; each against its plain version with phase 2's and 2t's
    tolerances and timed once (one line each; their speed is not a goal);
    then ``generate()`` at full width with num_k 28 and 36 (launch counters
@@ -697,11 +703,21 @@ def compare_head_bwd(case, label: str) -> float:
 
 
 def compare_tail_bwd(args, dy, label: str) -> float:
+    """The tail backward's gradients as ``compare_grads`` holds them, and
+    the g its gate pass writes (for d_wi = g^T dy) equal to the forward
+    gate's g under ``torch.equal``."""
+    import torch
     from pdgn_tpu_torch.ops.kernels.bilateral_tail import (tail_bwd_kernel,
-                                                           tail_bwd_plain)
+                                                           tail_bwd_plain,
+                                                           tail_kernel)
 
     k, softmax = args[11], args[12]
-    got = tail_bwd_kernel(*args[1:10], dy, k, softmax)
+    *got, g_bwd = tail_bwd_kernel(*args[1:10], dy, k, softmax, keep_g=True)
+    g_fwd = tail_kernel(*args, keep_g=True)[1]
+    require(torch.equal(g_bwd, g_fwd),
+            f"tail bwd {label}: the backward's g is not the forward's")
+    log(f"  tail bwd {label}: g equal to the forward's (torch.equal)")
+    del g_bwd, g_fwd
     want = tail_bwd_plain(*args[:11], dy, k, softmax)
     want64 = tail_bwd_plain(*_double(args[:11]), dy.double(), k, softmax)
     return compare_grads(TAIL_GRADS, got, want, want64, f"tail bwd {label}")
@@ -767,6 +783,28 @@ def compare_local(case, label: str, k: int = 20):
             max_abs(d_k, d_p))
 
 
+# the shape loss's local_mean_cov calls of one train step, (M centers, N
+# points): its clouds of 256, 512, 1024 and 2048 points, 3 self pairs and 6
+# coarse-fine pairs (losses/shape_preserving.py)
+SHAPE_LOSS_CALLS = ((256, 256), (512, 512), (1024, 1024), (256, 512),
+                    (256, 1024), (256, 2048), (512, 1024), (512, 2048),
+                    (1024, 2048))
+
+
+def shape_loss_clouds(B: int, gen, dev) -> dict:
+    """The four clouds of one step's shape loss, each finer one around the
+    one before (every point twice, jittered), as the generator's stages
+    refine them."""
+    import torch
+
+    clouds = {256: torch.randn(B, 256, 3, generator=gen, device=dev)}
+    for n in (512, 1024, 2048):
+        prev = clouds[n // 2]
+        clouds[n] = (prev.repeat_interleave(2, dim=1) + 0.02 * torch.randn(
+            B, n, 3, generator=gen, device=dev)).contiguous()
+    return clouds
+
+
 def check_train_kernels(gen, dev) -> dict:
     """Phase 2t at stage-4 shapes (stage 1 for the plain tail), B=8."""
     import torch
@@ -811,12 +849,35 @@ def odd_head_inputs(B: int, gen, dev):
             None, None, K, window)
 
 
+def odd_tail_inputs(B: int, gated: bool, gen, dev):
+    """A tail at stage 1's 128 points with 4Fin = 130 and 2F = 66: 2Fin =
+    65 is odd, and every operand of the backward's products is padded."""
+    import torch
+
+    n, four_fin, two_f = 128, 130, 66
+    hk, two_fin = K // 2, four_fin // 2
+
+    def r(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale + shift
+
+    return (r(B, n, two_f), r(B, n, hk * four_fin),
+            r(B, n, K * 64, scale=0.5) if gated else None,
+            r(four_fin, scale=0.2, shift=1.0), r(four_fin, scale=0.1),
+            r(64, two_fin, scale=0.125) if gated else None,
+            r(two_fin, scale=0.1) if gated else None,
+            r(two_fin, scale=0.2, shift=1.0) if gated else None,
+            r(two_fin, scale=0.1) if gated else None,
+            r(hk * four_fin, two_f, scale=(hk * four_fin) ** -0.5),
+            r(two_f, scale=0.1), K, True)
+
+
 def check_wide_shapes(gen, dev) -> dict:
     """Phase 2w: the shapes the kernels took since they were widened, each
     against its plain version with phase 2's and 2t's tolerances and timed
     once (their speed is not a goal): the head, its backward and the gated
     tail with its backward at stage 4, B=8, k in WIDE_K (k=18 takes the
     tail's run-time-k gate); the plain head with 4Fin and 2F off float4;
+    the gated and plain tail with its backward at 4Fin = 130, 2F = 66;
     ``local_mean_cov`` at k=24 over 20,000 points (the run-time-k kNN, the
     points streamed through shared memory); then ``generate()`` at full
     width with num_k 28 and 36, launch counters set to 0 just before and
@@ -866,6 +927,15 @@ def check_wide_shapes(gen, dev) -> dict:
     timed("edge_head stage 1 B=8 4Fin=130 2F=66", lambda: edge_head(*args),
           5)
     del args
+    for gated in (True, False):
+        label = f"B=8 4Fin=130 2F=66 {'gated' if gated else 'plain'}"
+        targs = odd_tail_inputs(8, gated, gen, dev)
+        compare_tail(targs, label)
+        dy = torch.randn(*targs[0].shape, generator=gen, device=dev)
+        compare_tail_bwd(targs, dy, label)
+        timed(f"bilateral_tail_{'gated' if gated else 'plain'}_bwd {label}",
+              lambda: tail_bwd_kernel(*targs[1:10], dy, K, True), 5)
+        del targs, dy
 
     case = local_case(2, 2048, 20000, gen, dev)
     compare_local(case, "k=24 M=2048 N=20000 B=2", k=24)
@@ -1044,18 +1114,20 @@ def time_train_kernels(dev, gen) -> dict:
         "head bwd Gc @ W_conv + dxm", gc, w_conv, dxm)
     del gc, w_conv, dxm
 
-    # gated tail backward, stage 4
+    # gated tail backward, stage 4: dg and d_wi, conv_all2's recompute, d_h
+    # and d_w2k on the tensor cores at 3xTF32's rate; the walk back through
+    # the gate, the softmax and the BN folds at the fp32 SIMT rate
     targs = tail_inputs(4, B, True, gen, dev)
     dy = torch.randn(*targs[0].shape, generator=gen, device=dev)
     two_fin = four_fin // 2
     KK = hk * four_fin
-    flops = (2 * 2.0 * rows * KK * two_f            # dg and d_wi
-             + 3 * 2.0 * rows * K * 64 * two_fin   # conv_all2, d_h, d_w2k
-             + 30.0 * rows * K * two_fin)          # gate, softmax, BN walk
+    products = (2 * 2.0 * rows * KK * two_f          # dg and d_wi
+                + 3 * 2.0 * rows * K * 64 * two_fin)  # conv_all2, d_h, d_w2k
+    simt = 30.0 * rows * K * two_fin                 # gate, softmax, BN walk
     nbytes = 4.0 * (2 * rows * KK + 2 * rows * K * 64 + 2 * rows * two_f
                     + 2 * KK * two_f + 2 * 64 * two_fin + 4 * four_fin
                     + 6 * two_fin)
-    b, by = bound(flops, nbytes)
+    b, by = bound(simt, nbytes, products / PEAK_TF32X3 * 1e3)
     res["bilateral_tail_gated_bwd"] = {
         "ms": time_ms(lambda: tail_bwd_kernel(*targs[1:10], dy, K, True), 3),
         "plain_ms": time_ms(lambda: tail_bwd_plain(*targs[:11], dy, K, True),
@@ -1071,10 +1143,11 @@ def time_train_kernels(dev, gen) -> dict:
     targs = tail_inputs(1, B, False, gen, dev)
     dy = torch.randn(*targs[0].shape, generator=gen, device=dev)
     rows1 = B * n1
-    flops = 2 * 2.0 * rows1 * hk * four_fin1 * two_f1 + 6.0 * rows1 * hk * four_fin1
+    products = 2 * 2.0 * rows1 * hk * four_fin1 * two_f1   # dg and d_wi
     nbytes = 4.0 * (2 * rows1 * hk * four_fin1 + 2 * rows1 * two_f1
                     + 2 * hk * four_fin1 * two_f1 + 4 * four_fin1)
-    b, by = bound(flops, nbytes)
+    b, by = bound(6.0 * rows1 * hk * four_fin1, nbytes,
+                  products / PEAK_TF32X3 * 1e3)
     res["bilateral_tail_plain_bwd"] = {
         "ms": time_ms(lambda: tail_bwd_kernel(*targs[1:10], dy, K, True), 10),
         "plain_ms": time_ms(lambda: tail_bwd_plain(*targs[:11], dy, K, True),
@@ -1085,21 +1158,49 @@ def time_train_kernels(dev, gen) -> dict:
         targs, dy, f"stage 1 B={B} plain")
     del targs, dy
 
-    # local stats, the largest call of the step: 2048 points, 1024 centers
-    M, N, kk = 1024, 2048, 20
+    # local stats forward: the 9 calls of one train step (the shape loss's 3
+    # self and 6 cross pairs), timed and bounded one by one and summed; each
+    # selection equal to the plain one, mu and cov rel <= 1e-4. Its least
+    # work: the distances (3 sub, 3 mul, 2 add) and one compare per
+    # (center, point).
+    kk = 20
+    clouds = shape_loss_clouds(B, gen, dev)
+    ms = plain = err = 0.0
+    bounds = []
+    for M, N in SHAPE_LOSS_CALLS:
+        src, centers = clouds[N], clouds[M]
+        ms += time_ms(lambda: fwd_kernel(src, centers, kk), 10)
+        plain += time_ms(lambda: stats_given_idx(
+            src, knn_direct(src, centers, kk).long()), 2)
+        bounds.append(bound(9.0 * B * M * N, 4.0 * (
+            B * N * 3 + B * M * 3 + B * M * (3 + 9 + kk))))
+        idx_k, mu_k, cov_k = fwd_kernel(src, centers, kk)
+        idx_p = knn_direct(src, centers, kk)
+        mu_p, cov_p = stats_given_idx(src, idx_p.long())
+        e_mu, e_cov = rel(mu_k, mu_p), rel(cov_k, cov_p)
+        log(f"  local_stats M={M} N={N} B={B}: indices equal "
+            f"{bool(torch.equal(idx_k, idx_p))}, mu rel {e_mu:.3e}, cov rel "
+            f"{e_cov:.3e}")
+        require(torch.equal(idx_k, idx_p),
+                f"local stats M={M} N={N}: the selection differs")
+        require(e_mu <= 1e-4 and e_cov <= 1e-4,
+                f"local stats M={M} N={N}: mu {e_mu}, cov {e_cov}")
+        err = max(err, max_abs(mu_k, mu_p), max_abs(cov_k, cov_p))
+        del idx_k, mu_k, cov_k, idx_p, mu_p, cov_p
+    res["local_stats_fwd"] = {
+        "ms": ms, "plain_ms": plain, "bound_ms": sum(b for b, _ in bounds),
+        "bound_by": max(bounds)[1],
+        "library_ms": None, "max_abs_err": err,
+        "shape": f"the 9 calls of a train step summed, B={B}, k={kk}, "
+                 f"(M, N) in {SHAPE_LOSS_CALLS}"}
+    del clouds
+
+    # local stats backward, the largest call of the step: 2048 points, 1024
+    # centers; per (center, slot): G y and alpha, ~24 FLOP
+    M, N = 1024, 2048
     case = local_case(B, M, N, gen, dev)
     src, centers, g_mu, g_cov = case
     idx_k, mu_k, _ = fwd_kernel(src, centers, kk)
-    # distances (3 sub, 3 mul, 2 add) and one compare per (center, point)
-    b, by = bound(9.0 * B * M * N,
-                  4.0 * (B * N * 3 + B * M * 3 + B * M * (3 + 9 + kk)))
-    res["local_stats_fwd"] = {
-        "ms": time_ms(lambda: fwd_kernel(src, centers, kk), 5),
-        "plain_ms": time_ms(lambda: stats_given_idx(
-            src, knn_direct(src, centers, kk).long()), 2),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
-        "shape": f"B={B}, M={M} centers, N={N} points, k={kk}"}
-    # per (center, slot): G y and alpha, ~24 FLOP
     b, by = bound(24.0 * B * M * kk,
                   4.0 * (B * N * 3 + B * M * kk + B * M * 15 + B * N * 3))
     res["local_stats_bwd"] = {
@@ -1107,9 +1208,8 @@ def time_train_kernels(dev, gen) -> dict:
         "plain_ms": time_ms(lambda: bwd_plain(src, idx_k, g_mu, g_cov), 5),
         "bound_ms": b, "bound_by": by, "library_ms": None,
         "shape": f"B={B}, M={M} centers, N={N} points, k={kk}"}
-    e_fwd, e_bwd = compare_local(case, f"M={M} N={N} B={B}")
-    res["local_stats_fwd"]["max_abs_err"] = e_fwd
-    res["local_stats_bwd"]["max_abs_err"] = e_bwd
+    res["local_stats_bwd"]["max_abs_err"] = compare_local(
+        case, f"M={M} N={N} B={B}")[1]
     return res
 
 

@@ -10,313 +10,327 @@
 //   gate, the LeakyReLUs, the slot softmax and the folded batch norms:
 //   d_inte, d_isc, d_ish, d_h = dv w2k^T, d_w2k = h^T dv, d_w2b, d_s2, d_t2.
 //
-// What bounds it on the H100: operations. At stage 4 one cloud costs
-// 2 x 5.4 GFLOP for dg and d_wi, 2 x 0.7 GFLOP for d_h and d_w2k and 0.7 to
-// recompute the gate's conv_all2, against ~60 MB of traffic.
+// What bounds it on the H100: operations. At stage 4, B=35 the two large
+// products (dg and d_wi, 188 GFLOP each) and the three of width 64 (d_h,
+// d_w2k, the recomputed conv_all2: 23.5 each) run on the tensor cores in
+// 3xTF32 (495 / 3 TFLOP/s of fp32-accurate work), against ~3.8 GB that the
+// gate pass moves.
 //
-// The simple design:
-//   1. The gate g is recomputed from inte and h by the forward's own
-//      tensor-core gate (tail_gate.cuh), so it is the forward's g bit for
-//      bit, rather than kept from the forward: at stage 4, B=35 it is
-//      0.73 GB, and the TPU kernel keeps nothing of that size.
-//   2. d_wi = g^T dy is a transposed GEMM reduced over 4096-row splits added
-//      in a fixed order; then dg = dy wi^T overwrites g's buffer.
-//   3. gate_bwd_kernel: a thread owns one (point, conv_all2 channel) as in
-//      the forward, recomputes the k slots' conv_all2 from shared memory,
-//      writes d_inte and dv, and keeps its channel sums in registers; the
-//      sums go per block to scratch and column_reduce adds them in order.
-//   4. d_h and d_w2k are a GEMM and a transposed GEMM over dv.
+// The design, every product on the shared core (tf32x3_gemm.cuh, folded):
+//   1. dg = dy wi^T (it does not need g);
+//   2. the gate pass (gate_bwd_tc_kernel): the forward gate's tile,
+//      fragments, staging and logit code (tail_gate.cuh) with dg staged
+//      beside h and inte in one cp.async group; it recomputes the slot
+//      logits once as 3xTF32 products, writes g (the forward's bit for
+//      bit, for d_wi), then walks back through the gate, the softmax, the
+//      LeakyReLUs and the BN folds thread-locally and writes d_inte and dv
+//      (each LeakyReLU branch by the exact sign of its input, below).
+//      Its channel sums reduce over the warp's rows by shuffles in a fixed
+//      order and go per block to scratch, added in order by column_reduce.
+//      The plain stage takes plain_gate_bwd_kernel, elementwise, likewise
+//      writing g;
+//   3. d_h = dv w2k^T, d_w2k = h^T dv, d_wi = g^T dy; the weight gradients
+//      reduce over 4096-row splits added in a fixed order.
 // Nothing uses float atomics: the gradients are deterministic.
 #include "tail_gate.cuh"
+#include "tf32x3_gemm.cuh"
 
 namespace {
 
-constexpr int kTC = 64;       // conv_all2 output channels per block
-constexpr int kSubP = 4;      // points per shared-memory sub-tile
-constexpr int kBlockP = 32;   // points per block
-constexpr int kMaxK = 16;     // slots a thread keeps in registers
 constexpr int kSums = 7;  // isc j0 | isc j1 | ish j0 | ish j1 | s2 | t2 | w2b
 
+// LeakyReLU's derivative times d, as PyTorch takes it (0.01 at pre == 0)
 __device__ __forceinline__ float leaky_grad(float pre, float d) {
-  return pre >= 0.f ? d : 0.01f * d;
+  return pre > 0.f ? d : 0.01f * d;
 }
 
-// LeakyReLU((h_s @ w2k[:, c] + w2b) * s2 + t2) of slot s: hp the point's
-// staged h row, sw the block's (kHidden, kTC) weight tile
-__device__ __forceinline__ float slot_logit(const float* hp, const float* sw,
-                                            int s, int cl, float bias,
-                                            float sc, float sh) {
-  float a = 0.f;
-#pragma unroll 16
-  for (int hh = 0; hh < kHidden; ++hh)
-    a = fmaf(hp[s * kHidden + hh], sw[hh * kTC + cl], a);
-  return leaky((a + bias) * sc + sh);
+// The gradient jumps at LeakyReLU's kink, so its branch is taken by the
+// exact sign: inte*isc + ish is one fmaf (its sign is exact), and a slot
+// logit's bn_all2 input v*s2 + t2, whose v comes from the tensor cores,
+// is recomputed in double from the staged h row and w2k's column c where
+// it lies within their error bound (kink) of 0. Not inlined: few positions
+// take it.
+__device__ __noinline__ bool exact_pre_positive(const float* hrow,
+                                                const float* __restrict__ w2k,
+                                                int two_fin, int c,
+                                                float bias, float sc,
+                                                float sh) {
+  double a = 0.0;
+  for (int j = 0; j < kHidden; ++j)
+    a = fma((double)hrow[j], (double)w2k[(size_t)j * two_fin + c], a);
+  return (a + bias) * sc + sh > 0.0;
 }
 
-// the softmax's running maximum m and normaliser z over the k slots in one
-// pass: slot s's weight is then expf(u_s - m) / z
-__device__ __forceinline__ void online_softmax(const float* hp,
-                                               const float* sw, int k, int cl,
-                                               float bias, float sc, float sh,
-                                               float& m, float& z) {
-  m = -INFINITY;
-  z = 0.f;
-  for (int s = 0; s < k; ++s) {
-    const float u = slot_logit(hp, sw, s, cl, bias, sc, sh);
-    if (u > m) {
-      z = z * expf(m - u) + 1.f;
-      m = u;
-    } else {
-      z += expf(u - m);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(256)
-gate_bwd_kernel(const float* __restrict__ inte, const float* __restrict__ h,
-                const float* __restrict__ isc, const float* __restrict__ ish,
-                const float* __restrict__ w2k, const float* __restrict__ w2b,
-                const float* __restrict__ s2, const float* __restrict__ t2,
-                const float* __restrict__ dg, int rows, int k, int two_fin,
-                int softmax, float* __restrict__ d_inte,
-                float* __restrict__ dv, float* __restrict__ scratch) {
-  __shared__ float sw[kHidden][kTC];
-  __shared__ float shh[kSubP][kMaxK * kHidden];
-  __shared__ float red[kSubP][kSums][kTC];
-
-  const int tid = threadIdx.x;
-  const int cl = tid % kTC;
-  const int pl = tid / kTC;
-  const int c0 = blockIdx.x * kTC;
+// The gate's backward on the tensor cores. The tile, the warps' channel
+// columns and the fragments are gate_tc_kernel's; h, inte and dg of the
+// tile are staged in one cp.async group (3 x 16 rows of hl floats, one
+// block an SM). Per tile:
+//   the slot logits U_s (slot_conv: 3xTF32 m16n8k8 products), kept as
+//   conv_all2's outputs v in registers (KR = 10 or 16 slots), and the
+//   softmax's m and rz formed as the forward forms them, so that the
+//   weight expf(U_s - m) * rz and the g written are the forward's bits;
+//   walk A, slot by slot: g, d_inte, the BN sums of inte and
+//   dot = sum_s w_s du_s with du_s = dg_s LeakyReLU(inte_s*isc + ish);
+//   walk B: da_s = w_s (du_s - dot) back through the logit's LeakyReLU and
+//   bn_all2 into dv and the sums of d_s2, d_t2, d_w2b; the LeakyReLU
+//   branch by the sign of v*s2 + t2 in double where the tensor cores'
+//   value lies within the kink bound of 0.
+// KR == 0 (k > 16): as gate_tc_kernel<0>, chunks of 16 staged slots,
+// logits recomputed each pass: pass 1 the online m and z (the forward's
+// weights are expf(U_s - m) / z), pass 2 walk A, pass 3 walk B.
+// dv's pad columns [2Fin, ldv) are written as zeros (d_h's depth).
+template <int KR>
+__global__ void __launch_bounds__(32 * kGateWarps, 1)
+gate_bwd_tc_kernel(const float* __restrict__ inte,
+                   const float* __restrict__ h, const float* __restrict__ dg,
+                   const float* __restrict__ isc,
+                   const float* __restrict__ ish,
+                   const float* __restrict__ w2k,
+                   const float* __restrict__ w2b,
+                   const float* __restrict__ s2,
+                   const float* __restrict__ t2,
+                   const float* __restrict__ kink, int rows, int k,
+                   int two_fin, int ldg, int ldv, int softmax,
+                   float* __restrict__ g_out, float* __restrict__ d_inte,
+                   float* __restrict__ dv, float* __restrict__ scratch) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kc = k < kGateChunk ? k : kGateChunk;
+  const int hl = kc * kHidden + 4;
+  const int c0 = blockIdx.x * kGateC;
+  const int cl = warp * 8 + 2 * t;
   const int c = c0 + cl;
-  const int hk = k / 2;
-  const int four_fin = 2 * two_fin;
+  const size_t K = (size_t)k * two_fin;  // inte's row: k/2 * 4Fin
+  GateThread th;
+  th.load(isc, ish, w2k, w2b, s2, t2, c, c0 + warp * 8 + g, t, two_fin);
+  float* sh = smem;
+  float* si = sh + kGateP * hl;
+  float* sd = si + kGateP * hl;
+  const float kq[2] = {th.live[0] ? kink[c] : -1.f,
+                       th.live[1] ? kink[c + 1] : -1.f};
 
-  for (int e = tid; e < kHidden * kTC; e += 256) {
-    int hh = e / kTC, cc = e % kTC;
-    sw[hh][cc] = (c0 + cc < two_fin) ? w2k[(size_t)hh * two_fin + c0 + cc] : 0.f;
-  }
-  const bool live_c = c < two_fin;
-  const float bias = live_c ? w2b[c] : 0.f;
-  const float sc = live_c ? s2[c] : 0.f;
-  const float sh = live_c ? t2[c] : 0.f;
-  const float isc0 = live_c ? isc[c] : 0.f, isc1 = live_c ? isc[two_fin + c] : 0.f;
-  const float ish0 = live_c ? ish[c] : 0.f, ish1 = live_c ? ish[two_fin + c] : 0.f;
+  // sums[m][q]: the thread's share of the seven channel sums of c + q
+  float sums[kSums][2];
+#pragma unroll
+  for (int m = 0; m < kSums; ++m) sums[m][0] = sums[m][1] = 0.f;
+  // the softmax at the thread's four positions: maximum m and, k <= 16,
+  // the reciprocal normaliser, else the normaliser
+  float m[4], nz[4], dot[4];
+  auto weight = [&](float u, int q) {
+    if (!softmax) return u;
+    return KR > 0 ? expf(u - m[q]) * nz[q] : expf(u - m[q]) / nz[q];
+  };
 
-  float sums[kSums];
+  // walk A of slot s (staged at sl) given its conv_all2 outputs v
+  auto walk_a = [&](int p0, int s, int sl, const float v[4]) {
 #pragma unroll
-  for (int m = 0; m < kSums; ++m) sums[m] = 0.f;
-
-  const int p_begin = blockIdx.y * kBlockP;
-  const int p_end = min(rows, p_begin + kBlockP);
-  const int width = k * kHidden;
-  for (int p0 = p_begin; p0 < p_end; p0 += kSubP) {
-    __syncthreads();
-    for (int e = tid; e < kSubP * width; e += 256) {
-      int pp = e / width, rem = e % width;
-      shh[pp][rem] = (p0 + pp < p_end) ? h[(size_t)(p0 + pp) * width + rem] : 0.f;
-    }
-    __syncthreads();
-    const int p = p0 + pl;
-    if (p >= p_end || !live_c) continue;
-
-    float v[kMaxK], upre[kMaxK], u[kMaxK], du[kMaxK];
+    for (int half = 0; half < 2; ++half) {
+      const int r = g + 8 * half;
+      const bool row = p0 + r < rows;
+      const size_t o = (size_t)(p0 + r) * K + (size_t)s * two_fin + c;
+      const size_t og = (size_t)(p0 + r) * ldg + (size_t)s * two_fin + c;
 #pragma unroll
-    for (int s = 0; s < kMaxK; ++s) {
-      if (s < k) {
-        float a = 0.f;
-#pragma unroll 16
-        for (int hh = 0; hh < kHidden; ++hh)
-          a = fmaf(shh[pl][s * kHidden + hh], sw[hh][cl], a);
-        v[s] = a + bias;
-        upre[s] = v[s] * sc + sh;
-        u[s] = leaky(upre[s]);
-      }
-    }
-    if (softmax) {
-      float m = u[0];
-#pragma unroll
-      for (int s = 1; s < kMaxK; ++s)
-        if (s < k) m = fmaxf(m, u[s]);
-      float z = 0.f;
-#pragma unroll
-      for (int s = 0; s < kMaxK; ++s)
-        if (s < k) {
-          u[s] = expf(u[s] - m);
-          z += u[s];
+      for (int qq = 0; qq < 2; ++qq) {
+        const int q = 2 * half + qq;
+        const float w = weight(slot_logit(v[q], th.sc[qq], th.shf[qq]), q);
+        const float x = si[r * hl + sl * kHidden + cl + qq];
+        const float dgv = sd[r * hl + sl * kHidden + cl + qq];
+        const float a = th.isc(s, qq);
+        const float gpre = gate_pre(x, a, th.ish(s, qq));
+        const float lg = leaky(gpre);
+        const float dgpre = leaky_grad(gpre, dgv * w);
+        if (s & 1) {
+          sums[1][qq] += dgpre * x;
+          sums[3][qq] += dgpre;
+        } else {
+          sums[0][qq] += dgpre * x;
+          sums[2][qq] += dgpre;
         }
-#pragma unroll
-      for (int s = 0; s < kMaxK; ++s)
-        if (s < k) u[s] = u[s] / z;
-    }
-    const size_t base = (size_t)p * hk * four_fin;
-#pragma unroll
-    for (int s = 0; s < kMaxK; ++s) {
-      if (s < k) {
-        const int j = s % 2;
-        const size_t o = base + (size_t)(s / 2) * four_fin + j * two_fin + c;
-        const float in = inte[o];
-        const float gpre = in * (j ? isc1 : isc0) + (j ? ish1 : ish0);
-        const float dgv = dg[o];
-        const float dgpre = leaky_grad(gpre, dgv * u[s]);
-        d_inte[o] = dgpre * (j ? isc1 : isc0);
-        sums[j] += dgpre * in;
-        sums[2 + j] += dgpre;
-        du[s] = dgv * leaky(gpre);
+        dot[q] += w * (dgv * lg);
+        if (row && th.live[qq]) {
+          g_out[og + qq] = lg * w;
+          d_inte[o + qq] = dgpre * a;
+        }
       }
     }
-    float dot = 0.f;
-    if (softmax) {
+  };
+
+  // walk B of slot s (staged at sl)
+  auto walk_b = [&](int p0, int s, int sl, const float v[4]) {
 #pragma unroll
-      for (int s = 0; s < kMaxK; ++s)
-        if (s < k) dot += u[s] * du[s];
+    for (int half = 0; half < 2; ++half) {
+      const int r = g + 8 * half;
+      float out[2];
+#pragma unroll
+      for (int qq = 0; qq < 2; ++qq) {
+        const int q = 2 * half + qq;
+        const float upre = slot_pre(v[q], th.sc[qq], th.shf[qq]);
+        const float w = weight(leaky(upre), q);
+        const float x = si[r * hl + sl * kHidden + cl + qq];
+        const float dgv = sd[r * hl + sl * kHidden + cl + qq];
+        const float gpre = gate_pre(x, th.isc(s, qq), th.ish(s, qq));
+        const float du = dgv * leaky(gpre);
+        const float da = softmax ? w * (du - dot[q]) : du;
+        bool up = upre > 0.f;
+        if (fabsf(upre) <= kq[qq])
+          up = exact_pre_positive(sh + r * hl + sl * kHidden, w2k, two_fin,
+                                  c + qq, th.bias[qq], th.sc[qq],
+                                  th.shf[qq]);
+        const float dpre = up ? da : 0.01f * da;
+        sums[4][qq] += dpre * v[q];
+        sums[5][qq] += dpre;
+        out[qq] = dpre * th.sc[qq];
+        sums[6][qq] += out[qq];
+      }
+      if (p0 + r < rows && c < ldv) {
+        // c even, ldv a multiple of 4: the pair fits, 8-byte aligned
+        *reinterpret_cast<float2*>(dv + ((size_t)(p0 + r) * k + s) * ldv +
+                                   c) =
+            make_float2(th.live[0] ? out[0] : 0.f, th.live[1] ? out[1] : 0.f);
+      }
     }
+  };
+
+  const int tiles = (rows + kGateP - 1) / kGateP;
+  for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const int p0 = tile * kGateP;
 #pragma unroll
-    for (int s = 0; s < kMaxK; ++s) {
-      if (s < k) {
-        const float da = softmax ? u[s] * (du[s] - dot) : du[s];
-        const float dpre = leaky_grad(upre[s], da);
-        sums[4] += dpre * v[s];
-        sums[5] += dpre;
-        const float dvs = dpre * sc;
-        sums[6] += dvs;
-        dv[((size_t)p * k + s) * two_fin + c] = dvs;
+    for (int q = 0; q < 4; ++q) dot[q] = 0.f;
+    if constexpr (KR > 0) {
+      __syncthreads();  // the previous tile's rows are read
+      stage_tile(sh, si, sd, hl, h, inte, dg, ldg, rows, k, two_fin, c0, p0,
+                 0, k);
+      cp_async_wait<0>();
+      __syncthreads();
+      float v[KR][4];
+#pragma unroll
+      for (int s = 0; s < KR; ++s)
+        if (s < k)
+          slot_conv(sh + s * kHidden, hl, g, t, th.bhi, th.blo, th.bias,
+                    v[s]);
+      if (softmax) {
+        // gate_tc_kernel's order: the maximum, z summed over ascending
+        // slots, one reciprocal
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float sc = th.sc[q & 1], sf = th.shf[q & 1];
+          float mx = slot_logit(v[0][q], sc, sf);
+#pragma unroll
+          for (int s = 1; s < KR; ++s)
+            if (s < k) mx = fmaxf(mx, slot_logit(v[s][q], sc, sf));
+          float z = 0.f;
+#pragma unroll
+          for (int s = 0; s < KR; ++s)
+            if (s < k) z += expf(slot_logit(v[s][q], sc, sf) - mx);
+          m[q] = mx;
+          nz[q] = 1.f / z;
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < KR; ++s)
+        if (s < k) walk_a(p0, s, s, v[s]);
+#pragma unroll
+      for (int s = 0; s < KR; ++s)
+        if (s < k) walk_b(p0, s, s, v[s]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        m[q] = -INFINITY;
+        nz[q] = 0.f;
+      }
+      for (int s0 = 0; s0 < k && softmax; s0 += kGateChunk) {
+        const int ns = k - s0 < kGateChunk ? k - s0 : kGateChunk;
+        __syncthreads();
+        stage_tile(sh, nullptr, nullptr, hl, h, inte, dg, ldg, rows, k,
+                   two_fin, c0, p0, s0, ns);
+        cp_async_wait<0>();
+        __syncthreads();
+        for (int s = 0; s < ns; ++s) {
+          float u[4];
+          th.logits(sh + s * kHidden, hl, g, t, u);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) online_softmax(m[q], nz[q], u[q]);
+        }
+      }
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int s0 = 0; s0 < k; s0 += kGateChunk) {
+          const int ns = k - s0 < kGateChunk ? k - s0 : kGateChunk;
+          __syncthreads();
+          stage_tile(sh, si, sd, hl, h, inte, dg, ldg, rows, k, two_fin, c0,
+                     p0, s0, ns);
+          cp_async_wait<0>();
+          __syncthreads();
+          for (int s = 0; s < ns; ++s) {
+            float v[4];
+            slot_conv(sh + s * kHidden, hl, g, t, th.bhi, th.blo, th.bias,
+                      v);
+            if (pass == 0)
+              walk_a(p0, s0 + s, s, v);
+            else
+              walk_b(p0, s0 + s, s, v);
+          }
+        }
       }
     }
   }
+
+  // the block's sums: over the warp's eight rows g (a fixed butterfly),
+  // then one row of scratch per blockIdx.y
 #pragma unroll
-  for (int m = 0; m < kSums; ++m) red[pl][m][cl] = sums[m];
-  __syncthreads();
-  if (pl == 0 && live_c) {
-    float* o = scratch + (size_t)blockIdx.y * kSums * two_fin;
+  for (int mm = 0; mm < kSums; ++mm)
 #pragma unroll
-    for (int m = 0; m < kSums; ++m) {
-      float s = 0.f;
-      for (int q = 0; q < kSubP; ++q) s += red[q][m][cl];
-      o[(size_t)m * two_fin + c] = s;
+    for (int qq = 0; qq < 2; ++qq) {
+      float v = sums[mm][qq];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0 && th.live[qq])
+        scratch[((size_t)blockIdx.y * kSums + mm) * two_fin + c + qq] = v;
     }
-  }
 }
 
-// k > kMaxK: as gate_bwd_kernel, with h staged in dynamic shared memory
-// (kSubP * k * kHidden floats) and no per-slot arrays: pass 1 takes the
-// softmax's m and z online, pass 2 writes d_inte and sums u . du, pass 3
-// recomputes u and du and writes dv (slot_logit each time)
-__global__ void __launch_bounds__(256)
-gate_bwd_wide_kernel(const float* __restrict__ inte,
-                     const float* __restrict__ h,
-                     const float* __restrict__ isc,
-                     const float* __restrict__ ish,
-                     const float* __restrict__ w2k,
-                     const float* __restrict__ w2b,
-                     const float* __restrict__ s2,
-                     const float* __restrict__ t2,
-                     const float* __restrict__ dg, int rows, int k,
-                     int two_fin, int softmax, float* __restrict__ d_inte,
-                     float* __restrict__ dv, float* __restrict__ scratch) {
-  __shared__ float sw[kHidden * kTC];
-  __shared__ float red[kSubP][kSums][kTC];
-  extern __shared__ float shw[];
+// the gate backward's grid rows: tiles of 16 points, at most 65535
+inline int gate_bwd_blocks(int rows) {
+  const int tiles = (rows + kGateP - 1) / kGateP;
+  return tiles < 65535 ? tiles : 65535;
+}
 
-  const int tid = threadIdx.x;
-  const int cl = tid % kTC;
-  const int pl = tid / kTC;
-  const int c0 = blockIdx.x * kTC;
-  const int c = c0 + cl;
-  const int hk = k / 2;
-  const int four_fin = 2 * two_fin;
-
-  for (int e = tid; e < kHidden * kTC; e += 256) {
-    int hh = e / kTC, cc = e % kTC;
-    sw[e] = (c0 + cc < two_fin) ? w2k[(size_t)hh * two_fin + c0 + cc] : 0.f;
-  }
-  const bool live_c = c < two_fin;
-  const float bias = live_c ? w2b[c] : 0.f;
-  const float sc = live_c ? s2[c] : 0.f;
-  const float sh = live_c ? t2[c] : 0.f;
-  const float isc0 = live_c ? isc[c] : 0.f, isc1 = live_c ? isc[two_fin + c] : 0.f;
-  const float ish0 = live_c ? ish[c] : 0.f, ish1 = live_c ? ish[two_fin + c] : 0.f;
-
-  float sums[kSums];
-#pragma unroll
-  for (int m = 0; m < kSums; ++m) sums[m] = 0.f;
-
-  const int p_begin = blockIdx.y * kBlockP;
-  const int p_end = min(rows, p_begin + kBlockP);
-  const int width = k * kHidden;
-  for (int p0 = p_begin; p0 < p_end; p0 += kSubP) {
-    __syncthreads();
-    for (int e = tid; e < kSubP * width; e += 256) {
-      int pp = e / width, rem = e % width;
-      shw[e] = (p0 + pp < p_end) ? h[(size_t)(p0 + pp) * width + rem] : 0.f;
-    }
-    __syncthreads();
-    const int p = p0 + pl;
-    if (p >= p_end || !live_c) continue;
-    const float* hp = shw + pl * width;
-    float m = 0.f, z = 1.f;
-    if (softmax) online_softmax(hp, sw, k, cl, bias, sc, sh, m, z);
-    const size_t base = (size_t)p * hk * four_fin;
-    float dot = 0.f;
-    for (int s = 0; s < k; ++s) {
-      const float lu = slot_logit(hp, sw, s, cl, bias, sc, sh);
-      const float u = softmax ? expf(lu - m) / z : lu;
-      const int j = s % 2;
-      const size_t o = base + (size_t)(s / 2) * four_fin + j * two_fin + c;
-      const float in = inte[o];
-      const float gpre = in * (j ? isc1 : isc0) + (j ? ish1 : ish0);
-      const float dgv = dg[o];
-      const float dgpre = leaky_grad(gpre, dgv * u);
-      d_inte[o] = dgpre * (j ? isc1 : isc0);
-      sums[j] += dgpre * in;
-      sums[2 + j] += dgpre;
-      if (softmax) dot += u * (dgv * leaky(gpre));
-    }
-    for (int s = 0; s < k; ++s) {
-      float a = 0.f;
-#pragma unroll 16
-      for (int hh = 0; hh < kHidden; ++hh)
-        a = fmaf(hp[s * kHidden + hh], sw[hh * kTC + cl], a);
-      const float v = a + bias;
-      const float upre = v * sc + sh;
-      const float lu = leaky(upre);
-      const int j = s % 2;
-      const size_t o = base + (size_t)(s / 2) * four_fin + j * two_fin + c;
-      const float gpre = inte[o] * (j ? isc1 : isc0) + (j ? ish1 : ish0);
-      const float du = dg[o] * leaky(gpre);
-      const float da =
-          softmax ? (expf(lu - m) / z) * (du - dot) : du;
-      const float dpre = leaky_grad(upre, da);
-      sums[4] += dpre * v;
-      sums[5] += dpre;
-      const float dvs = dpre * sc;
-      sums[6] += dvs;
-      dv[((size_t)p * k + s) * two_fin + c] = dvs;
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < kSums; ++m) red[pl][m][cl] = sums[m];
-  __syncthreads();
-  if (pl == 0 && live_c) {
-    float* o = scratch + (size_t)blockIdx.y * kSums * two_fin;
-#pragma unroll
-    for (int m = 0; m < kSums; ++m) {
-      float s = 0.f;
-      for (int q = 0; q < kSubP; ++q) s += red[q][m][cl];
-      o[(size_t)m * two_fin + c] = s;
-    }
-  }
+template <int KR>
+cudaError_t launch_gate_bwd_tc(int k, const float* inte, const float* h,
+                               const float* dg, const float* isc,
+                               const float* ish, const float* w2k,
+                               const float* w2b, const float* s2,
+                               const float* t2, const float* kink, int rows,
+                               int two_fin,
+                               int ldg, int ldv, int softmax, float* g,
+                               float* d_inte, float* dv, float* scratch,
+                               cudaStream_t stream) {
+  const int kc = k < kGateChunk ? k : kGateChunk;
+  const int smem = 3 * kGateP * (kc * kHidden + 4) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gate_bwd_tc_kernel<KR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((two_fin + kGateC - 1) / kGateC, gate_bwd_blocks(rows));
+  gate_bwd_tc_kernel<KR><<<grid, 32 * kGateWarps, smem, stream>>>(
+      inte, h, dg, isc, ish, w2k, w2b, s2, t2, kink, rows, k, two_fin, ldg,
+      ldv, softmax, g, d_inte, dv, scratch);
+  return cudaGetLastError();
 }
 
 constexpr int kPlainRows = 64;  // rows (point, window) per plain-stage block
 
-// plain stage: d_inte = LeakyReLU'(inte*isc + ish) * dg * isc, one thread per
-// (row chunk, channel), the chunk's sums of d_isc and d_ish to scratch
+// plain stage: g = LeakyReLU(inte*isc + ish) (the forward's) and d_inte =
+// LeakyReLU'(inte*isc + ish) * dg * isc, one thread per (row chunk,
+// channel), the chunk's sums of d_isc and d_ish to scratch. Row r is
+// (point r / hk, window r % hk); g and dg have ldg columns.
 __global__ void plain_gate_bwd_kernel(const float* __restrict__ inte,
                                       const float* __restrict__ isc,
                                       const float* __restrict__ ish,
                                       const float* __restrict__ dg,
-                                      long long rows, int four_fin,
+                                      long long rows, int hk, int four_fin,
+                                      int ldg, float* __restrict__ g,
                                       float* __restrict__ d_inte,
                                       float* __restrict__ scratch) {
   const int ch = blockIdx.x * blockDim.x + threadIdx.x;
@@ -328,8 +342,12 @@ __global__ void plain_gate_bwd_kernel(const float* __restrict__ inte,
   float s_isc = 0.f, s_ish = 0.f;
   for (long long r = r0; r < r1; ++r) {
     const size_t o = (size_t)r * four_fin + ch;
+    const long long p = r / hk;
+    const size_t og = (size_t)p * ldg + (size_t)(r - p * hk) * four_fin + ch;
     const float in = inte[o];
-    const float dgpre = leaky_grad(in * a + b, dg[o]);
+    const float gpre = gate_pre(in, a, b);
+    const float dgpre = leaky_grad(gpre, dg[og]);
+    g[og] = leaky(gpre);
     d_inte[o] = dgpre * a;
     s_isc += dgpre * in;
     s_ish += dgpre;
@@ -343,84 +361,90 @@ __global__ void plain_gate_bwd_kernel(const float* __restrict__ inte,
 
 extern "C" {
 
-// Forward operands: inte (rows, k/2*4Fin) and h (rows, k*64), 16-byte
-// aligned, or h null (plain stage: w2k..t2, w2k_t, d_h, d_w2k, dv
-// ignored), isc/ish (4Fin), w2k (64, 2Fin), w2k_t (2Fin, 64), w2b/s2/t2
-// (2Fin), wi_t (2F, k/2*4Fin); dy (rows, 2F).
-// Outputs: d_inte like inte, d_h like h, d_w2k (64, 2Fin), d_wi
-// (k/2*4Fin, 2F), d_bias (2F), sums: gated (7, 2Fin) = [d_isc (4Fin) | d_ish
-// (4Fin) | d_s2 | d_t2 | d_w2b], plain (2, 4Fin) = [d_isc | d_ish].
-// Scratch: g (like inte), dv (rows*k, 2Fin), tn_scratch (the larger split
-// partials of d_wi and d_w2k), sum_scratch (the larger per-block sums),
-// colsum (ceil(rows/256), 2F).
+// Forward operands: inte (rows, K) with K = k/2*4Fin = k*2Fin, and h
+// (rows, k*64), 16-byte aligned, or h null (plain stage: w2k..t2, w2k_t,
+// d_h, d_w2k, dv ignored); isc/ish (4Fin), w2k (64, 2Fin), w2k_t (ldv, 64)
+// with zero rows past 2Fin, w2b/s2/t2 (2Fin), kink (2Fin: the bound on
+// the tensor cores' error in v*s2 + t2 within which of 0 the slot logit's
+// LeakyReLU branch is taken in double), wi_t (t4, ldg) = wi^T
+// zero-padded; dy (rows, t4) zero-padded. ldg >= K, t4 >= 2F and ldv >=
+// 2Fin multiples of 4.
+// Outputs: d_inte like inte, d_h like h, d_w2k (64, 2Fin), d_wi (ldg, 2F)
+// (rows past K are the pad's), d_bias (2F), sums: gated (7, 2Fin) = [d_isc
+// (4Fin) | d_ish (4Fin) | d_s2 | d_t2 | d_w2b], plain (2, 4Fin) = [d_isc |
+// d_ish]. Scratch: g and dg (rows, ldg), dv (rows*k, ldv), tn_scratch (the
+// larger split partials of d_wi and d_w2k), sum_scratch (gated:
+// min(ceil(rows/16), 65535) rows of 7*2Fin; plain: ceil(rows*k/2/64) rows
+// of 2*4Fin), colsum (ceil(rows/256), 2F).
 int pdgn_bilateral_tail_bwd(
     const float* inte, const float* h, const float* isc, const float* ish,
     const float* w2k, const float* w2k_t, const float* w2b, const float* s2,
-    const float* t2, const float* wi_t, const float* dy, int rows, int k,
-    int two_fin, int two_f, int softmax, float* d_inte, float* d_h,
-    float* d_w2k, float* d_wi, float* d_bias, float* sums, float* g,
-    float* dv, float* tn_scratch, float* sum_scratch, float* colsum,
-    cudaStream_t stream) {
+    const float* t2, const float* kink, const float* wi_t, const float* dy,
+    int rows, int k, int two_fin, int two_f, int ldg, int t4, int ldv,
+    int softmax,
+    float* d_inte, float* d_h, float* d_w2k, float* d_wi, float* d_bias,
+    float* sums, float* g, float* dg, float* dv, float* tn_scratch,
+    float* sum_scratch, float* colsum, cudaStream_t stream) {
   const int hk = k / 2;
   const int four_fin = 2 * two_fin;
-  const int K = hk * four_fin;
+  const int K = k * two_fin;
+  if (k < 2 || k % 2 || ldg < K || ldg % 4 || t4 < two_f || t4 % 4 ||
+      (h != nullptr && (ldv < two_fin || ldv % 4 || k > kGateMaxK)))
+    return (int)cudaErrorInvalidValue;
 
-  // 1.-2. recompute g, d_wi = g^T dy, then dg = dy wi^T into g's buffer
-  cudaError_t err = launch_gate(inte, h, isc, ish, w2k, w2b, s2, t2, rows, k,
-                                four_fin, K, softmax, g, stream);
+  // 1. dg = dy wi^T, and d_bias
+  cudaError_t err = tc_gemm<false, kGFold>(RowsA{dy, t4}, wi_t, ldg, rows, K,
+                                           t4, t4, StorePairs{dg, ldg},
+                                           stream);
   if (err != cudaSuccess) return (int)err;
-  gemm_tn(PlainA{g, K}, PlainA{dy, two_f}, (long long)rows, K, two_f,
-          tn_scratch, d_wi, stream);
-  PDGN_CHECK_LAUNCH();
-  float* dg = g;
-  gemm(PlainA{dy, two_f}, wi_t, rows, two_f, K,
-       Epilogue{dg, nullptr, nullptr, K}, stream);
-  PDGN_CHECK_LAUNCH();
   const int nchunk = (rows + 255) / 256;
-  chunk_colsum(PlainA{dy, two_f}, (long long)rows, two_f, 256, colsum, stream);
+  chunk_colsum(PlainA{dy, t4}, (long long)rows, two_f, 256, colsum, stream);
   column_reduce(colsum, nchunk, two_f, d_bias, stream);
   PDGN_CHECK_LAUNCH();
 
-  // 3.-4. through the gate
+  // 2. the gate pass: g, d_inte, dv and the sums
   if (h != nullptr) {
-    const int nblk = (rows + kBlockP - 1) / kBlockP;
-    dim3 grid((two_fin + kTC - 1) / kTC, nblk);
-    if (k <= kMaxK) {
-      gate_bwd_kernel<<<grid, 256, 0, stream>>>(
-          inte, h, isc, ish, w2k, w2b, s2, t2, dg, rows, k, two_fin, softmax,
-          d_inte, dv, sum_scratch);
-    } else {
-      const int smem = kSubP * k * kHidden * (int)sizeof(float);
-      err = cudaFuncSetAttribute(gate_bwd_wide_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-      if (err != cudaSuccess) return (int)err;
-      gate_bwd_wide_kernel<<<grid, 256, smem, stream>>>(
-          inte, h, isc, ish, w2k, w2b, s2, t2, dg, rows, k, two_fin, softmax,
-          d_inte, dv, sum_scratch);
-    }
+    if (k <= 10)
+      err = launch_gate_bwd_tc<10>(k, inte, h, dg, isc, ish, w2k, w2b, s2,
+                                   t2, kink, rows, two_fin, ldg, ldv,
+                                   softmax, g, d_inte, dv, sum_scratch,
+                                   stream);
+    else if (k <= kGateChunk)
+      err = launch_gate_bwd_tc<kGateChunk>(k, inte, h, dg, isc, ish, w2k,
+                                           w2b, s2, t2, kink, rows, two_fin,
+                                           ldg, ldv, softmax, g, d_inte, dv,
+                                           sum_scratch, stream);
+    else
+      err = launch_gate_bwd_tc<0>(k, inte, h, dg, isc, ish, w2k, w2b, s2, t2,
+                                  kink, rows, two_fin, ldg, ldv, softmax, g,
+                                  d_inte, dv, sum_scratch, stream);
+    if (err != cudaSuccess) return (int)err;
+    column_reduce(sum_scratch, gate_bwd_blocks(rows), kSums * two_fin, sums,
+                  stream);
     PDGN_CHECK_LAUNCH();
-    column_reduce(sum_scratch, nblk, kSums * two_fin, sums, stream);
-    PDGN_CHECK_LAUNCH();
+    // 3. conv_all2's backward
     const int hrows = rows * k;
-    gemm(PlainA{dv, two_fin}, w2k_t, hrows, two_fin, kHidden,
-         Epilogue{d_h, nullptr, nullptr, kHidden}, stream);
-    PDGN_CHECK_LAUNCH();
-    gemm_tn(PlainA{h, kHidden}, PlainA{dv, two_fin}, (long long)hrows,
-            kHidden, two_fin, tn_scratch, d_w2k, stream);
-    PDGN_CHECK_LAUNCH();
+    err = tc_gemm<false, kGFold>(RowsA{dv, ldv}, w2k_t, kHidden, hrows,
+                                 kHidden, ldv, ldv,
+                                 StorePairs{d_h, kHidden}, stream);
+    if (err != cudaSuccess) return (int)err;
+    err = tc_gemm_tn(RowsA{h, kHidden}, dv, ldv, hrows, kHidden, two_fin,
+                     tn_scratch, d_w2k, stream);
+    if (err != cudaSuccess) return (int)err;
   } else {
     const long long prow = (long long)rows * hk;
     const int nblk = (int)((prow + kPlainRows - 1) / kPlainRows);
     dim3 grid((four_fin + 127) / 128, nblk);
-    plain_gate_bwd_kernel<<<grid, 128, 0, stream>>>(inte, isc, ish, dg, prow,
-                                                    four_fin, d_inte,
-                                                    sum_scratch);
+    plain_gate_bwd_kernel<<<grid, 128, 0, stream>>>(
+        inte, isc, ish, dg, prow, hk, four_fin, ldg, g, d_inte, sum_scratch);
     PDGN_CHECK_LAUNCH();
     column_reduce(sum_scratch, nblk, 2 * four_fin, sums, stream);
     PDGN_CHECK_LAUNCH();
   }
-  return (int)cudaSuccess;
+
+  // 3. d_wi = g^T dy
+  return (int)tc_gemm_tn(RowsA{g, ldg}, dy, t4, rows, ldg, two_f, tn_scratch,
+                         d_wi, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Shared device code of the port's kernels: the LeakyReLU of the generator,
-// a deterministic cross-block column reduction and a simple tiled fp32 GEMM
-// whose A operand comes through a loader (plain rows or computed ones).
+// a deterministic cross-block column reduction, per-chunk column sums, and
+// the reverse adjacency (CSR) of a neighbour table. The fp32 products run on
+// the tensor cores through tf32x3_gemm.cuh.
 //
 // Everything sits in an anonymous namespace: each .cu file compiles its own
 // copy, so the objects link into one library without clashing symbols.
@@ -35,191 +36,14 @@ inline void column_reduce(const float* in, int nblk, int ncol, float* out,
       in, nblk, ncol, out);
 }
 
-// ------------------------------------------------------------------ GEMM
-// C[M, Nout] = A[M, K] @ W[K, Nout], 64x64 output tile per block, depth 16
-// per step, 256 threads each holding a 4x4 strided micro-tile in registers.
-// fp32 FMA throughout (no tensor cores): the port's first kernels are
-// plain and exact; a later PR moves them to wgmma.
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 16;
-constexpr int kThreads = 256;
-
+// A (M, K) row-major, read one element at a time
 struct PlainA {
-  const float* a;  // (M, K) row-major
+  const float* a;
   int K;
-  __device__ __forceinline__ float load(int row, int kk) const {
+  __device__ __forceinline__ float load(long long row, int kk) const {
     return a[(size_t)row * K + kk];
   }
 };
-
-// out = (addend + acc) + bias[col]; bias and addend may be null.
-struct Epilogue {
-  float* out;
-  const float* bias;
-  const float* addend;  // nullable (M, Nout)
-  int Nout;
-  __device__ __forceinline__ void operator()(int row, int col,
-                                             float acc) const {
-    size_t o = (size_t)row * Nout + col;
-    float v = addend ? addend[o] + acc : acc;
-    if (bias) v += bias[col];
-    out[o] = v;
-  }
-};
-
-template <class ALoad>
-__global__ void __launch_bounds__(kThreads)
-gemm_kernel(ALoad A, const float* __restrict__ W, int M, int K, int Nout,
-            Epilogue epi) {
-  __shared__ float As[kBK][kBM + 4];
-  __shared__ float Bs[kBK][kBN + 4];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      int e = tid + q * kThreads;
-      int r = e / kBK, kk = e % kBK;
-      int gr = row0 + r, gk = k0 + kk;
-      As[kk][r] = (gr < M && gk < K) ? A.load(gr, gk) : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      int e = tid + q * kThreads;
-      int kk = e / kBN, c = e % kBN;
-      int gk = k0 + kk, gc = col0 + c;
-      Bs[kk][c] = (gk < K && gc < Nout) ? W[(size_t)gk * Nout + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int gr = row0 + ty + 16 * i;
-    if (gr >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int gc = col0 + tx + 16 * j;
-      if (gc < Nout) epi(gr, gc, acc[i][j]);
-    }
-  }
-}
-
-template <class ALoad>
-inline void gemm(ALoad A, const float* W, int M, int K, int Nout, Epilogue epi,
-                 cudaStream_t stream) {
-  dim3 grid((Nout + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_kernel<ALoad><<<grid, kThreads, 0, stream>>>(A, W, M, K, Nout, epi);
-}
-
-// ------------------------------------------------------ transposed GEMM
-// out[Kd, Nout] = sum over r < R of A(r, i) * B(r, o): the weight gradient
-// of a product whose rows are the reduction. The R rows are cut into
-// splits of kSplitRows; each block owns one 64x64 output tile of one split
-// and writes its partial to scratch (splits, Kd, Nout); column_reduce then
-// adds the splits in a fixed order, so the result is deterministic.
-constexpr int kSplitRows = 4096;
-
-inline int tn_splits(long long R) {
-  return (int)((R + kSplitRows - 1) / kSplitRows);
-}
-
-template <class ALoad, class BLoad>
-__global__ void __launch_bounds__(kThreads)
-gemm_tn_kernel(ALoad A, BLoad Bm, long long R, int Kd, int Nout,
-               float* __restrict__ scratch) {
-  __shared__ float As[kBK][kBM + 4];
-  __shared__ float Bs[kBK][kBN + 4];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int i0 = blockIdx.y * kBM;
-  const int o0 = blockIdx.x * kBN;
-  const long long r_begin = (long long)blockIdx.z * kSplitRows;
-  long long r_end = r_begin + kSplitRows;
-  if (r_end > R) r_end = R;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (long long r0 = r_begin; r0 < r_end; r0 += kBK) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      int e = tid + q * kThreads;
-      int rr = e / kBM, ii = e % kBM;
-      long long gr = r0 + rr;
-      int gi = i0 + ii;
-      As[rr][ii] = (gr < r_end && gi < Kd) ? A.load(gr, gi) : 0.f;
-      int gc = o0 + ii;
-      Bs[rr][ii] = (gr < r_end && gc < Nout) ? Bm.load(gr, gc) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kBK; ++rr) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[rr][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[rr][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* o = scratch + (size_t)blockIdx.z * Kd * Nout;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int gi = i0 + ty + 16 * i;
-    if (gi >= Kd) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int gc = o0 + tx + 16 * j;
-      if (gc < Nout) o[(size_t)gi * Nout + gc] = acc[i][j];
-    }
-  }
-}
-
-// scratch holds tn_splits(R) * Kd * Nout floats
-template <class ALoad, class BLoad>
-inline void gemm_tn(ALoad A, BLoad Bm, long long R, int Kd, int Nout,
-                    float* scratch, float* out, cudaStream_t stream) {
-  int splits = tn_splits(R);
-  dim3 grid((Nout + kBN - 1) / kBN, (Kd + kBM - 1) / kBM, splits);
-  gemm_tn_kernel<ALoad, BLoad><<<grid, kThreads, 0, stream>>>(
-      A, Bm, R, Kd, Nout, scratch);
-  column_reduce(scratch, splits, Kd * Nout, out, stream);
-}
 
 // ------------------------------------------------------- column sums
 // out[c, col] = sum over the rows [c*chunk, (c+1)*chunk) of A(row, col), one

@@ -17,26 +17,22 @@
 // 35*1024*2048*8 = 0.59 GFLOP (9 us at 67 TFLOP/s) against 0.4 MB of points
 // and 1.8 MB of outputs; the selection's compares add about as much again.
 //
-// The simple design:
-//   forward: one thread per center; the block stages its sample's points in
-//     shared memory (12 bytes a point: 24 KB at N=2048) and each thread keeps
-//     its best k in registers by insertion (a strict < keeps the earlier,
-//     lower index first among equal distances). The distance is rounded
+// The design:
+//   forward: knn_select (knn.cu, the knn_topk kernel's selection: a warp a
+//     center, the sorted list spread over the lanes, a ballot filter and
+//     shuffle insertions, the points split between a block's warps when
+//     the batch is too small to fill the card) picks the k points by the
+//     fp32 direct difference ((dx*dx + dy*dy) + dz*dz), each step rounded
 //     exactly as the plain version rounds it (no FMA contraction), so both
-//     pick the same points. The moments are summed around the center (the
-//     shifted form of local_stats.py:18-20: no cancellation), and the k
-//     indices are saved for the backward (k ints per center).
+//     pick the same points, ties to the lower index. Then
+//     local_moments_kernel, one thread a center, sums the moments around
+//     the center (the shifted form of local_stats.py:18-20: no
+//     cancellation) in slot order. The k indices are saved for the
+//     backward (k ints per center).
 //   backward: the scatter is a gather over the reverse adjacency of the saved
 //     indices (common.cuh: counting sort, lists in ascending order), so each
 //     point adds its centers' terms in a fixed order: deterministic, no float
 //     atomics. One thread per source point.
-// The forward above is unrolled for k in {8, 16, 20, 32} with src in one
-// block's shared memory (N <= 19,000). Any other k <= 128, or a larger N,
-// takes knn_select (knn.cu, the knn_topk kernel's selection, whose direct
-// distance is this one's, rounded alike, and whose ties go the same way)
-// with the source points streamed through shared memory in tiles, then
-// local_moments_kernel: the same moments in the same order, one thread a
-// center.
 #include "common.cuh"
 #include "knn.cuh"
 
@@ -45,7 +41,6 @@
 namespace {
 
 constexpr int kCenters = 128;  // centers per block (one per thread)
-constexpr int kSmemPoints = 19000;  // src in one block's shared memory
 
 // The shifted sums of a neighbourhood (offsets e from the center, in slot
 // order), then mu and the biased covariance
@@ -75,66 +70,7 @@ struct Moments {
   }
 };
 
-template <int K>
-__global__ void __launch_bounds__(kCenters)
-local_stats_fwd_kernel(const float* __restrict__ src,
-                       const float* __restrict__ centers, int N, int M,
-                       int* __restrict__ idx_out, float* __restrict__ mu_out,
-                       float* __restrict__ cov_out) {
-  extern __shared__ float s_pts[];  // x[N] | y[N] | z[N]
-  const int b = blockIdx.y;
-  const int t = blockIdx.x * kCenters + threadIdx.x;
-  const float* sb = src + (size_t)b * N * 3;
-  for (int i = threadIdx.x; i < N; i += kCenters) {
-    s_pts[i] = sb[i * 3 + 0];
-    s_pts[N + i] = sb[i * 3 + 1];
-    s_pts[2 * N + i] = sb[i * 3 + 2];
-  }
-  __syncthreads();
-  if (t >= M) return;
-
-  const float* cp = centers + ((size_t)b * M + t) * 3;
-  const float c0 = cp[0], c1 = cp[1], c2 = cp[2];
-  float bd[K];
-  int bi[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    bd[s] = INFINITY;
-    bi[s] = 0;
-  }
-  for (int j = 0; j < N; ++j) {
-    // ((dx*dx + dy*dy) + dz*dz), each step rounded: the plain version's order
-    float dx = __fsub_rn(c0, s_pts[j]);
-    float dy = __fsub_rn(c1, s_pts[N + j]);
-    float dz = __fsub_rn(c2, s_pts[2 * N + j]);
-    float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                        __fmul_rn(dz, dz));
-    if (d < bd[K - 1]) {
-      bd[K - 1] = d;
-      bi[K - 1] = j;
-#pragma unroll
-      for (int s = K - 1; s > 0; --s) {
-        if (bd[s] < bd[s - 1]) {
-          float td = bd[s]; bd[s] = bd[s - 1]; bd[s - 1] = td;
-          int ti = bi[s]; bi[s] = bi[s - 1]; bi[s - 1] = ti;
-        }
-      }
-    }
-  }
-
-  Moments mom;
-  int* io = idx_out + ((size_t)b * M + t) * K;
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    int j = bi[s];
-    io[s] = j;
-    mom.add(s_pts[j] - c0, s_pts[N + j] - c1, s_pts[2 * N + j] - c2);
-  }
-  mom.write(K, c0, c1, c2, mu_out + ((size_t)b * M + t) * 3,
-            cov_out + ((size_t)b * M + t) * 9);
-}
-
-// any k: the moments of the k points knn_select chose, one thread a center
+// the moments of the k points knn_select chose, one thread a center
 __global__ void __launch_bounds__(kCenters)
 local_moments_kernel(const float* __restrict__ src,
                      const float* __restrict__ centers,
@@ -191,21 +127,6 @@ __global__ void local_stats_bwd_kernel(
   d_src[(size_t)q * 3 + 2] = a2;
 }
 
-template <int K>
-cudaError_t launch_fwd(const float* src, const float* centers, int B, int N,
-                       int M, int* idx, float* mu, float* cov,
-                       cudaStream_t stream) {
-  const int smem = N * 3 * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      local_stats_fwd_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((M + kCenters - 1) / kCenters, B);
-  local_stats_fwd_kernel<K><<<grid, kCenters, smem, stream>>>(
-      src, centers, N, M, idx, mu, cov);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -215,15 +136,6 @@ extern "C" {
 int pdgn_local_stats_fwd(const float* src, const float* centers, int B, int N,
                          int M, int k, int* idx, float* mu, float* cov,
                          cudaStream_t stream) {
-  if (N <= kSmemPoints) {
-    switch (k) {
-      case 8: return (int)launch_fwd<8>(src, centers, B, N, M, idx, mu, cov, stream);
-      case 16: return (int)launch_fwd<16>(src, centers, B, N, M, idx, mu, cov, stream);
-      case 20: return (int)launch_fwd<20>(src, centers, B, N, M, idx, mu, cov, stream);
-      case 32: return (int)launch_fwd<32>(src, centers, B, N, M, idx, mu, cov, stream);
-      default: break;
-    }
-  }
   cudaError_t err = pdgn::knn_select(centers, src, B, M, N, 3, k, 0,
                                      /*direct=*/true, idx, nullptr, stream);
   if (err != cudaSuccess) return (int)err;

@@ -1,6 +1,5 @@
 // The gate of the edge-conv stage tail, shared by the forward
-// (bilateral_tail.cu) and the backward (bilateral_tail_bwd.cu), which
-// recomputes g from inte and h instead of keeping it:
+// (bilateral_tail.cu) and the backward (bilateral_tail_bwd.cu):
 //   gated: g = LeakyReLU(inte*isc + ish)
 //            * softmax_slots(LeakyReLU((h@w2k + w2b)*s2 + t2))
 //   plain: g = LeakyReLU(inte*isc + ish)
@@ -19,7 +18,10 @@
 // LeakyReLU(inte*isc + ish) * weight. k <= 16 keeps the k logits in
 // registers (KR = 10 or 16 of them); wider k (up to 126) takes a two-pass
 // online softmax over chunks of 16 staged slots and recomputes each logit.
-// plain_gate_kernel is the plain stage's elementwise gate.
+// The backward's gate pass (bilateral_tail_bwd.cu) takes the same tile,
+// fragments, staging and logit code (GateThread, stage_tile, slot_conv,
+// slot_logit, online_softmax), so the g it writes is this kernel's bit for
+// bit. plain_gate_kernel is the plain stage's elementwise gate.
 #pragma once
 
 #include "common.cuh"
@@ -36,16 +38,36 @@ constexpr int kHidden = 64;      // conv_all2 input width (8 k8 steps)
 constexpr int kGateChunk = 16;   // slots staged at once
 constexpr int kGateMaxK = 126;
 
+// the copy of one granule of a channel array (column s*2Fin + c of a row of
+// src): 16 bytes, or 4-byte copies when 2Fin % 4 != 0; channels past 2Fin
+// and rows past the end (ok false) zero-filled
+__device__ __forceinline__ void stage_channels(float* dst, const float* src,
+                                               const float* base, bool ok,
+                                               int cc, int two_fin) {
+  if (two_fin % 4 == 0) {
+    const bool in = ok && cc < two_fin;
+    cp_async16(dst, in ? src : base, in ? 16 : 0);
+  } else {
+    for (int v = 0; v < 4; ++v) {
+      const bool in = ok && cc + v < two_fin;
+      cp_async4(dst + v, in ? src + v : base, in ? 4 : 0);
+    }
+  }
+}
+
 // issue the copies of the h rows of slots [s0, s0 + ns) of points [p0, p0
 // + 16) into sh (row stride hl floats) and, with si, of the block's 64 inte
-// channels c0.. of those slots into si (row stride hl, 64 a slot), as one
-// cp.async group; rows past the end and channels past 2Fin zero-filled.
-// 16-byte granules, 4-byte ones for inte when 2Fin % 4 != 0.
-__device__ __forceinline__ void stage_tile(float* sh, float* si, int hl,
+// channels c0.. of those slots into si (row stride hl, 64 a slot), and with
+// sd, the same channels of dg (rows of ldd floats) into sd, as one cp.async
+// group; rows past the end and channels past 2Fin zero-filled.
+__device__ __forceinline__ void stage_tile(float* sh, float* si, float* sd,
+                                           int hl,
                                            const float* __restrict__ h,
                                            const float* __restrict__ inte,
-                                           int rows, int k, int two_fin,
-                                           int c0, int p0, int s0, int ns) {
+                                           const float* __restrict__ dg,
+                                           int ldd, int rows, int k,
+                                           int two_fin, int c0, int p0,
+                                           int s0, int ns) {
   const int gran = ns * kHidden / 4;  // granules a row
   for (int e = threadIdx.x; e < kGateP * gran; e += blockDim.x) {
     const int r = e / gran, q = e - r * gran;
@@ -56,30 +78,23 @@ __device__ __forceinline__ void stage_tile(float* sh, float* si, int hl,
     if (si == nullptr) continue;
     // granule q: slot s0 + q / 16, channels c0 + 4 * (q % 16) ..
     const int cc = c0 + 4 * (q % 16);
-    const float* src = inte + (size_t)(p0 + r) * k * two_fin +
-                       (size_t)(s0 + q / 16) * two_fin + cc;
-    float* dst = si + r * hl + 4 * q;
-    if (two_fin % 4 == 0) {
-      const bool in = ok && cc < two_fin;
-      cp_async16(dst, in ? src : inte, in ? 16 : 0);
-    } else {
-      for (int v = 0; v < 4; ++v) {
-        const bool in = ok && cc + v < two_fin;
-        cp_async4(dst + v, in ? src + v : inte, in ? 4 : 0);
-      }
-    }
+    const size_t col = (size_t)(s0 + q / 16) * two_fin + cc;
+    stage_channels(si + r * hl + 4 * q,
+                   inte + (size_t)(p0 + r) * k * two_fin + col, inte, ok, cc,
+                   two_fin);
+    if (sd != nullptr)
+      stage_channels(sd + r * hl + 4 * q, dg + (size_t)(p0 + r) * ldd + col,
+                     dg, ok, cc, two_fin);
   }
   cp_async_commit();
 }
 
-// LeakyReLU((h_s @ w2k + w2b) * s2 + t2) at this thread's four fragment
+// conv_all2's output h_s @ w2k + w2b at this thread's four fragment
 // positions (points g, g + 8; channels 2t, 2t + 1 of its warp's column)
-__device__ __forceinline__ void slot_logits(const float* hs, int hl, int g,
-                                            int t, const uint32_t bhi[8][2],
-                                            const uint32_t blo[8][2],
-                                            const float bias[2],
-                                            const float sc[2],
-                                            const float shf[2], float u[4]) {
+__device__ __forceinline__ void slot_conv(const float* hs, int hl, int g,
+                                          int t, const uint32_t bhi[8][2],
+                                          const uint32_t blo[8][2],
+                                          const float bias[2], float v[4]) {
   float d[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int ks = 0; ks < kHidden / 8; ++ks) {
@@ -92,9 +107,93 @@ __device__ __forceinline__ void slot_logits(const float* hs, int hl, int g,
     mma_tf32x3(d, ahi, alo, bhi[ks], blo[ks]);
   }
 #pragma unroll
-  for (int q = 0; q < 4; ++q)
-    u[q] = leaky((d[q] + bias[q & 1]) * sc[q & 1] + shf[q & 1]);
+  for (int q = 0; q < 4; ++q) v[q] = d[q] + bias[q & 1];
 }
+
+// the bn_all2 fold of a conv_all2 output, and the slot logit
+// LeakyReLU(v * s2 + t2)
+__device__ __forceinline__ float slot_pre(float v, float sc, float sh) {
+  return fmaf(v, sc, sh);
+}
+__device__ __forceinline__ float slot_logit(float v, float sc, float sh) {
+  return leaky(slot_pre(v, sc, sh));
+}
+
+// the gate's first factor before its LeakyReLU: inte * isc + ish
+__device__ __forceinline__ float gate_pre(float x, float a, float b) {
+  return fmaf(x, a, b);
+}
+
+// one step of the online softmax over the slots: the running maximum m and
+// normaliser z after logit u (slot s's weight is then expf(u_s - m) / z)
+__device__ __forceinline__ void online_softmax(float& m, float& z, float u) {
+  if (u > m) {
+    z = fmaf(z, expf(m - u), 1.f);
+    m = u;
+  } else {
+    z += expf(u - m);
+  }
+}
+
+// What a thread of a gate block holds for the whole launch: w2k's fragments
+// of its warp's column (b0 = w2k[ks*8 + t][n0 + g], b1 = w2k[ks*8 + t +
+// 4][n0 + g]), split once, and per column q of its channel pair c + q:
+// conv_all2's bias and folded BN, and inte's folded BN at block channel
+// (slot parity)*2Fin + c + q
+struct GateThread {
+  uint32_t bhi[8][2], blo[8][2];
+  float bias[2], sc[2], shf[2];
+  float isc_p[2][2], ish_p[2][2];
+  bool live[2];
+
+  __device__ __forceinline__ void load(const float* __restrict__ isc,
+                                       const float* __restrict__ ish,
+                                       const float* __restrict__ w2k,
+                                       const float* __restrict__ w2b,
+                                       const float* __restrict__ s2,
+                                       const float* __restrict__ t2, int c,
+                                       int cb, int t, int two_fin) {
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const float b0 =
+          cb < two_fin ? w2k[(size_t)(ks * 8 + t) * two_fin + cb] : 0.f;
+      const float b1 =
+          cb < two_fin ? w2k[(size_t)(ks * 8 + t + 4) * two_fin + cb] : 0.f;
+      split_tf32(b0, bhi[ks][0], blo[ks][0]);
+      split_tf32(b1, bhi[ks][1], blo[ks][1]);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      live[q] = c + q < two_fin;
+      bias[q] = live[q] ? w2b[c + q] : 0.f;
+      sc[q] = live[q] ? s2[c + q] : 0.f;
+      shf[q] = live[q] ? t2[c + q] : 0.f;
+#pragma unroll
+      for (int par = 0; par < 2; ++par) {
+        isc_p[par][q] = live[q] ? isc[par * two_fin + c + q] : 0.f;
+        ish_p[par][q] = live[q] ? ish[par * two_fin + c + q] : 0.f;
+      }
+    }
+  }
+
+  // inte's folded BN of slot s at column q (a select, not an index: s may
+  // be known only at run time)
+  __device__ __forceinline__ float isc(int s, int q) const {
+    return s & 1 ? isc_p[1][q] : isc_p[0][q];
+  }
+  __device__ __forceinline__ float ish(int s, int q) const {
+    return s & 1 ? ish_p[1][q] : ish_p[0][q];
+  }
+
+  // the slot logits at the thread's four positions
+  __device__ __forceinline__ void logits(const float* hs, int hl, int g,
+                                         int t, float u[4]) const {
+    float v[4];
+    slot_conv(hs, hl, g, t, bhi, blo, bias, v);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) u[q] = slot_logit(v[q], sc[q & 1], shf[q & 1]);
+  }
+};
 
 // KR > 0: k <= KR logits a thread in registers; KR == 0: any even k <=
 // kGateMaxK, two passes. Dynamic shared memory: 2 x 16 rows of hl floats
@@ -117,37 +216,8 @@ gate_tc_kernel(const float* __restrict__ inte, const float* __restrict__ h,
   const int c0 = blockIdx.x * kGateC;
   const int cl = warp * 8 + 2 * t;  // the pair's first channel in the block
   const int c = c0 + cl;            // and c + 1
-  const bool live[2] = {c < two_fin, c + 1 < two_fin};
-
-  // w2k's fragments of this warp's column (b0 = w2k[ks*8 + t][n0 + g],
-  // b1 = w2k[ks*8 + t + 4][n0 + g]), split once
-  uint32_t bhi[8][2], blo[8][2];
-  const int cb = blockIdx.x * kGateC + warp * 8 + g;
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-    const float b0 = cb < two_fin ? w2k[(size_t)(ks * 8 + t) * two_fin + cb]
-                                  : 0.f;
-    const float b1 =
-        cb < two_fin ? w2k[(size_t)(ks * 8 + t + 4) * two_fin + cb] : 0.f;
-    split_tf32(b0, bhi[ks][0], blo[ks][0]);
-    split_tf32(b1, bhi[ks][1], blo[ks][1]);
-  }
-  // per column q of the pair: conv_all2's bias and folded BN, and inte's
-  // folded BN at block channel (slot parity)*2Fin + c + q
-  float bias[2] = {0.f, 0.f}, sc[2] = {0.f, 0.f}, shf[2] = {0.f, 0.f};
-  float isc_p[2][2] = {}, ish_p[2][2] = {};
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    if (!live[q]) continue;
-    bias[q] = w2b[c + q];
-    sc[q] = s2[c + q];
-    shf[q] = t2[c + q];
-#pragma unroll
-    for (int par = 0; par < 2; ++par) {
-      isc_p[par][q] = isc[par * two_fin + c + q];
-      ish_p[par][q] = ish[par * two_fin + c + q];
-    }
-  }
+  GateThread th;
+  th.load(isc, ish, w2k, w2b, s2, t2, c, c0 + warp * 8 + g, t, two_fin);
 
   // gate slot s (its inte staged in si at sl) at the thread's positions
   // with softmax weights w[4]
@@ -160,30 +230,30 @@ gate_tc_kernel(const float* __restrict__ inte, const float* __restrict__ h,
       float* o = g_out + (size_t)(p0 + r) * ldg + s * two_fin + c;
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        const float a = s & 1 ? isc_p[1][q] : isc_p[0][q];
-        const float b = s & 1 ? ish_p[1][q] : ish_p[0][q];
-        if (live[q]) o[q] = leaky(x[q] * a + b) * w[2 * half + q];
+        const float a = th.isc(s, q), b = th.ish(s, q);
+        if (th.live[q]) o[q] = leaky(gate_pre(x[q], a, b)) * w[2 * half + q];
       }
     }
   };
 
   const int tiles = (rows + kGateP - 1) / kGateP;
+  float* sh = smem;
+  float* si = sh + kGateP * hl;
   if constexpr (KR > 0) {
-    float* sh = smem;
-    float* si = sh + kGateP * hl;
     for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
       const int p0 = tile * kGateP;
       __syncthreads();  // the previous tile's rows are read
-      stage_tile(sh, si, hl, h, inte, rows, k, two_fin, c0, p0, 0, k);
+      stage_tile(sh, si, nullptr, hl, h, inte, nullptr, 0, rows, k, two_fin,
+                 c0, p0, 0, k);
       cp_async_wait<0>();
       __syncthreads();
       float u[KR][4];
 #pragma unroll
       for (int s = 0; s < KR; ++s)
-        if (s < k)
-          slot_logits(sh + s * kHidden, hl, g, t, bhi, blo, bias, sc, shf,
-                      u[s]);
+        if (s < k) th.logits(sh + s * kHidden, hl, g, t, u[s]);
       if (softmax) {
+        // the backward's gate pass (gate_bwd_tc_kernel) takes these
+        // weights as expf(u - m) * rz with m, z and rz formed in this order
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           float m = u[0][q];
@@ -208,8 +278,6 @@ gate_tc_kernel(const float* __restrict__ inte, const float* __restrict__ h,
         if (s < k) write(si, p0, s, s, u[s]);
     }
   } else {
-    float* sh = smem;
-    float* si = sh + kGateP * hl;
     for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
       const int p0 = tile * kGateP;
       // pass 1: the running maximum m and normaliser z over the slots
@@ -222,34 +290,28 @@ gate_tc_kernel(const float* __restrict__ inte, const float* __restrict__ h,
       for (int s0 = 0; s0 < k && softmax; s0 += kGateChunk) {
         const int ns = k - s0 < kGateChunk ? k - s0 : kGateChunk;
         __syncthreads();
-        stage_tile(sh, nullptr, hl, h, inte, rows, k, two_fin, c0, p0, s0,
-                   ns);
+        stage_tile(sh, nullptr, nullptr, hl, h, inte, nullptr, 0, rows, k,
+                   two_fin, c0, p0, s0, ns);
         cp_async_wait<0>();
         __syncthreads();
         for (int s = 0; s < ns; ++s) {
           float u[4];
-          slot_logits(sh + s * kHidden, hl, g, t, bhi, blo, bias, sc, shf, u);
+          th.logits(sh + s * kHidden, hl, g, t, u);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if (u[q] > m[q]) {
-              z[q] = z[q] * expf(m[q] - u[q]) + 1.f;
-              m[q] = u[q];
-            } else {
-              z[q] += expf(u[q] - m[q]);
-            }
-          }
+          for (int q = 0; q < 4; ++q) online_softmax(m[q], z[q], u[q]);
         }
       }
       // pass 2: recompute each logit, weight it, gate
       for (int s0 = 0; s0 < k; s0 += kGateChunk) {
         const int ns = k - s0 < kGateChunk ? k - s0 : kGateChunk;
         __syncthreads();
-        stage_tile(sh, si, hl, h, inte, rows, k, two_fin, c0, p0, s0, ns);
+        stage_tile(sh, si, nullptr, hl, h, inte, nullptr, 0, rows, k,
+                   two_fin, c0, p0, s0, ns);
         cp_async_wait<0>();
         __syncthreads();
         for (int s = 0; s < ns; ++s) {
           float u[4];
-          slot_logits(sh + s * kHidden, hl, g, t, bhi, blo, bias, sc, shf, u);
+          th.logits(sh + s * kHidden, hl, g, t, u);
           if (softmax) {
 #pragma unroll
             for (int q = 0; q < 4; ++q) u[q] = expf(u[q] - m[q]) / z[q];
@@ -275,7 +337,7 @@ __global__ void plain_gate_kernel(const float* __restrict__ inte,
   float v = 0.f;
   if (col < K) {
     const int ch = col % four_fin;
-    v = leaky(inte[p * K + col] * isc[ch] + ish[ch]);
+    v = leaky(gate_pre(inte[p * K + col], isc[ch], ish[ch]));
   }
   g[e] = v;
 }

@@ -1,7 +1,8 @@
 // The port's one fp32-accurate tensor-core product core (3xTF32 through
 // mma_tf32x3.cuh), shared by every fp32 product that runs on the tensor
-// cores: the head's P = x W_all (edge_head.cu), the gated tail's merge
-// (bilateral_tail.cu) and the head backward's products (edge_head_bwd.cu).
+// cores: the head's P = x W_all (edge_head.cu), the tails' merge
+// (bilateral_tail.cu), the head backward's products (edge_head_bwd.cu) and
+// the tail backward's (bilateral_tail_bwd.cu).
 //
 //   tc_gemm<false>: out (M, N) = A (M, K) @ B (K, N)
 //   tc_gemm<true>:  out (M, N) = A^T @ B, A given reduction-major as (K, M)
@@ -49,6 +50,12 @@ constexpr int kGBStage = kGK * kGBLd;
 constexpr int kGSmemBytes = kGStages * (kGAStage + kGBStage) * 4;  // 107,520
 constexpr int kGFold = 4;        // stages between folds: 128 of depth
 static_assert(kGK * kGATLd <= kGAStage, "reduction-major A tile too large");
+// rows a split of a transposed product's reduction
+constexpr int kSplitRows = 4096;
+
+inline int tn_splits(long long R) {
+  return (int)((R + kSplitRows - 1) / kSplitRows);
+}
 
 // A (rows, ld) row-major: at(r, c) is the address of element (r, c). A
 // reduction-major loader also gives, in two steps, the source row of a

@@ -45,7 +45,7 @@ _SIGNATURES = {
     "pdgn_bilateral_tail": [_P] * 10 + [_I, _P] + [_I] * 6 + [_P] * 3,
     "pdgn_edge_head_bwd": [_P] * 4 + [_I] * 8 + [_P] * 10 + [_P] * 15
                           + [_P],
-    "pdgn_bilateral_tail_bwd": [_P] * 11 + [_I] * 5 + [_P] * 11 + [_P],
+    "pdgn_bilateral_tail_bwd": [_P] * 12 + [_I] * 8 + [_P] * 12 + [_P],
     "pdgn_local_stats_fwd": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "pdgn_local_stats_bwd": [_P] * 5 + [_I] * 4 + [_P] * 5 + [_P],
     "pdgn_emd_cd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
@@ -137,13 +137,19 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-# a grid's y dimension holds at most 65535 blocks: the SIMT GEMMs put
-# 64-row tiles there, the tensor-core product core (csrc/tf32x3_gemm.cuh)
-# 128-row ones, the tail backward's gate kernel 32-point tiles
+# a grid's y dimension holds at most 65535 blocks: the tensor-core product
+# core (csrc/tf32x3_gemm.cuh) puts 128-row tiles there; the tail gates'
+# grids (16-point tiles) loop over what is left
 MAX_GRID_Y = 65535
 # rows per split of the transposed (weight-gradient) products: kSplitRows in
-# csrc/common.cuh; their scratch holds one (Kd, Nout) partial per split
+# csrc/tf32x3_gemm.cuh; their scratch holds one (M, N) partial per split
 TN_SPLIT_ROWS = 4096
+
+
+def up4(v: int) -> int:
+    """``v`` rounded up to a multiple of 4 (the products' 16-byte
+    ``cp.async`` granules)."""
+    return -(-v // 4) * 4
 
 
 def check_rows(rows: int, per_block: int, name: str) -> None:

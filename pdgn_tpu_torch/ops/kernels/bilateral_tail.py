@@ -22,6 +22,11 @@ from pdgn_tpu_torch.ops.kernels import _lib
 # the gated gate kernel's widest k (csrc/tail_gate.cuh, kGateMaxK): k + 1 <=
 # 128, the graph's longest list; k <= 16 keeps its slots in registers
 MAX_K = 126
+# the slot logits' error on the tensor cores relative to |s2| (max|h|
+# ||w2k[:, c]||_1 + |w2b[c]|): 3xTF32 keeps ~22 bits a product and the 24
+# truncated additions of 8 k8 steps lose at most ~2^-18.2; 2^-17 leaves a
+# factor 2
+KINK_BOUND = 2.0 ** -17
 
 
 def _leaky(x):
@@ -48,17 +53,18 @@ def tail_reference(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2,
 
 
 def tail_kernel(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
-                bias, k: int, softmax: bool):
+                bias, k: int, softmax: bool, keep_g: bool = False):
     """Launch ``csrc/bilateral_tail.cu`` (CUDA tensors, checked by
     :func:`tail`): the gate, then the merge on the tensor cores. The merge's
     operands go by 16-byte ``cp.async`` granules, so ``wi`` is padded with
     zeros to ``(ldg, ldw)``, both multiples of 4, and ``g`` has ``ldg``
-    columns (the plain stage's pad columns are zero)."""
+    columns (the plain stage's pad columns are zero). ``keep_g`` also
+    returns ``g``'s first ``k/2 * 4Fin`` columns."""
     B, N, two_f = partial.shape
     rows = B * N
     kd = inte_flat.shape[-1]                      # k/2 * 4Fin
     four_fin = kd // (k // 2)
-    ldg, ldw = -(-kd // 4) * 4, -(-two_f // 4) * 4
+    ldg, ldw = _lib.up4(kd), _lib.up4(two_f)
     _lib.check_rows(rows, 128, "bilateral_tail")
     if (ldg, ldw) != tuple(wi.shape):
         wi = torch.nn.functional.pad(wi, (0, ldw - two_f, 0, ldg - kd))
@@ -75,64 +81,87 @@ def tail_kernel(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
         "pdgn_bilateral_tail")
     _lib.LAUNCHES["bilateral_tail_gated" if h_flat is not None
                   else "bilateral_tail_plain"] += 1
-    return y
+    return (y, g[:, :kd]) if keep_g else y
 
 
 def tail_bwd_kernel(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi, dy,
-                    k: int, softmax: bool):
+                    k: int, softmax: bool, keep_g: bool = False):
     """Launch ``csrc/bilateral_tail_bwd.cu``. Returns the gradients of
     ``partial, inte, h, isc, ish, w2k, w2b, s2, t2, wi, bias`` (``None`` for
-    ``h``..``t2`` on the plain stage)."""
+    ``h``..``t2`` on the plain stage); ``keep_g`` appends the gate ``g`` its
+    gate pass wrote (``(rows, k/2 * 4Fin)``, the forward's bit for bit).
+
+    Every product runs on the tensor cores by 16-byte ``cp.async``
+    granules: ``dy`` and ``wi^T`` are zero-padded to ``t4`` rows or
+    columns, ``wi^T`` and ``g`` to ``ldg`` columns, ``dv`` has ``ldv``
+    columns (the kernel zeroes the pad) and ``w2k^T`` zero rows past 2Fin,
+    all multiples of 4; the padded rows of ``d_wi`` are cut here."""
     rows = dy.shape[0] * dy.shape[1]
     two_f = dy.shape[-1]
     hk = k // 2
     four_fin = inte_flat.shape[-1] // hk
     two_fin = four_fin // 2
     K = hk * four_fin
+    ldg, t4, ldv = _lib.up4(K), _lib.up4(two_f), _lib.up4(two_fin)
     dev = dy.device
     f32 = dict(device=dev, dtype=torch.float32)
     gated = h_flat is not None
-    _lib.check_rows(rows, 32, "bilateral_tail_bwd")
+    pad = torch.nn.functional.pad
+    _lib.check_rows(rows * (k if gated else 1), 128, "bilateral_tail_bwd")
     inte_flat = _lib.aligned(inte_flat)
     h_flat = None if h_flat is None else _lib.aligned(h_flat)
-    dy = dy.contiguous()
-    wi_t = wi.T.contiguous()
+    dy_p = dy.reshape(rows, two_f)
+    if t4 != two_f:
+        dy_p = pad(dy_p, (0, t4 - two_f))
+    dy_p = _lib.aligned(dy_p.contiguous())
+    wi_t = _lib.aligned(pad(wi.T, (0, ldg - K, 0, t4 - two_f)).contiguous())
     d_inte = torch.empty_like(inte_flat)
-    d_wi = torch.empty(K, two_f, **f32)
+    d_wi = torch.empty(ldg, two_f, **f32)
     d_bias = torch.empty(two_f, **f32)
-    g = torch.empty_like(inte_flat)
+    g = torch.empty(rows, ldg, **f32)
+    dg = torch.empty(rows, ldg, **f32)
     colsum = torch.empty(-(-rows // 256), two_f, **f32)
     split = _lib.TN_SPLIT_ROWS
-    tn = -(-rows // split) * K * two_f
+    tn = -(-rows // split) * ldg * two_f
     if gated:
-        w2k_t = w2k.T.contiguous()
+        w2k_t = _lib.aligned(pad(w2k.T, (0, 0, 0, ldv - two_fin)).contiguous())
+        # the tensor cores' error bound on v*s2 + t2 (v = h@w2k + w2b in
+        # 3xTF32): within it of 0 the kernel takes the slot logit's
+        # LeakyReLU branch by the sign of v*s2 + t2 recomputed in double
+        kink = (s2.abs() * (w2k.abs().sum(0) * h_flat.abs().amax()
+                            + w2b.abs()) * KINK_BOUND).contiguous()
         d_h = torch.empty_like(h_flat)
         d_w2k = torch.empty_like(w2k)
-        dv = torch.empty(rows * k, two_fin, **f32)
+        dv = torch.empty(rows * k, ldv, **f32)
         tn = max(tn, -(-rows * k // split) * 64 * two_fin)
         sums = torch.empty(7 * two_fin, **f32)
-        sum_scratch = torch.empty(-(-rows // 32), 7 * two_fin, **f32)
+        blocks = min(-(-rows // 16), _lib.MAX_GRID_Y)
+        sum_scratch = torch.empty(blocks, 7 * two_fin, **f32)
     else:
-        w2k_t = d_h = d_w2k = dv = None
+        w2k_t = kink = d_h = d_w2k = dv = None
         sums = torch.empty(2 * four_fin, **f32)
         sum_scratch = torch.empty(-(-rows * hk // 64), 2 * four_fin, **f32)
     tn_scratch = torch.empty(tn, **f32)
     p = _lib.ptr
     _lib.check(_lib.library().pdgn_bilateral_tail_bwd(
         p(inte_flat), p(h_flat), p(isc), p(ish), p(w2k), p(w2k_t), p(w2b),
-        p(s2), p(t2), p(wi_t), p(dy), rows, k, two_fin, two_f, int(softmax),
-        p(d_inte), p(d_h), p(d_w2k), p(d_wi), p(d_bias), p(sums), p(g),
-        p(dv), p(tn_scratch), p(sum_scratch), p(colsum),
-        _lib.stream_handle(dev)), "pdgn_bilateral_tail_bwd")
+        p(s2), p(t2), p(kink), p(wi_t), p(dy_p), rows, k, two_fin, two_f,
+        ldg, t4, ldv, int(softmax), p(d_inte), p(d_h), p(d_w2k), p(d_wi),
+        p(d_bias), p(sums), p(g), p(dg), p(dv), p(tn_scratch),
+        p(sum_scratch), p(colsum), _lib.stream_handle(dev)),
+        "pdgn_bilateral_tail_bwd")
     _lib.LAUNCHES["bilateral_tail_gated_bwd" if gated
                   else "bilateral_tail_plain_bwd"] += 1
+    d_wi = d_wi[:K]
     d_isc, d_ish = sums[:four_fin], sums[four_fin:2 * four_fin]
     if not gated:
-        return (dy, d_inte, None, d_isc, d_ish, None, None, None, None, d_wi,
-                d_bias)
-    d_s2, d_t2, d_w2b = sums[2 * four_fin:].reshape(3, two_fin)
-    return (dy, d_inte, d_h, d_isc, d_ish, d_w2k, d_w2b, d_s2, d_t2, d_wi,
-            d_bias)
+        out = (dy, d_inte, None, d_isc, d_ish, None, None, None, None, d_wi,
+               d_bias)
+    else:
+        d_s2, d_t2, d_w2b = sums[2 * four_fin:].reshape(3, two_fin)
+        out = (dy, d_inte, d_h, d_isc, d_ish, d_w2k, d_w2b, d_s2, d_t2, d_wi,
+               d_bias)
+    return out + (g[:, :K],) if keep_g else out
 
 
 def tail_bwd_plain(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2,

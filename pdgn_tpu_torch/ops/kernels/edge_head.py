@@ -152,10 +152,6 @@ def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     return idx, inte, partial, stats, wfea, wxyz, wstats
 
 
-def _up4(v: int) -> int:
-    return -(-v // 4) * 4
-
-
 def pack_head_bwd_weights(wn_flat, conv_a, a_merge, wen, k: int,
                           window: int):
     """The backward's product operands, blocks zero-padded to 16-byte rows
@@ -166,7 +162,7 @@ def pack_head_bwd_weights(wn_flat, conv_a, a_merge, wen, k: int,
     a_merge]^T`` of shape ``(t4, (k+1)*c4)``."""
     C, four_fin = conv_a.shape
     two_f = a_merge.shape[-1]
-    c4, ldf, t4 = _up4(C), _up4(four_fin), _up4(two_f)
+    c4, ldf, t4 = _lib.up4(C), _lib.up4(four_fin), _lib.up4(two_f)
     pad = torch.nn.functional.pad
     w_conv = torch.cat([wn_flat.reshape(window, C, four_fin), conv_a[None]])
     w_conv = pad(w_conv, (0, ldf - four_fin, 0, c4 - C)).transpose(1, 2)
@@ -180,7 +176,7 @@ def unpack_head_bwd_grads(d_wconv, d_wmerge, C: int, four_fin: int,
                           two_f: int, k: int, window: int):
     """``d_wconv (c4, (window+1)*ldf) = x^T Gc`` and ``d_wmerge ((k+1)*c4,
     t4)`` cut back to ``d_wn_flat, d_conv_a, d_a_merge, d_wen``."""
-    c4, ldf, t4 = _up4(C), _up4(four_fin), _up4(two_f)
+    c4, ldf, t4 = _lib.up4(C), _lib.up4(four_fin), _lib.up4(two_f)
     d_wc = d_wconv.reshape(c4, window + 1, ldf)[:C, :, :four_fin]
     d_wc = d_wc.permute(1, 0, 2).reshape((window + 1) * C, four_fin)
     d_wm = d_wmerge.reshape(k + 1, c4, t4)[:, :C, :two_f]
@@ -208,7 +204,7 @@ def head_bwd_kernel(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
     i32 = dict(device=dev, dtype=torch.int32)
     rows = B * N
     _lib.check_rows(rows, 128, "edge_head_bwd")
-    c4, ldf, t4 = _up4(C), _up4(four_fin), _up4(two_f)
+    c4, ldf, t4 = _lib.up4(C), _lib.up4(four_fin), _lib.up4(two_f)
     pad = torch.nn.functional.pad
     w_conv, w_merge = pack_head_bwd_weights(wn_flat, conv_a, a_merge, wen, k,
                                             window)

@@ -2,12 +2,12 @@
 pdgn_tpu/ops/pallas/local_stats.py), the core of the shape-preserving loss.
 
 :func:`local_mean_cov` is a ``torch.autograd.Function``. CUDA tensors
-launch ``csrc/local_stats.cu`` for the forward (kNN + moments, the k indices
-saved) and for the backward (a gather over the reverse adjacency of those
-indices). CPU tensors run the plain versions: :func:`knn_direct` +
-:func:`stats_given_idx` forward, and the autograd VJP of
-:func:`stats_given_idx` backward. Centers get no gradient: they only steer
-the graph.
+launch ``csrc/local_stats.cu`` for the forward (``knn_select``'s kNN, a warp
+a center, then the moments; the k indices saved) and for the backward (a
+gather over the reverse adjacency of those indices). CPU tensors run the
+plain versions: :func:`knn_direct` + :func:`stats_given_idx` forward, and
+the autograd VJP of :func:`stats_given_idx` backward. Centers get no
+gradient: they only steer the graph.
 """
 
 from __future__ import annotations
@@ -19,8 +19,7 @@ from pdgn_tpu_torch.ops.kernels import _lib
 from pdgn_tpu_torch.ops.knn import topk_ascending_idx
 
 # the kernel's limits: knn_select's longest list, and the JAX kernel's own
-# N <= 0x10000 (local_stats_ok); k in {8, 16, 20, 32} with N <= 19,000 runs
-# unrolled with src in one block's shared memory, the rest streams it
+# N <= 0x10000 (local_stats_ok)
 MAX_K = 128
 MAX_POINTS = 0x10000
 

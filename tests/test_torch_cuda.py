@@ -6,10 +6,12 @@ that are no multiple of a chunk, k other than 10).
 The widened shapes too: the head at any even k with k + 1 <= 128 and at
 4Fin or 2F that are no multiple of 4, the gated tail at k > 16, local
 statistics at any k <= 128 and N up to 65,536, emd_cd at any n, and a
-full-width generator at num_k 28. The 3xTF32 gated tail and head backward
-at ragged row counts and widths off multiples of 4, twice (bit-identical);
-the head forward's digest from before its product moved into the shared
-product core; and that core alone at its longest folded chains.
+full-width generator at num_k 28. The 3xTF32 gated tail, its backward and
+the head backward at ragged row counts and widths off multiples of 4,
+twice (bit-identical); the g that the tail backward's gate pass writes
+equal to the forward's under ``torch.equal``; the head forward's digest
+from before its product moved into the shared product core; and that core
+alone at its longest folded chains.
 
 Marked ``cuda``; each test skips unless a CUDA card is visible (decided in
 the fixture, never at import). Run on a machine with a card with::
@@ -334,6 +336,84 @@ def test_tail_kernel_ragged_rows_and_odd_widths(dev, gated, k):
     assert _rel(y, tail_reference(*args)) <= 1e-4
 
 
+@pytest.mark.parametrize("gated,k", [(True, 10), (True, 16), (True, 18),
+                                     (False, 10)])
+def test_tail_backward_ragged_rows_and_odd_widths(dev, gated, k):
+    """The backward at 135 rows, 4Fin = 130, 2F = 66 and odd 2Fin = 65
+    (dy, wi^T, g, dg and dv padded to multiples of 4 for the products),
+    k = 10, 16 and the wide gate's 18: every gradient rel <= 1e-4 of the
+    plain version, two launches bit-identical."""
+    from pdgn_tpu_torch.ops.kernels.bilateral_tail import (tail_bwd_kernel,
+                                                           tail_bwd_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(13 * k)
+    args = _odd_tail_args(gen, dev, gated, k)
+    dy = torch.randn(*args[0].shape, generator=gen, device=dev)
+    got = tail_bwd_kernel(*args[1:10], dy, k, True)
+    again = tail_bwd_kernel(*args[1:10], dy, k, True)
+    want = tail_bwd_plain(*args[:11], dy, k, True)
+    for i, (a, b, w) in enumerate(zip(got, again, want)):
+        if w is None:
+            assert a is None and b is None, i
+            continue
+        assert torch.equal(a, b), i
+        assert _rel(a, w) <= 1e-4, (i, _rel(a, w))
+
+
+def test_tail_backward_takes_float64s_branch_at_the_kink(dev):
+    """t2 set so that slot 0 of point 0 sits on LeakyReLU's kink in every
+    channel (v*s2 + t2 within rounding of 0): there the tensor cores' logit
+    may fall on either side, and the kernel must take the branch of the
+    float64 evaluation. Every slot-logit gradient rel <= 1e-4 of the
+    plain backward evaluated in float64."""
+    from pdgn_tpu_torch.ops.kernels.bilateral_tail import (tail_bwd_kernel,
+                                                           tail_bwd_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    k, two_fin = 10, 64
+    args = list(_odd_tail_args(gen, dev, True, k, B=1, N=16,
+                               four_fin=2 * two_fin, two_f=64))
+    h, w2k, w2b, s2 = args[2], args[5], args[6], args[7]
+    v0 = h[0, 0, :64].double() @ w2k.double() + w2b.double()
+    args[8] = (-v0 * s2.double()).float()          # t2: upre(0, 0) ~ 0
+    dy = torch.randn(*args[0].shape, generator=gen, device=dev)
+    got = tail_bwd_kernel(*args[1:10], dy, k, True)
+    want = tail_bwd_plain(*[a.double() if torch.is_tensor(a) else a
+                            for a in args[:11]], dy.double(), k, True)
+    for i in (2, 5, 6, 7, 8):                       # d_h, d_w2k..d_t2
+        assert _rel(got[i], want[i]) <= 1e-4, (i, _rel(got[i], want[i]))
+
+
+@pytest.mark.parametrize("gated,softmax,k,odd", [(True, True, 10, False),
+                                                 (True, False, 10, False),
+                                                 (True, True, 16, False),
+                                                 (True, True, 18, False),
+                                                 (True, True, 10, True),
+                                                 (False, True, 10, True)])
+def test_tail_backward_gate_is_the_forwards(dev, gated, softmax, k, odd):
+    """The g that the backward's gate pass writes (for d_wi = g^T dy) is
+    the forward gate's g bit for bit: the same tile, fragments, logits and
+    softmax order, at k = 10, 16 and the wide gate's 18, with and without
+    the softmax, at full-width-like and odd widths, and on the plain
+    stage."""
+    from pdgn_tpu_torch.ops.kernels.bilateral_tail import (tail_bwd_kernel,
+                                                           tail_kernel)
+
+    gen = torch.Generator(device=dev).manual_seed(17 * k + odd)
+    if odd:
+        args = _odd_tail_args(gen, dev, gated, k)
+    else:
+        args = _odd_tail_args(gen, dev, gated, k, B=2, N=200, four_fin=256,
+                              two_f=128)
+    args[-1] = softmax
+    dy = torch.randn(*args[0].shape, generator=gen, device=dev)
+    _, g_fwd = tail_kernel(*args, keep_g=True)
+    g_bwd = tail_bwd_kernel(*args[1:10], dy, k, softmax, keep_g=True)[-1]
+    rows = args[1].shape[0] * args[1].shape[1]
+    assert g_fwd.shape == g_bwd.shape == (rows, args[1].shape[-1])
+    assert torch.equal(g_fwd, g_bwd)
+
+
 @pytest.mark.parametrize("k,gated", [(14, True), (10, False)])
 def test_head_backward_kernel_ragged_rows_and_odd_widths(dev, k, gated):
     """C = 30, 4Fin = 130 and 2F = 66 (no multiple of 4: the products'
@@ -444,10 +524,10 @@ def test_local_stats_kernels_match_plain(dev, B, M, N):
                                           (2, 128, 128, 24, True),
                                           (1, 300, 19500, 20, False)])
 def test_local_stats_wide_shapes_match_plain(dev, B, M, N, k, ties):
-    """local_mean_cov at a k without an unrolled instance or an N beyond
-    one block's shared memory: the same neighbour sets as the plain
-    version, mu and cov rel <= 1e-4, the backward rel <= 1e-4 given the
-    same selection; both kernels launched once."""
+    """local_mean_cov at k other than the shape loss's 20 and at N up to
+    20,000: the same neighbour sets as the plain version, mu and cov rel
+    <= 1e-4, the backward rel <= 1e-4 given the same selection; both
+    kernels launched once."""
     from pdgn_tpu_torch.ops.kernels.local_stats import (bwd_plain,
                                                         knn_direct,
                                                         local_mean_cov,

@@ -14,7 +14,9 @@ arithmetic), and shows why slot stats' kernel folds its accumulators every
 32 rows, and why the shared product core (``csrc/tf32x3_gemm.cuh``) folds
 its own every 128 of depth: the gated tail's merge (depth 5,120), the head
 backward's ``Gc @ W_conv`` (7,168) and its weight gradients over 4,096-row
-splits stay within rel 1e-5 of float64 folded and miss it unfolded.
+splits stay within rel 1e-5 of float64 folded and miss it unfolded; the
+tail backward's four products and the gates' slot logits stay within it
+too.
 
 ``edge_head``'s kernel moves the products ahead of the gather:
 ``x[idx] @ W = (x @ W)[idx]``. ``x @ pack_head_weights(...)`` followed by
@@ -154,16 +156,21 @@ FOLD_STEPS = 4 * 32 // 8
 
 
 @pytest.mark.parametrize("product", ["tail merge", "head bwd Gc W_conv",
-                                     "head bwd x^T Gc"])
+                                     "head bwd x^T Gc", "tail bwd dg",
+                                     "tail bwd d_wi", "tail bwd d_h",
+                                     "tail bwd d_w2k", "tail bwd logits"])
 def test_folded_chains_keep_fp32_accuracy(product):
-    """The long products of the shared core at their stage-4 depths, as the
-    core sums them: 8-deep mma steps with truncated additions, accumulators
+    """The products of the shared core at their stage-4 depths, as the core
+    sums them: 8-deep mma steps with truncated additions, accumulators
     folded every FOLD_STEPS into rounded fp32 totals; a transposed product's
     4,096-row splits added in float64 (column_reduce) and rounded. Folded,
-    each stays within rel 1e-5 of float64; unfolded, each drifts past it
-    (~5e-5)."""
+    each stays within rel 1e-5 of float64; unfolded, the long chains (depth
+    5,120, 7,168 and 4,096-row splits) drift past it (~5e-5). The tail
+    backward's products: dg = dy wi^T and d_h = dv w2k^T at depth 512,
+    d_wi = g^T dy and d_w2k = h^T dv over 4,096-row splits, and the gates'
+    slot logits h_s w2k at depth 64 (one unfolded chain)."""
     rng = np.random.RandomState(len(product))
-    splits = 1
+    splits, fold, drifts = 1, FOLD_STEPS, True
     if product == "tail merge":          # g (rows, 5120) @ wi (5120, 2F)
         depth = 5 * 1024
         a = rng.randn(64, depth).astype(np.float32)
@@ -171,9 +178,18 @@ def test_folded_chains_keep_fp32_accuracy(product):
     elif product == "head bwd Gc W_conv":  # Gc (rows, 7*4Fin) @ W_conv
         depth = 7 * 1024
         a = rng.randn(64, depth).astype(np.float32)
-    else:                                # x^T Gc over two 4096-row splits
+    elif product in ("tail bwd dg", "tail bwd d_h"):  # depth 2F, 2Fin
+        depth, drifts = 512, False
+        a = rng.randn(64, depth).astype(np.float32)
+    elif product == "tail bwd logits":   # h_s (16, 64) @ w2k, never folded
+        depth, fold, drifts = 64, None, False
+        a = (0.5 * rng.randn(16, depth)).astype(np.float32)
+    else:                                # x^T Gc, g^T dy, h^T dv: 2 splits
         depth, splits = 4096, 2
         a = rng.randn(64, splits * depth).astype(np.float32)
+        if product == "tail bwd d_wi":   # gated g = LeakyReLU(.) * weight
+            a = np.maximum(a, 0.01 * a) * rng.rand(*a.shape).astype(
+                np.float32)
     b = (rng.randn(splits * depth, 64) * depth ** -0.5).astype(np.float32)
     want = a.astype(np.float64) @ b.astype(np.float64)
 
@@ -184,8 +200,9 @@ def test_folded_chains_keep_fp32_accuracy(product):
             out += mma_product(a[:, rows], b[rows], three_pass, fold)
         return out.astype(np.float32)
 
-    assert rel(core(FOLD_STEPS), want) <= 1e-5
-    assert rel(core(None), want) > 1e-5
+    assert rel(core(fold), want) <= 1e-5
+    if drifts:
+        assert rel(core(None), want) > 1e-5
 
 
 def gather_sums(P, idx, pb_point, pb_merge, pcat, ppoint, k, window,

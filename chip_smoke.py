@@ -56,7 +56,10 @@ The train slice, in the same phases:
    equal to the forward gate's under ``torch.equal``;
    ``local_mean_cov`` forward with neighbour sets equal except at near-ties
    (PR 1's rule), mu and cov rel <= 1e-4 over the centers whose sets agree,
-   its backward rel <= 1e-4 given the same selection;
+   its residual (theta, the k-th distance, and tie, the k-th index) equal
+   to ``residual_plain``'s and rebuilding every center's set exactly, its
+   backward from that residual rel <= 1e-4 of ``bwd_plain`` given the same
+   selection;
 3t. drives the train path through the trainer's entry point
    (``PDGNTrainer.train``, what ``--phase train`` runs) at full width,
    B=35, synthetic data: 21 steps (one warm-up, twenty timed) with every
@@ -68,12 +71,14 @@ The train slice, in the same phases:
    back; prints train steps/s at B=35;
 4t. times each train kernel at the train path's B=35 shapes beside its plain
    version and its bound, and holds its outputs to phase 2t's tolerances;
-   ``local_mean_cov``'s forward at all 9 calls of a train step (the shape
-   loss's 3 self and 6 cross pairs over clouds of 256-2048 points), each
-   selection equal to the plain one, mu and cov rel <= 1e-4, its time and
-   bound the sums over the 9; prints the head backward's input-gradient
-   product alone (Gc @ W_conv on the shared core) against ``torch.addmm``
-   in fp32.
+   ``local_mean_cov``'s forward and backward at all 9 calls of a train
+   step (the shape loss's 3 self and 6 cross pairs over clouds of 256-2048
+   points), each selection equal to the plain one, mu and cov rel <= 1e-4,
+   the residual as in 2t, d_src rel <= 1e-4 of ``bwd_plain``; their times
+   and bounds the sums over the 9 (the backward's device time with its
+   launches queued back to back; its largest call also timed unqueued, the
+   earlier measure); prints the head backward's input-gradient product alone
+   (Gc @ W_conv on the shared core) against ``torch.addmm`` in fp32.
 
 The test slice, in the same phases:
 
@@ -199,6 +204,25 @@ def time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """ms per call of ``fn`` with its launches queued behind a sleeping
+    kernel, so the card runs them back to back: device time, without the
+    gaps of host calls slower than the kernels they launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)        # ~25 ms at 1.98 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -737,12 +761,32 @@ def local_case(B: int, M: int, N: int, gen, dev):
     return src.contiguous(), centers, g_mu, g_cov
 
 
+def check_residual(src, centers, k, idx, theta, tie, label: str) -> None:
+    """The forward kernel's residual equal to ``residual_plain``'s on the
+    kernel's indices (``torch.equal``), and rebuilding each center's set
+    exactly: ``d < theta | (d == theta & j <= tie)`` selects the k points
+    of ``idx`` and no other."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.local_stats import (residual_plain,
+                                                        selection_mask)
+
+    theta_p, tie_p = residual_plain(src, centers, idx)
+    require(torch.equal(theta, theta_p) and torch.equal(tie, tie_p),
+            f"local stats {label}: the residual differs from the plain one")
+    mask = selection_mask(src, centers, theta, tie)
+    want = torch.zeros_like(mask).scatter_(-1, idx.long(), True)
+    require(torch.equal(mask, want),
+            f"local stats {label}: the residual does not rebuild the set")
+    del mask, want
+
+
 def compare_local(case, label: str, k: int = 20):
     """Forward: neighbour sets equal except at near-ties (at most 0.1% of
     the centers, each mismatched neighbour within 1e-5 relative distance of
     the one it replaces); mu and cov rel <= 1e-4 over the centers whose sets
-    agree. Backward rel <= 1e-4 given the kernel's selection. Returns the
-    largest absolute errors of the forward and the backward."""
+    agree; the residual as ``check_residual`` holds it. Backward from the
+    residual rel <= 1e-4 of ``bwd_plain`` given the kernel's selection.
+    Returns the largest absolute errors of the forward and the backward."""
     import torch
     from pdgn_tpu_torch.ops.kernels.local_stats import (bwd_kernel,
                                                         bwd_plain,
@@ -751,7 +795,7 @@ def compare_local(case, label: str, k: int = 20):
                                                         stats_given_idx)
 
     src, centers, g_mu, g_cov = case
-    idx_k, mu, cov = fwd_kernel(src, centers, k)
+    idx_k, theta, tie, mu, cov = fwd_kernel(src, centers, k)
     idx_p = knn_direct(src, centers, k)
     set_k = torch.sort(idx_k, -1).values
     set_p = torch.sort(idx_p, -1).values
@@ -767,16 +811,18 @@ def compare_local(case, label: str, k: int = 20):
         del d, dk, dp
     require(frac <= 1e-3 and gap <= 1e-5,
             f"local stats {label}: {frac} of the sets differ, gap {gap}")
+    check_residual(src, centers, k, idx_k, theta, tie, label)
     keep = ~differ
     mu_p, cov_p = stats_given_idx(src, idx_p.long())
     e_mu = rel(mu[keep], mu_p[keep])
     e_cov = rel(cov[keep], cov_p[keep])
-    d_k = bwd_kernel(src, idx_k, mu, g_mu, g_cov)
+    d_k = bwd_kernel(src, centers, theta, tie, mu, g_mu, g_cov, k)
     d_p = bwd_plain(src, idx_k, g_mu, g_cov)
     e_b = rel(d_k, d_p)
     log(f"  local_stats {label}: sets differ at {frac:.6f} of the centers "
-        f"(max near-tie gap {gap:.3e}), mu rel {e_mu:.3e}, cov rel "
-        f"{e_cov:.3e}, d_src rel {e_b:.3e}")
+        f"(max near-tie gap {gap:.3e}), residual equal to the plain one and "
+        f"rebuilding every set, mu rel {e_mu:.3e}, cov rel {e_cov:.3e}, "
+        f"d_src rel {e_b:.3e}")
     require(e_mu <= 1e-4 and e_cov <= 1e-4, f"local stats {label} fwd")
     require(e_b <= 1e-4, f"local stats {label} bwd: {e_b}")
     return (max(max_abs(mu[keep], mu_p[keep]), max_abs(cov[keep], cov_p[keep])),
@@ -1057,11 +1103,6 @@ def time_train_kernels(dev, gen) -> dict:
                                                            tail_bwd_plain)
     from pdgn_tpu_torch.ops.kernels.edge_head import (head_bwd_kernel,
                                                       head_bwd_plain)
-    from pdgn_tpu_torch.ops.kernels.local_stats import (bwd_kernel,
-                                                        bwd_plain,
-                                                        fwd_kernel,
-                                                        knn_direct,
-                                                        stats_given_idx)
 
     B = TRAIN_B
     hk = K // 2
@@ -1157,36 +1198,80 @@ def time_train_kernels(dev, gen) -> dict:
     res["bilateral_tail_plain_bwd"]["max_abs_err"] = compare_tail_bwd(
         targs, dy, f"stage 1 B={B} plain")
     del targs, dy
+    res.update(time_local_stats(B, gen, dev))
+    return res
 
-    # local stats forward: the 9 calls of one train step (the shape loss's 3
-    # self and 6 cross pairs), timed and bounded one by one and summed; each
-    # selection equal to the plain one, mu and cov rel <= 1e-4. Its least
-    # work: the distances (3 sub, 3 mul, 2 add) and one compare per
-    # (center, point).
+
+def time_local_stats(B: int, gen, dev) -> dict:
+    """Phase 4t's local statistics at batch ``B``: the forward's and the
+    backward's entries of the kernels line."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.local_stats import (bwd_kernel,
+                                                        bwd_mask_plain,
+                                                        bwd_plain,
+                                                        fwd_kernel,
+                                                        knn_direct,
+                                                        stats_given_idx)
+
+    res = {}
+    # local stats, forward and backward: the 9 calls of one train step (the
+    # shape loss's 3 self and 6 cross pairs), timed and bounded one by one
+    # and summed; each selection equal to the plain one, mu and cov rel <=
+    # 1e-4, the residual equal to the plain one and rebuilding every set,
+    # d_src rel <= 1e-4 of bwd_plain. The forward's least work: the
+    # distances (3 sub, 3 mul, 2 add) and one compare per (center, point);
+    # the backward's: the same per (center, point), and 24 FLOP per
+    # selected pair (k a center). The backward's launches take ~10 us, as
+    # long as their host calls, so they are timed queued behind a sleeping
+    # kernel (device time back to back); the largest call also as before.
     kk = 20
     clouds = shape_loss_clouds(B, gen, dev)
     ms = plain = err = 0.0
     bounds = []
+    bwd = {"ms": 0.0, "plain_ms": 0.0, "gather_vjp_ms": 0.0, "err": 0.0,
+           "bounds": [], "by_call": []}
     for M, N in SHAPE_LOSS_CALLS:
         src, centers = clouds[N], clouds[M]
         ms += time_ms(lambda: fwd_kernel(src, centers, kk), 10)
         plain += time_ms(lambda: stats_given_idx(
             src, knn_direct(src, centers, kk).long()), 2)
         bounds.append(bound(9.0 * B * M * N, 4.0 * (
-            B * N * 3 + B * M * 3 + B * M * (3 + 9 + kk))))
-        idx_k, mu_k, cov_k = fwd_kernel(src, centers, kk)
+            B * N * 3 + B * M * 3 + B * M * (3 + 9 + kk + 2))))
+        idx_k, theta, tie, mu_k, cov_k = fwd_kernel(src, centers, kk)
         idx_p = knn_direct(src, centers, kk)
         mu_p, cov_p = stats_given_idx(src, idx_p.long())
         e_mu, e_cov = rel(mu_k, mu_p), rel(cov_k, cov_p)
-        log(f"  local_stats M={M} N={N} B={B}: indices equal "
-            f"{bool(torch.equal(idx_k, idx_p))}, mu rel {e_mu:.3e}, cov rel "
-            f"{e_cov:.3e}")
+        label = f"M={M} N={N} B={B}"
         require(torch.equal(idx_k, idx_p),
-                f"local stats M={M} N={N}: the selection differs")
+                f"local stats {label}: the selection differs")
         require(e_mu <= 1e-4 and e_cov <= 1e-4,
-                f"local stats M={M} N={N}: mu {e_mu}, cov {e_cov}")
+                f"local stats {label}: mu {e_mu}, cov {e_cov}")
         err = max(err, max_abs(mu_k, mu_p), max_abs(cov_k, cov_p))
-        del idx_k, mu_k, cov_k, idx_p, mu_p, cov_p
+        check_residual(src, centers, kk, idx_k, theta, tie, label)
+        g_mu = torch.randn(B, M, 3, generator=gen, device=dev)
+        g_cov = torch.randn(B, M, 9, generator=gen, device=dev)
+        bargs = (src, centers, theta, tie, mu_k, g_mu, g_cov, kk)
+        d_k = bwd_kernel(*bargs)
+        d_p = bwd_plain(src, idx_k, g_mu, g_cov)
+        e_b = rel(d_k, d_p)
+        require(e_b <= 1e-4, f"local stats {label} bwd: {e_b}")
+        bwd["err"] = max(bwd["err"], max_abs(d_k, d_p))
+        row = {"M": M, "N": N, "ms": queued_ms(lambda: bwd_kernel(*bargs),
+                                               20),
+               "plain_ms": time_ms(lambda: bwd_mask_plain(*bargs), 2),
+               "gather_vjp_ms": time_ms(lambda: bwd_plain(
+                   src, idx_k, g_mu, g_cov), 2),
+               "bound": bound(9.0 * B * M * N + 24.0 * B * M * kk, 4.0 * (
+                   B * N * 3 + B * M * (3 + 2 + 3 + 3 + 9) + B * N * 3))}
+        for key in ("ms", "plain_ms", "gather_vjp_ms"):
+            bwd[key] += row[key]
+        bwd["bounds"].append(row["bound"])
+        bwd["by_call"].append(row)
+        log(f"  local_stats {label}: indices equal, residual equal to the "
+            f"plain one and rebuilding every set, mu rel {e_mu:.3e}, cov rel "
+            f"{e_cov:.3e}, d_src rel {e_b:.3e}; bwd {row['ms']:.4f} ms "
+            f"(queued), bound {row['bound'][0]:.4f} ms")
+        del idx_k, theta, tie, mu_k, cov_k, idx_p, mu_p, cov_p, d_k, d_p
     res["local_stats_fwd"] = {
         "ms": ms, "plain_ms": plain, "bound_ms": sum(b for b, _ in bounds),
         "bound_by": max(bounds)[1],
@@ -1195,21 +1280,36 @@ def time_train_kernels(dev, gen) -> dict:
                  f"(M, N) in {SHAPE_LOSS_CALLS}"}
     del clouds
 
-    # local stats backward, the largest call of the step: 2048 points, 1024
-    # centers; per (center, slot): G y and alpha, ~24 FLOP
+    # the backward's largest call of the step, 2048 points, 1024 centers,
+    # also timed unqueued (the earlier measure) and checked as in 2t
     M, N = 1024, 2048
     case = local_case(B, M, N, gen, dev)
     src, centers, g_mu, g_cov = case
-    idx_k, mu_k, _ = fwd_kernel(src, centers, kk)
-    b, by = bound(24.0 * B * M * kk,
-                  4.0 * (B * N * 3 + B * M * kk + B * M * 15 + B * N * 3))
-    res["local_stats_bwd"] = {
-        "ms": time_ms(lambda: bwd_kernel(src, idx_k, mu_k, g_mu, g_cov), 10),
-        "plain_ms": time_ms(lambda: bwd_plain(src, idx_k, g_mu, g_cov), 5),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
+    _, theta, tie, mu_k, _ = fwd_kernel(src, centers, kk)
+    largest = {
+        "ms": time_ms(lambda: bwd_kernel(src, centers, theta, tie, mu_k,
+                                         g_mu, g_cov, kk), 10),
+        "queued_ms": queued_ms(lambda: bwd_kernel(
+            src, centers, theta, tie, mu_k, g_mu, g_cov, kk), 20),
+        "plain_ms": time_ms(lambda: bwd_mask_plain(
+            src, centers, theta, tie, mu_k, g_mu, g_cov, kk), 5),
+        "bound_ms": bound(9.0 * B * M * N + 24.0 * B * M * kk, 4.0 * (
+            B * N * 3 + B * M * 20 + B * N * 3))[0],
         "shape": f"B={B}, M={M} centers, N={N} points, k={kk}"}
-    res["local_stats_bwd"]["max_abs_err"] = compare_local(
-        case, f"M={M} N={N} B={B}")[1]
+    err_b = max(bwd["err"], compare_local(case, f"M={M} N={N} B={B}")[1])
+    res["local_stats_bwd"] = {
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "gather_vjp_ms": bwd["gather_vjp_ms"],
+        "bound_ms": sum(b for b, _ in bwd["bounds"]),
+        "bound_by": max(bwd["bounds"])[1], "library_ms": None,
+        "max_abs_err": err_b, "largest_call": largest,
+        "by_call": bwd["by_call"],
+        "shape": f"the 9 calls of a train step summed (device time queued), "
+                 f"B={B}, k={kk}, (M, N) in {SHAPE_LOSS_CALLS}"}
+    log(f"  local_stats_bwd largest call ({largest['shape']}): "
+        f"{largest['ms']:.4f} ms, queued {largest['queued_ms']:.4f} ms, "
+        f"plain {largest['plain_ms']:.3f} ms, bound "
+        f"{largest['bound_ms']:.4f} ms")
     return res
 
 
@@ -2035,7 +2135,7 @@ def main(argv=None) -> int:
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-        for extra in ("cdist_topk_ms", "sub_yardstick"):
+        for extra in ("cdist_topk_ms", "sub_yardstick", "largest_call"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
         log(f"  {name} ({t['shape']}): {t['ms']:.3f} ms, plain "

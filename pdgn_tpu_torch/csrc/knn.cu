@@ -11,13 +11,14 @@
 // k neighbours' rows copied into nbr (B, M, k, C). The same selection
 // (knn_select, declared in knn.cuh) builds the edge-conv head's graph in
 // edge_head.cu (self-kNN for k+1, slot 0 dropped, always the norm
-// expansion) and the neighbourhoods of local_stats.cu's wide shapes.
+// expansion) and local_stats.cu's neighbourhoods.
 //
 // Distances, as the TPU kernel takes them:
 //   C <= 4: fp32 direct differences, channel by channel from 0, each product
-//     and sum rounded on its own (__fmul_rn/__fadd_rn, never contracted into
-//     an FMA), so the plain version's elementwise PyTorch arithmetic gives the
-//     same bits and both select the same neighbours;
+//     and sum rounded on its own (direct_dist in knn.cuh: __fmul_rn/__fadd_rn,
+//     never contracted into an FMA), so the plain version's elementwise
+//     PyTorch arithmetic gives the same bits and both select the same
+//     neighbours, and local_stats.cu's backward recomputes them exactly;
 //   C > 4: the norm expansion (|q|^2 - 2<q,y>) + |y|^2, every sum an fmaf
 //     chain over ascending channels (the rounding of the port's earlier
 //     kernel, so the head's graph keeps its bits; the TPU kernel's bf16 MXU
@@ -253,28 +254,6 @@ struct WarpList {
   }
 };
 
-__device__ __forceinline__ float4 load_row4(const float* p, int C) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  v.x = p[0];
-  if (C > 1) v.y = p[1];
-  if (C > 2) v.z = p[2];
-  if (C > 3) v.w = p[3];
-  return v;
-}
-
-// C <= 4: ((d0 + d1) + d2) + d3 with d_c = (q_c - y_c)^2, every step rounded
-// (zero-padded channels add an exact 0)
-__device__ __forceinline__ float direct_dist(float4 q, float4 y) {
-  float e = __fsub_rn(q.x, y.x);
-  float d = __fmul_rn(e, e);
-  e = __fsub_rn(q.y, y.y);
-  d = __fadd_rn(d, __fmul_rn(e, e));
-  e = __fsub_rn(q.z, y.z);
-  d = __fadd_rn(d, __fmul_rn(e, e));
-  e = __fsub_rn(q.w, y.w);
-  return __fadd_rn(d, __fmul_rn(e, e));
-}
-
 // Direct path: warp w of a block takes query blockIdx.x * (8 / split) +
 // w / split of sample blockIdx.y and part w % split of its 32-row chunks.
 template <int KP, bool kGather>
@@ -293,7 +272,7 @@ knn_direct_kernel(const float* __restrict__ q, const float* __restrict__ db,
   WarpList<KP> list;
   list.init();
   if (live) {
-    const float4 qv = load_row4(q + ((size_t)b * M + qi) * C, C);
+    const float4 qv = pdgn::load_row4(q + ((size_t)b * M + qi) * C, C);
     const int chunks = (N + 31) / 32;
     const int c1 = (part + 1) * chunks / split;
     int c = part * chunks / split;
@@ -305,7 +284,8 @@ knn_direct_kernel(const float* __restrict__ q, const float* __restrict__ db,
 #pragma unroll
       for (int r = 0; r < KP; ++r) {
         const int j = c * 32 + lane * KP + r;
-        v[r] = j < end ? direct_dist(qv, load_row4(dbb + (size_t)j * C, C))
+        v[r] = j < end ? pdgn::direct_dist(
+                             qv, pdgn::load_row4(dbb + (size_t)j * C, C))
                        : INFINITY;
         jj[r] = j < end ? j : INT_MAX;
       }
@@ -317,7 +297,7 @@ knn_direct_kernel(const float* __restrict__ q, const float* __restrict__ db,
       float v = INFINITY;
       int jj = INT_MAX;
       if (j < N) {
-        v = direct_dist(qv, load_row4(dbb + (size_t)j * C, C));
+        v = pdgn::direct_dist(qv, pdgn::load_row4(dbb + (size_t)j * C, C));
         jj = j;
       }
       list.offer(v, jj, K);

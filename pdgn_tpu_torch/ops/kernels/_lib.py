@@ -46,8 +46,8 @@ _SIGNATURES = {
     "pdgn_edge_head_bwd": [_P] * 4 + [_I] * 8 + [_P] * 10 + [_P] * 15
                           + [_P],
     "pdgn_bilateral_tail_bwd": [_P] * 12 + [_I] * 8 + [_P] * 12 + [_P],
-    "pdgn_local_stats_fwd": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "pdgn_local_stats_bwd": [_P] * 5 + [_I] * 4 + [_P] * 5 + [_P],
+    "pdgn_local_stats_fwd": [_P, _P, _I, _I, _I, _I] + [_P] * 5 + [_P],
+    "pdgn_local_stats_bwd": [_P] * 7 + [_I] * 4 + [_P, _P],
     "pdgn_emd_cd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                     _P],
     "pdgn_knn_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P],

@@ -1,13 +1,19 @@
 """Local neighbourhood mean and covariance (port of
 pdgn_tpu/ops/pallas/local_stats.py), the core of the shape-preserving loss.
 
-:func:`local_mean_cov` is a ``torch.autograd.Function``. CUDA tensors
-launch ``csrc/local_stats.cu`` for the forward (``knn_select``'s kNN, a warp
-a center, then the moments; the k indices saved) and for the backward (a
-gather over the reverse adjacency of those indices). CPU tensors run the
-plain versions: :func:`knn_direct` + :func:`stats_given_idx` forward, and
-the autograd VJP of :func:`stats_given_idx` backward. Centers get no
-gradient: they only steer the graph.
+:func:`local_mean_cov` is a ``torch.autograd.Function``. Its forward keeps
+the TPU kernel's residual, two words a center: ``theta``, the distance of
+the k-th selected point, and ``tie``, that point's index. The selected set
+is exactly ``d < theta | (d == theta & j <= tie)``, so the backward rebuilds
+it from them instead of k saved indices. CUDA tensors launch
+``csrc/local_stats.cu`` for the forward (``knn_select``'s kNN, a warp a
+center, then the moments and the residual) and for the backward (a block of
+source points walks every center of its cloud and tests the residual). CPU
+tensors run the plain versions: :func:`knn_direct` + :func:`stats_given_idx`
++ :func:`residual_plain` forward, :func:`bwd_mask_plain` backward.
+:func:`bwd_plain`, autograd's VJP of :func:`stats_given_idx`, is the
+independent check of both backwards. Centers get no gradient: they only
+steer the graph.
 """
 
 from __future__ import annotations
@@ -24,14 +30,43 @@ MAX_K = 128
 MAX_POINTS = 0x10000
 
 
+def _sq3(diff: torch.Tensor):
+    """``((dx*dx + dy*dy) + dz*dz)`` over the last axis, each step rounded
+    on its own, as the kernels' ``direct_dist`` rounds it."""
+    sq = diff * diff
+    return (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+
+
+def direct_sqdist(src: torch.Tensor, centers: torch.Tensor):
+    """``(B, M, N)`` fp32 direct distances from each center to each
+    point."""
+    return _sq3(centers[:, :, None, :] - src[:, None, :, :])
+
+
 def knn_direct(src: torch.Tensor, centers: torch.Tensor, k: int):
     """``(B, M, k)`` int32: the k nearest points of ``src`` to each center,
-    fp32 direct differences ``((dx*dx + dy*dy) + dz*dz)``, ascending, lowest
-    index first (the center itself is included when it is a point of src)."""
-    diff = centers[:, :, None, :] - src[:, None, :, :]    # (B, M, N, 3)
-    sq = diff * diff
-    d = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
-    return topk_ascending_idx(d, k)
+    by :func:`direct_sqdist`, ascending, lowest index first (the center
+    itself is included when it is a point of src)."""
+    return topk_ascending_idx(direct_sqdist(src, centers), k)
+
+
+def residual_plain(src: torch.Tensor, centers: torch.Tensor,
+                   idx: torch.Tensor):
+    """The selection's residual from ``knn_direct``'s ``idx``: ``theta (B,
+    M)`` fp32, the direct distance from each center to its k-th point, and
+    ``tie (B, M)`` int32, that point's index."""
+    tie = idx[..., -1]
+    y = torch.gather(src, 1, tie.long()[..., None].expand(-1, -1, 3))
+    return _sq3(centers - y), tie.to(torch.int32)
+
+
+def selection_mask(src, centers, theta, tie):
+    """``(B, M, N)`` bool: the set the residual selects, ``d < theta | (d ==
+    theta & j <= tie)``, with ``d`` from :func:`direct_sqdist`."""
+    d = direct_sqdist(src, centers)
+    j = torch.arange(src.shape[1], device=src.device)
+    th, ti = theta[..., None], tie[..., None]
+    return (d < th) | ((d == th) & (j <= ti))
 
 
 def compute_mean_covariance(grouped: torch.Tensor):
@@ -52,43 +87,57 @@ def stats_given_idx(src: torch.Tensor, idx: torch.Tensor):
 
 
 def fwd_kernel(src, centers, k: int):
-    """Launch the forward of ``csrc/local_stats.cu``: idx, mu, cov."""
+    """Launch the forward of ``csrc/local_stats.cu``: idx, theta, tie, mu,
+    cov."""
     B, N, _ = src.shape
     M = centers.shape[1]
     dev = src.device
     idx = torch.empty(B, M, k, device=dev, dtype=torch.int32)
+    theta = torch.empty(B, M, device=dev, dtype=torch.float32)
+    tie = torch.empty(B, M, device=dev, dtype=torch.int32)
     mu = torch.empty(B, M, 3, device=dev, dtype=torch.float32)
     cov = torch.empty(B, M, 9, device=dev, dtype=torch.float32)
     p = _lib.ptr
     _lib.check(_lib.library().pdgn_local_stats_fwd(
-        p(src), p(centers), B, N, M, k, p(idx), p(mu), p(cov),
-        _lib.stream_handle(dev)), "pdgn_local_stats_fwd")
+        p(src), p(centers), B, N, M, k, p(idx), p(theta), p(tie), p(mu),
+        p(cov), _lib.stream_handle(dev)), "pdgn_local_stats_fwd")
     _lib.LAUNCHES["local_stats_fwd"] += 1
-    return idx, mu, cov
+    return idx, theta, tie, mu, cov
 
 
-def bwd_kernel(src, idx, mu, g_mu, g_cov):
+def bwd_kernel(src, centers, theta, tie, mu, g_mu, g_cov, k: int):
     """Launch the backward of ``csrc/local_stats.cu``: d_src."""
     B, N, _ = src.shape
-    M, k = idx.shape[1], idx.shape[2]
-    dev = src.device
-    i32 = dict(device=dev, dtype=torch.int32)
-    count = torch.empty(B * N, **i32)
-    cursor = torch.empty(B * N, **i32)
-    offsets = torch.empty(B * N + 1, **i32)
-    entries = torch.empty(B * M * k, **i32)
+    M = centers.shape[1]
     d_src = torch.empty_like(src)
     p = _lib.ptr
     _lib.check(_lib.library().pdgn_local_stats_bwd(
-        p(src), p(idx), p(mu), p(g_mu), p(g_cov), B, N, M, k, p(count),
-        p(cursor), p(offsets), p(entries), p(d_src),
-        _lib.stream_handle(dev)), "pdgn_local_stats_bwd")
+        p(src), p(centers), p(theta), p(tie), p(mu), p(g_mu), p(g_cov), B,
+        N, M, k, p(d_src), _lib.stream_handle(src.device)),
+        "pdgn_local_stats_bwd")
     _lib.LAUNCHES["local_stats_bwd"] += 1
     return d_src
 
 
+def bwd_mask_plain(src, centers, theta, tie, mu, g_mu, g_cov, k: int):
+    """The plain backward from the residual (the TPU kernel's math): the
+    mask of :func:`selection_mask`, then ``d_src = S_alpha + S_G y`` with
+    the per-center rows ``[alpha | G]``, ``G = (g_cov + g_cov^T)/k``,
+    ``alpha = g_mu/k - G mu``, summed over the centers that select each
+    point."""
+    oh = selection_mask(src, centers, theta, tie).to(src.dtype)
+    G = (g_cov + g_cov.reshape(*g_cov.shape[:2], 3, 3).transpose(-1, -2)
+         .reshape(g_cov.shape)) / k                      # (B, M, 9)
+    alpha = g_mu / k - torch.einsum(
+        "bmij,bmj->bmi", G.reshape(*G.shape[:2], 3, 3), mu)
+    acc = torch.einsum("bmn,bmf->bnf", oh, torch.cat([alpha, G], -1))
+    s_g = acc[..., 3:].reshape(*acc.shape[:2], 3, 3)
+    return acc[..., :3] + torch.einsum("bnij,bnj->bni", s_g, src)
+
+
 def bwd_plain(src, idx, g_mu, g_cov):
-    """The plain backward: autograd's VJP of :func:`stats_given_idx`."""
+    """The plain backward given the indices: autograd's VJP of
+    :func:`stats_given_idx`."""
     with torch.enable_grad():
         s = src.detach().requires_grad_(True)
         mu, cov = stats_given_idx(s, idx.long())
@@ -101,21 +150,25 @@ class _LocalStats(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src, centers, k):
         if src.device.type == "cuda":
-            idx, mu, cov = fwd_kernel(src, centers, k)
+            _, theta, tie, mu, cov = fwd_kernel(src, centers, k)
         else:
             idx = knn_direct(src, centers, k)
             mu, cov = stats_given_idx(src, idx)
-        ctx.save_for_backward(src, idx, mu)
+            theta, tie = residual_plain(src, centers, idx)
+        ctx.save_for_backward(src, centers, theta, tie, mu)
+        ctx.k = k
         return mu, cov
 
     @staticmethod
     def backward(ctx, g_mu, g_cov):
-        src, idx, mu = ctx.saved_tensors
+        src, centers, theta, tie, mu = ctx.saved_tensors
         g_mu, g_cov = g_mu.contiguous(), g_cov.contiguous()
         if src.device.type == "cuda":
-            d_src = bwd_kernel(src, idx, mu, g_mu, g_cov)
+            d_src = bwd_kernel(src, centers, theta, tie, mu, g_mu, g_cov,
+                               ctx.k)
         else:
-            d_src = bwd_plain(src, idx, g_mu, g_cov)
+            d_src = bwd_mask_plain(src, centers, theta, tie, mu, g_mu, g_cov,
+                                   ctx.k)
         return d_src, None, None
 
 

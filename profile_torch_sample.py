@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the port's sampling path, its train step, or
-its test phase.
+"""Device-time breakdown of the port's sampling path, its train step, its
+test phase, or the backward of its local statistics.
 
 Profiles ``--reps`` iterations of ``pdgn_tpu_torch`` at full width (random
 weights from ``--seed``) with ``torch.profiler``: generator forwards of the
 sampler, with ``--train`` GAN train steps (``train_step`` on random real
 clouds), or with ``--test`` whole test phases (``PDGNTrainer.test(tile=64)``
-on ``--clouds`` synthetic clouds, sampled in batches of ``--batch``), after
-one warm-up iteration. Prints, per CUDA kernel name, its device time per
+on ``--clouds`` synthetic clouds, sampled in batches of ``--batch``), or
+with ``--local-stats`` the backward of each of the shape loss's 9
+``local_mean_cov`` calls of a train step alone (``torch.autograd.grad``
+through the public entry, so any checkout's kernels), after one warm-up
+iteration. Prints, per CUDA kernel name, its device time per
 iteration and share, plus the iteration's wall time and the share of it in
 which the device ran no kernel (negative if the kernel events overlap or are
 counted twice). With ``--wall`` it runs no profiler and prints each
@@ -20,6 +23,7 @@ card; run from the root of the repository::
     python3 profile_torch_sample.py --train --batch 35
     python3 profile_torch_sample.py --train --batch 35 --reps 30 --wall
     python3 profile_torch_sample.py --test --batch 35 --clouds 64 --reps 2
+    python3 profile_torch_sample.py --local-stats --batch 35 --reps 20
 """
 
 from __future__ import annotations
@@ -81,11 +85,49 @@ def test_iteration(batch: int, seed: int, dev, clouds: int, out_dir: str):
     return lambda: trainer.test(tile=64)
 
 
+def local_stats_bwd_iterations(batch: int, seed: int, dev):
+    """``(label, iteration)`` for each of the shape loss's 9 calls
+    (``chip_smoke.SHAPE_LOSS_CALLS`` on ``chip_smoke.shape_loss_clouds``):
+    the backward of one ``local_mean_cov`` call (k=20) with random
+    cotangents."""
+    import torch
+
+    from chip_smoke import SHAPE_LOSS_CALLS, shape_loss_clouds
+    from pdgn_tpu_torch.ops.kernels.local_stats import local_mean_cov
+
+    rng = torch.Generator(device=dev).manual_seed(seed)
+    clouds = shape_loss_clouds(batch, rng, dev)
+    out = []
+    for m, n in SHAPE_LOSS_CALLS:
+        src = clouds[n].clone().requires_grad_(True)
+        mu, cov = local_mean_cov(src, clouds[m], 20)
+        cts = (torch.randn(mu.shape, generator=rng, device=dev),
+               torch.randn(cov.shape, generator=rng, device=dev))
+        out.append((f"M={m} N={n}", lambda mu=mu, cov=cov, src=src, cts=cts:
+                    torch.autograd.grad((mu, cov), (src,), cts,
+                                        retain_graph=True)))
+    return out
+
+
+def profile_local_stats(batch: int, reps: int, seed: int) -> dict:
+    """The device time of each of the 9 backwards, profiled one by one, and
+    their sum."""
+    from pdgn_tpu_torch.utils.misc import resolve_device
+
+    dev = resolve_device("cuda")
+    calls = []
+    for label, iteration in local_stats_bwd_iterations(batch, seed, dev):
+        res = profile_iteration(iteration, batch, reps, f"backward {label}")
+        calls.append(dict(res, call=label))
+    return {"card": calls[0]["card"], "batch": batch,
+            "iteration": "local_mean_cov backward", "reps": reps,
+            "device_ms_sum": sum(c["device_busy_ms_per_iteration"]
+                                 for c in calls), "calls": calls}
+
+
 def profile(batch: int, reps: int, seed: int, train: bool = False,
             test: bool = False, clouds: int = 64, wall: bool = False) -> dict:
     import torch
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as tprofile
 
     from pdgn_tpu_torch.utils.misc import resolve_device
 
@@ -96,10 +138,10 @@ def profile(batch: int, reps: int, seed: int, train: bool = False,
     else:
         iteration = (train_iteration if train else sample_iteration)(
             batch, seed, dev)
-    iteration()                              # build + warm up
-    torch.cuda.synchronize()
     kind = "test phase" if test else "train step" if train else "forward"
     if wall:
+        iteration()                          # build + warm up
+        torch.cuda.synchronize()
         seconds = []
         for _ in range(reps):
             t0 = time.perf_counter()
@@ -111,6 +153,20 @@ def profile(batch: int, reps: int, seed: int, train: bool = False,
                 "iteration": kind, "reps": reps,
                 "iteration_seconds": seconds,
                 "iterations_per_s": reps / sum(seconds)}
+    res = profile_iteration(iteration, batch, reps, kind)
+    out_dir.cleanup()
+    return res
+
+
+def profile_iteration(iteration, batch: int, reps: int, kind: str) -> dict:
+    """``reps`` calls of ``iteration`` under ``torch.profiler`` after one
+    warm-up call: device time per CUDA kernel name, wall time, idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    iteration()                              # build + warm up
+    torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -118,7 +174,6 @@ def profile(batch: int, reps: int, seed: int, train: bool = False,
             iteration()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    out_dir.cleanup()
     rows = []
     for ev in prof.key_averages():
         # device-side kernel events only (the aten ops that launched them
@@ -148,7 +203,7 @@ def print_breakdown(res: dict) -> None:
           f"device busy {res['device_busy_ms_per_iteration']:.3f} ms, idle "
           f"share {res['idle_share']:.3f}")
     for k in res["kernels"][:30]:
-        print(f"{k['ms_per_iteration']:10.3f} ms {100 * k['share']:6.2f}% "
+        print(f"{k['ms_per_iteration']:10.4f} ms {100 * k['share']:6.2f}% "
               f"x{k['calls_per_iteration']:<4d} {k['name'][:110]}")
 
 
@@ -166,11 +221,22 @@ def main(argv=None) -> None:
                     help="test-set size of --test")
     ap.add_argument("--wall", action="store_true",
                     help="no profiler: each iteration's wall time only")
+    ap.add_argument("--local-stats", action="store_true",
+                    help="profile the backward of each of the shape loss's "
+                         "9 local_mean_cov calls alone")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    res = profile(args.batch, args.reps, args.seed, args.train, args.test,
-                  args.clouds, args.wall)
-    if args.wall:
+    if args.local_stats:
+        res = profile_local_stats(args.batch, args.reps, args.seed)
+    else:
+        res = profile(args.batch, args.reps, args.seed, args.train,
+                      args.test, args.clouds, args.wall)
+    if args.local_stats:
+        for call in res["calls"]:
+            print_breakdown(call)
+        print(f"{res['card']}: B={res['batch']}, the 9 backwards' device "
+              f"time summed {res['device_ms_sum']:.4f} ms")
+    elif args.wall:
         secs = sorted(res["iteration_seconds"])
         print(f"{res['card']}: B={res['batch']}, {res['reps']} "
               f"{res['iteration']}s: {res['iterations_per_s']:.4f} per s, "

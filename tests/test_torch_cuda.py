@@ -489,16 +489,45 @@ def test_product_core_transposed_splits(dev):
     assert _rel(got, a.double().T @ b.double()) <= 1e-5
 
 
+def _local_residual_checks(src, centers, k, g_mu, g_cov, tol=1e-4):
+    """The forward kernel's selection equal to the plain one, its residual
+    equal to ``residual_plain``'s and rebuilding that set (k points a
+    center), mu and cov rel <= tol; the backward kernel on that residual
+    rel <= tol of ``bwd_mask_plain`` and of ``bwd_plain``."""
+    from pdgn_tpu_torch.ops.kernels.local_stats import (bwd_kernel,
+                                                        bwd_mask_plain,
+                                                        bwd_plain,
+                                                        fwd_kernel,
+                                                        knn_direct,
+                                                        residual_plain,
+                                                        selection_mask,
+                                                        stats_given_idx)
+
+    idx, theta, tie, mu, cov = fwd_kernel(src, centers, k)
+    assert torch.equal(idx, knn_direct(src, centers, k))
+    theta_p, tie_p = residual_plain(src, centers, idx)
+    assert torch.equal(theta, theta_p) and torch.equal(tie, tie_p)
+    mask = selection_mask(src, centers, theta, tie)
+    assert torch.equal(mask, torch.zeros_like(mask).scatter_(
+        -1, idx.long(), True))
+    mu_p, cov_p = stats_given_idx(src, idx.long())
+    assert _rel(mu, mu_p) <= tol and _rel(cov, cov_p) <= tol
+    d_src = bwd_kernel(src, centers, theta, tie, mu, g_mu, g_cov, k)
+    assert _rel(d_src, bwd_mask_plain(src, centers, theta, tie, mu, g_mu,
+                                      g_cov, k)) <= tol
+    assert _rel(d_src, bwd_plain(src, idx, g_mu, g_cov)) <= tol
+    return d_src
+
+
 @pytest.mark.parametrize("B,M,N", [(2, 100, 300), (3, 128, 128)])
 def test_local_stats_kernels_match_plain(dev, B, M, N):
     """Forward: the same neighbour sets as the plain version (exact fp32
-    distances rounded alike), mu and cov rel <= 1e-4; backward rel <= 1e-4
-    given the same selection. The (3, 128, 128) case is self statistics
-    on a cloud with duplicated points (ties, lowest index first)."""
-    from pdgn_tpu_torch.ops.kernels.local_stats import (bwd_kernel, bwd_plain,
-                                                        fwd_kernel,
-                                                        knn_direct,
-                                                        stats_given_idx)
+    distances rounded alike), the residual (theta, tie) equal to the plain
+    one and rebuilding those sets, mu and cov rel <= 1e-4; backward from
+    the residual rel <= 1e-4 of both plain backwards, and a second launch
+    bit-identical. The (3, 128, 128) case is self statistics on a cloud
+    with duplicated points (ties, lowest index first)."""
+    from pdgn_tpu_torch.ops.kernels.local_stats import bwd_kernel, fwd_kernel
 
     g = torch.Generator(device=dev).manual_seed(B * M + N)
     src = torch.randn(B, N, 3, generator=g, device=dev)
@@ -507,15 +536,36 @@ def test_local_stats_kernels_match_plain(dev, B, M, N):
         centers = src
     else:
         centers = torch.randn(B, M, 3, generator=g, device=dev)
-    idx, mu, cov = fwd_kernel(src, centers, 20)
-    want_idx = knn_direct(src, centers, 20)
-    assert torch.equal(idx, want_idx)
-    mu_p, cov_p = stats_given_idx(src, idx.long())
-    assert _rel(mu, mu_p) <= 1e-4 and _rel(cov, cov_p) <= 1e-4
     g_mu = torch.randn(B, M, 3, generator=g, device=dev)
     g_cov = torch.randn(B, M, 9, generator=g, device=dev)
-    assert _rel(bwd_kernel(src, idx, mu, g_mu, g_cov),
-                bwd_plain(src, idx, g_mu, g_cov)) <= 1e-4
+    d_src = _local_residual_checks(src, centers, 20, g_mu, g_cov)
+    _, theta, tie, mu, _ = fwd_kernel(src, centers, 20)
+    assert torch.equal(d_src, bwd_kernel(src, centers, theta, tie, mu, g_mu,
+                                         g_cov, 20))
+
+
+# the shape loss's local_mean_cov calls of one train step, (M centers, N
+# points), as chip_smoke.py drives them
+SHAPE_LOSS_CALLS = ((256, 256), (512, 512), (1024, 1024), (256, 512),
+                    (256, 1024), (256, 2048), (512, 1024), (512, 2048),
+                    (1024, 2048))
+
+
+@pytest.mark.parametrize("M,N", SHAPE_LOSS_CALLS)
+def test_local_stats_residual_at_the_shape_loss_calls(dev, M, N):
+    """B=8 at each of the 9 shapes of a train step's shape loss, clouds
+    refined from the coarser one (every point twice, jittered): the
+    residual equal to ``residual_plain``'s and rebuilding the selection,
+    the backward rel <= 1e-4 of ``bwd_mask_plain`` and ``bwd_plain``."""
+    g = torch.Generator(device=dev).manual_seed(M + 3 * N)
+    clouds = {256: torch.randn(8, 256, 3, generator=g, device=dev)}
+    for n in (512, 1024, 2048):
+        clouds[n] = (clouds[n // 2].repeat_interleave(2, dim=1) + 0.02
+                     * torch.randn(8, n, 3, generator=g, device=dev))
+    g_mu = torch.randn(8, M, 3, generator=g, device=dev)
+    g_cov = torch.randn(8, M, 9, generator=g, device=dev)
+    _local_residual_checks(clouds[N].contiguous(), clouds[M].contiguous(), 20,
+                           g_mu, g_cov)
 
 
 @pytest.mark.parametrize("B,M,N,k,ties", [(2, 100, 300, 7, False),
@@ -556,23 +606,61 @@ def test_local_stats_wide_shapes_match_plain(dev, B, M, N, k, ties):
 
 def test_local_stats_hub_rows_beyond_shared_memory(dev):
     """40,000 equal points: every center's 24 neighbours are points 0..23
-    (ties, the lowest index first), so each of those rows is named by all
-    40,000 centers, a reverse-adjacency list longer than the sort's shared
-    memory; the backward still matches the plain version."""
+    (ties, the lowest index first), so theta = 0 and tie = 23 at every
+    center and only ``j <= tie`` decides the rebuilt selection; each of
+    those rows is selected by all 40,000 centers (1.6e9 tests in one
+    launch). The backward still matches the plain version."""
     from pdgn_tpu_torch.ops.kernels.local_stats import (bwd_kernel, bwd_plain,
                                                         fwd_kernel)
 
     N, k = 40_000, 24
     src = torch.full((1, N, 3), 0.25, device=dev)
-    idx, mu, cov = fwd_kernel(src, src, k)
+    idx, theta, tie, mu, cov = fwd_kernel(src, src, k)
     assert torch.equal(idx[0].long(),
                        torch.arange(k, device=dev).expand(N, k))
+    assert bool((theta == 0).all()) and bool((tie == k - 1).all())
     assert bool((mu == 0.25).all()) and bool((cov == 0).all())
     g = torch.Generator(device=dev).manual_seed(3)
     g_mu = torch.randn(1, N, 3, generator=g, device=dev)
     g_cov = torch.randn(1, N, 9, generator=g, device=dev)
-    assert _rel(bwd_kernel(src, idx, mu, g_mu, g_cov),
-                bwd_plain(src, idx, g_mu, g_cov)) <= 1e-4
+    d_src = bwd_kernel(src, src, theta, tie, mu, g_mu, g_cov, k)
+    assert bool((d_src[0, k:] == 0).all())
+    assert _rel(d_src, bwd_plain(src, idx, g_mu, g_cov)) <= 1e-4
+
+
+def test_head_backward_hub_rows_beyond_shared_memory(dev):
+    """9,000 equal rows: every row's graph is the same 10 rows (ties, the
+    lowest index first), so each of those is named by 9,000 rows, a
+    reverse-adjacency list longer than the sort's shared memory (8,192
+    entries, sorted in device memory instead); every gradient of the head
+    backward still rel <= 1e-4 of autograd's."""
+    from pdgn_tpu_torch.ops.kernels.edge_head import (head_bwd_kernel,
+                                                      head_bwd_plain)
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    B, N, C, k = 1, 9000, 8, 10
+    four_fin, two_f = 4 * C, 2 * C
+    window = k // 2 + 1
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    x = r(1, 1, C).expand(B, N, C).contiguous()
+    x_knn, wn, ca, pb, am, wen, pbm, window = head_operands(
+        x, r(1, window, 2 * C, four_fin) * 0.1, r(four_fin) * 0.1,
+        r(2 * k * 2 * C, two_f) * 0.05, k)
+    idx, inte = edge_head(x, x_knn, wn, ca, pb, am, wen, pbm, None, None, k,
+                          window)[:2]
+    assert bool((idx == idx[:, :1]).all())   # one graph row for all rows
+    cts = [r(*inte.shape), r(B, N, two_f), r(2, four_fin) * 0.01]
+    got = head_bwd_kernel(x, idx, inte, wn, ca, am, wen, None, None, cts, k)
+    want = head_bwd_plain(x, idx, wn, ca, pb, am, wen, pbm, None, None, cts,
+                          k, window)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            assert a is None, i
+        else:
+            assert _rel(a, b) <= 1e-4, (i, _rel(a, b))
 
 
 def test_local_stats_kernel_refuses_what_it_cannot_take(dev):

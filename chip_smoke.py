@@ -4,6 +4,7 @@
 Run from the root of the repository with no arguments::
 
     python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py --train-alone     # phase 3t alone (below)
 
 What it does, in order (any failure raises and the exit code is not 0):
 
@@ -68,7 +69,11 @@ The train slice, in the same phases:
    parameters moved, the launch counts per step (head 8 forward and 4
    backward, slot stats 6, gated tail 6 and 3, plain tail 2 and 1, local
    stats 9 and 9), and that both checkpoint bundles were written and load
-   back; prints train steps/s at B=35;
+   back; prints train steps/s at B=35 over the trainer's step span and
+   over each step's start to the next (the batch's production, copy and
+   wait included). ``--train-alone`` builds the kernels and runs this
+   phase alone; copied into another checkout's root, the script times
+   that checkout's trainer the same way;
 4t. times each train kernel at the train path's B=35 shapes beside its plain
    version and its bound, and holds its outputs to phase 2t's tolerances;
    ``local_mean_cov``'s forward and backward at all 9 calls of a train
@@ -110,6 +115,35 @@ The test slice, in the same phases:
    plain version on an 8x8 tile and, in 8x8 blocks, on the 64x64 tile's
    pairs; prints the time of the 2 x 2 set at n = 8192.
 
+The data slice, after 3e:
+
+3d. writes a shapenet15k-layout file under ``pdgn_tpu_torch/_build/``
+   (``tests/torch_h5_fixture.py``, no h5py: chair 175/8/64 clouds, airplane
+   4/2/4, 2048 points from a seed; chair's train split contiguous, its test
+   split chunked 5 clouds a chunk through shuffle and deflate, the last
+   chunk ragged) and reads every dataset back through
+   ``pdgn_tpu_torch.data.h5`` (``np.array_equal``); checks that
+   ``train_loader(ShapeNetCore(..., "chair", "train", "shape_unit"), 35)``
+   yields the host ``batch_iterator``'s batches on the same numpy seed;
+   times the loader over one epoch of 130 batches (a second file, 4,550
+   chairs) alone (batches/s, the first batch's latency) and under a 20 ms
+   stand-in step (a device sleep, synchronised each step as the trainer's
+   metrics are) against a plain synchronous copy in the consumer after the
+   same threaded host prefetch (pinned, plain, plain, pinned); runs
+   ``cli.main([... '--phase', 'train', '--dataset', 'shapenet15k',
+   '--choice', 'chair', '--batch_size', '35', '--max_epoch', '1',
+   '--profile_dir', P])`` at full width with every launch counter set to 0
+   just before and read just after (``PER_STEP`` a step, 5 steps, finite
+   losses, a trace under P, the sources copied); writes the trained state
+   as ``.msgpack`` bundles and reloads them into a fresh state (every
+   parameter, buffer, Adam moment and step ``torch.equal``); resumes from
+   them with ``--max_epoch 2`` (10 steps, ``PER_STEP`` each, none under
+   the profiler) and prints the share of their step wall time the consumer
+   waited on the loader, with and without each epoch's first batch; runs
+   ``--phase test --dataset shapenet15k --choice chair`` on the bundles
+   (``out.npy`` (64, 2048, 3), the 13 metric lines finite); deletes the
+   files.
+
 The point-ops slice, in the same phases:
 
 2p. ``knn_topk`` and ``knn_gather`` against their plain versions at B=8:
@@ -147,7 +181,8 @@ after 2p:
    CPU path's outputs as in phase 3) and its clouds/s at B=32.
 
 Last, it prints the ``{"kernels": [...]}`` line (``launches`` summed over
-the sample, train, test and point-ops runs, ``launches_by_path`` each),
+the sample, train, test, data and point-ops runs, ``launches_by_path``
+each),
 then the ``{"ok": ...}`` line.
 """
 
@@ -1034,6 +1069,7 @@ def train_path(ckpt_root: str) -> dict:
 
     import numpy as np
     import torch
+    import pdgn_tpu_torch.train.trainer as trainer_mod
     from pdgn_tpu_torch.ops.kernels import _lib
     from pdgn_tpu_torch.train import checkpoint as ckpt_lib
     from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
@@ -1049,9 +1085,21 @@ def train_path(ckpt_root: str) -> dict:
     n_g = sum(p.numel() for p in st.generator.parameters())
     require(n_g == 12_711_372, f"generator has {n_g} parameters")
     g_before = [p.detach().clone() for p in st.generator.parameters()]
+    # each step's start, for the period from one step to the next: it holds
+    # the batch's production, copy and wait whatever span the trainer times
+    starts, step_fn = [], trainer_mod.train_step
+
+    def timed_step(*args, **kwargs):
+        starts.append(time.perf_counter())
+        return step_fn(*args, **kwargs)
+
     np.random.seed(SEED)
     _lib.LAUNCHES.clear()
-    trainer.train(seed=SEED)
+    trainer_mod.train_step = timed_step
+    try:
+        trainer.train(seed=SEED)
+    finally:
+        trainer_mod.train_step = step_fn
     torch.cuda.synchronize()
     launches = dict(_lib.LAUNCHES)
     steps = len(trainer.step_seconds)
@@ -1085,10 +1133,15 @@ def train_path(ckpt_root: str) -> dict:
     del other
     timed = trainer.step_seconds[1:]
     sps = len(timed) / sum(timed)
+    periods = np.diff(starts[1:])
+    sps_period = len(periods) / float(periods.sum())
     log(f"  train step seconds {trainer.step_seconds}; steps/s at "
-        f"B={TRAIN_B} over the {len(timed)} timed steps: {sps:.4f}; last "
-        f"losses {m}; generator tensors moved {moved}")
+        f"B={TRAIN_B} over the {len(timed)} timed steps: {sps:.4f}; over "
+        f"each step's start to the next (steps 2..{steps}): "
+        f"{sps_period:.4f}; last losses {m}; generator tensors moved "
+        f"{moved}")
     return {"launches": launches, "steps_per_s": sps,
+            "steps_per_s_period": sps_period,
             "step_seconds": trainer.step_seconds, "metrics": m,
             "per_step": {k: v // steps for k, v in launches.items()}}
 
@@ -1626,6 +1679,294 @@ def time_emd_cd(dev) -> dict:
                      f"(plain: 64 tiles of 8x8)"}
 
 
+# ------------------------------------------------ the data slice: phase 3d
+DATA_LONG_BATCHES = 130  # the loader's timed epoch, about the real chair
+                         # train split's batches at B=35
+STANDIN_STEP_MS = 20.0   # device time of the step the loader feeds there
+
+
+def _metric_lines(run_dir: str) -> dict:
+    """The ``"%s: %.12f"`` result lines of a test phase's log."""
+    out = {}
+    with open(os.path.join(run_dir, "log.txt")) as f:
+        for ln in f:
+            body = ln.split("::test::INFO] ", 1)[-1].strip()
+            name, _, value = body.partition(": ")
+            try:
+                out[name] = float(value)
+            except ValueError:
+                continue
+    return out
+
+
+def _tensors_equal(x, y) -> bool:
+    import torch
+
+    return (x.dtype == y.dtype and x.shape == y.shape
+            and torch.equal(x.cpu(), y.cpu()))
+
+
+def _states_equal(a, b) -> bool:
+    """Every parameter, buffer, Adam moment and step of two GANStates."""
+    for ma, mb in zip((a.generator,) + a.discriminators,
+                      (b.generator,) + b.discriminators):
+        sa, sb = ma.state_dict(), mb.state_dict()
+        if sa.keys() != sb.keys() or not all(_tensors_equal(sa[k], sb[k])
+                                             for k in sa):
+            return False
+    for oa, ob in zip((a.g_opt,) + a.d_opts, (b.g_opt,) + b.d_opts):
+        sa, sb = oa.state_dict()["state"], ob.state_dict()["state"]
+        if sa.keys() != sb.keys():
+            return False
+        for i in sa:
+            if sa[i].keys() != sb[i].keys() or not all(
+                    _tensors_equal(sa[i][k], sb[i][k]) for k in sa[i]):
+                return False
+    return True
+
+
+def data_path(root: str, smi: str, dev) -> dict:
+    """Phase 3d: the hdf5 reader, the pinned loader and the CLI's
+    shapenet15k train, msgpack round trip, resume and test."""
+    import math
+
+    import numpy as np
+    import torch
+    from pdgn_tpu_torch import cli
+    from pdgn_tpu_torch.data import (ShapeNetCore, batch_iterator, h5,
+                                     train_loader)
+    from pdgn_tpu_torch.ops.kernels import _lib
+    from pdgn_tpu_torch.train import checkpoint as ckpt_lib
+    from pdgn_tpu_torch.train.trainer import PDGNTrainer
+
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import torch_h5_fixture as fx
+
+    work = os.path.join(root, "pdgn_tpu_torch", "_build", "smoke_data")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        path = os.path.join(work, "shapenet.hdf5")
+        clouds = fx.write_shapenet(path, SEED)
+        with h5.File(path) as f:
+            for syn, splits in clouds.items():
+                for split, want in splits.items():
+                    got = f[syn][split][...]
+                    require(got.dtype == want.dtype
+                            and np.array_equal(got, want),
+                            f"{syn}/{split} read back differs")
+            train, test = f[fx.CHAIR]["train"], f[fx.CHAIR]["test"]
+            require(train.chunks is None and test.chunks == fx.TEST_CHUNKS
+                    and test.compression == "gzip" and test.shuffle,
+                    "the file's layouts are not the ones written")
+        log(f"  {os.path.getsize(path)} bytes written and read back equal "
+            f"(chair train contiguous, test chunked {fx.TEST_CHUNKS} "
+            "shuffle+deflate)")
+
+        dset = ShapeNetCore(path, "chair", "train", "shape_unit")
+        np.random.seed(SEED)
+        host = list(batch_iterator(dset, TRAIN_B))
+        np.random.seed(SEED)
+        got = list(train_loader(dset, TRAIN_B, device=dev))
+        require(len(got) == len(host) and all(
+            all(torch.equal(torch.from_numpy(a), b.cpu())
+                for a, b in zip(h[:4], d[:4])) and h[4] == d[4]
+            for h, d in zip(host, got)),
+            "a loader batch differs from the host batch")
+        del got
+        loader = loader_times(work, smi, dev)
+
+        ckpt = os.path.join(work, "ckpt")
+        prof = os.path.join(work, "prof")
+        base = ["--network", "PDGNet_v2", "--model_dir", "smoke",
+                "--dataset", "shapenet15k", "--data_root", path,
+                "--choice", "chair", "--batch_size", str(TRAIN_B),
+                "--checkpoint_dir", ckpt,
+                "--save_dir", os.path.join(work, "results")]
+        steps = len(dset) // TRAIN_B
+        _lib.LAUNCHES.clear()
+        trainer = cli.main(base + ["--phase", "train", "--max_epoch", "1",
+                                   "--profile_dir", prof])
+        torch.cuda.synchronize()
+        launches = dict(_lib.LAUNCHES)
+        ran = len(trainer.step_seconds)
+        log(f"  cli --phase train --dataset shapenet15k --choice chair: "
+            f"{ran} steps at B={TRAIN_B}, launches {launches}")
+        require(ran == steps, f"{ran} steps ran, {steps} expected")
+        want = {k: v * steps for k, v in PER_STEP.items()}
+        require(launches == want, f"launches {launches} != {want}")
+        m = trainer.last_metrics
+        require(len(m) == 6 and all(math.isfinite(v) for v in m.values()),
+                f"losses {m}")
+        traces = os.listdir(prof) if os.path.isdir(prof) else []
+        require(any(t.endswith(".json") for t in traces),
+                f"no trace under {prof}: {traces}")
+        require(os.path.isfile(os.path.join(ckpt, "smoke", "generator.py")),
+                "the generator source was not copied")
+        paths = ckpt_lib.save(trainer.ckpt_dir, trainer.state, 1, "chair",
+                              fmt="msgpack")
+        fresh = PDGNTrainer(trainer.cfg)
+        fresh.build_model(seed=SEED + 3)
+        epoch = ckpt_lib.load(*paths, fresh.state)
+        require(epoch == 1 and _states_equal(trainer.state, fresh.state),
+                "the msgpack round trip is not exact")
+        log(f"  msgpack bundles {[os.path.getsize(p) for p in paths]} "
+            "bytes: every parameter, buffer, Adam moment and step equal "
+            "after the round trip")
+        del trainer, fresh
+        torch.cuda.empty_cache()
+
+        resume = ["--pretrain_model_G", "1_chair_G.msgpack",
+                  "--pretrain_model_D", "1_chair_D.msgpack"]
+        _lib.LAUNCHES.clear()
+        again = cli.main(base + ["--phase", "train", "--max_epoch", "2"]
+                         + resume)
+        torch.cuda.synchronize()
+        resumed = dict(_lib.LAUNCHES)
+        ran2 = len(again.step_seconds)
+        want2 = {k: v * 2 * steps for k, v in PER_STEP.items()}
+        require(ran2 == 2 * steps and resumed == want2,
+                f"resume: {ran2} steps, launches {resumed}")
+        require(all(math.isfinite(v) for v in again.last_metrics.values()),
+                f"resume losses {again.last_metrics}")
+        log(f"  resumed from 1_chair_*.msgpack to --max_epoch 2: {ran2} "
+            f"steps, launches {resumed}")
+        # the wait share over the resume's steps, none under the profiler:
+        # all of them, and without each epoch's first batch
+        w, st = again.wait_seconds, again.step_seconds
+        later = [i for i in range(ran2) if i % steps]
+        wait, step = sum(w), sum(st)
+        share = wait / (wait + step)
+        lw, ls = sum(w[i] for i in later), sum(st[i] for i in later)
+        later_share = lw / (lw + ls)
+        firsts = [w[i] for i in range(0, ran2, steps)]
+        log(f"  consumer blocked in the loader {wait:.6f} s of "
+            f"{wait + step:.6f} s step wall time over the resume's {ran2} "
+            f"steps (no profiler): share {share:.6f}; without each epoch's "
+            f"first batch (waits {firsts}) {later_share:.6f}; per step "
+            f"{w} on {smi}")
+        del again
+        torch.cuda.empty_cache()
+
+        _lib.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        cli.main(base + ["--phase", "test"] + resume)
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_launches = dict(_lib.LAUNCHES)
+        (run,) = os.listdir(os.path.join(work, "results"))
+        run = os.path.join(work, "results", run)
+        out = np.load(os.path.join(run, "out.npy"))
+        lines = _metric_lines(run)
+        log(f"  cli --phase test --dataset shapenet15k --choice chair: "
+            f"{test_s:.3f} s, out.npy {out.shape}, launches {test_launches}")
+        for k, v in lines.items():
+            log(f"    {k}: {v:.12f}")
+        want_out = (len(clouds[fx.CHAIR]["test"]), EMD_N, 3)
+        require(out.shape == want_out and bool(np.isfinite(out).all()),
+                f"out.npy {out.shape}, {want_out} expected")
+        require(len(lines) == 13 and all(math.isfinite(v)
+                                         for v in lines.values()),
+                f"metric lines {lines}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    total: dict = {}
+    for d in (launches, resumed, test_launches):
+        for k, v in d.items():
+            total[k] = total.get(k, 0) + v
+    return {"launches": total, "loader": loader, "wait_share": share,
+            "wait_share_after_first": later_share,
+            "first_batch_waits": firsts,
+            "wait_seconds": wait, "step_seconds": step,
+            "test_seconds": test_s, "metrics": lines}
+
+
+def _standin_epoch(batches, dev, cycles: int, copy: bool):
+    """One epoch read by a stand-in step: a device sleep of ``cycles`` and
+    a sum of each cloud tensor, synchronised every step as the trainer's
+    metrics are. ``copy``: the batch is on the host and is copied to the
+    card here, synchronously. Returns (wall s, s blocked on the batch)."""
+    import torch
+
+    acc = torch.zeros((), device=dev)
+    blocked = 0.0
+    it = iter(batches)
+    t0 = time.perf_counter()
+    while True:
+        tw = time.perf_counter()
+        b = next(it, None)
+        if b is None:
+            break
+        if copy:
+            b = [x.to(dev) for x in b[:4]]
+        blocked += time.perf_counter() - tw
+        torch.cuda._sleep(cycles)
+        for x in b[:4]:
+            acc += x.sum()
+        float(acc)
+    return time.perf_counter() - t0, blocked
+
+
+def loader_times(work: str, smi: str, dev) -> dict:
+    """The loader over one epoch of ``DATA_LONG_BATCHES`` batches of 35
+    chairs (a contiguous train split written from a seed): alone, against
+    the host batches alone, and under a stand-in step of
+    ``STANDIN_STEP_MS`` against a plain copy in the consumer after the same
+    threaded host prefetch (pinned ring, plain, plain, pinned ring)."""
+    import numpy as np
+    import torch
+    from pdgn_tpu_torch.data import ShapeNetCore, batch_iterator, train_loader
+
+    import torch_h5_fixture as fx
+
+    path = os.path.join(work, "long.hdf5")
+    fx.write_shapenet(path, SEED + 1, splits={
+        fx.CHAIR: {"train": DATA_LONG_BATCHES * TRAIN_B, "val": 1,
+                   "test": fx.TEST_CHUNKS[0]}})
+    dset = ShapeNetCore(path, "chair", "train", "shape_unit")
+    np.random.seed(SEED)
+    t0 = time.perf_counter()
+    n_host = sum(1 for _ in batch_iterator(dset, TRAIN_B))
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    first, n = None, 0
+    t0 = time.perf_counter()
+    for _batch in train_loader(dset, TRAIN_B, device=dev):
+        first = time.perf_counter() - t0 if first is None else first
+        n += 1
+    torch.cuda.synchronize()
+    loader_s = time.perf_counter() - t0
+    require(n == n_host == DATA_LONG_BATCHES, f"{n}, {n_host} batches")
+    bps = n / loader_s
+    log(f"  train_loader(ShapeNetCore chair train, {TRAIN_B}) alone, one "
+        f"epoch: {bps:.3f} batches/s ({n} batches in {loader_s:.4f} s, the "
+        f"first after {first:.6f} s; the host batches alone, "
+        f"batch_iterator: {n_host / host_s:.3f} batches/s) on {smi}")
+
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    end.synchronize()
+    cycles = int(10 ** 7 * STANDIN_STEP_MS / start.elapsed_time(end))
+    runs = {"pinned": [], "plain": []}
+    for kind in ("pinned", "plain", "plain", "pinned"):
+        pinned = kind == "pinned"
+        wall, blocked = _standin_epoch(
+            train_loader(dset, TRAIN_B, device=dev if pinned else "cpu"),
+            dev, cycles, copy=not pinned)
+        runs[kind].append({"wall_s": wall, "blocked_s": blocked})
+        log(f"  under a {STANDIN_STEP_MS} ms stand-in step, {kind} "
+            f"{'ring' if pinned else 'copy in the consumer'}: epoch "
+            f"{wall:.6f} s, consumer blocked {blocked:.6f} s on {smi}")
+    shutil.rmtree(os.path.join(work, "long_stats"), ignore_errors=True)
+    os.remove(path)
+    return {"batches_per_s": bps, "batches": n, "seconds": loader_s,
+            "first_batch_s": first, "host_batches_seconds": host_s,
+            "standin_step_ms": STANDIN_STEP_MS, "standin": runs}
+
+
 # ----------------------------------------- the point-ops slice: phase 2p
 PO_B = 35                # clouds of the point-ops path (generate() at B=35)
 PO_POINTS = 2048
@@ -2022,6 +2363,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the full results to this JSON file")
+    ap.add_argument("--train-alone", action="store_true",
+                    help="build the kernels, run phase 3t alone and print "
+                    "its steps/s; copied into another checkout's root, it "
+                    "times that checkout's trainer")
     args = ap.parse_args(argv)
 
     import torch
@@ -2051,6 +2396,18 @@ def main(argv=None) -> int:
     _lib.library()
     build_s = time.perf_counter() - t0
     log(f"kernels built and loaded in {build_s:.1f} s")
+    if args.train_alone:
+        ckpt_root = os.path.join(root, "pdgn_tpu_torch", "_build",
+                                 "smoke_train_alone")
+        try:
+            train = train_path(ckpt_root)
+        finally:
+            shutil.rmtree(ckpt_root, ignore_errors=True)
+        print(json.dumps({"card": smi,
+                          "train_steps_per_s_b35": train["steps_per_s"],
+                          "train_steps_per_s_period":
+                              train["steps_per_s_period"]}))
+        return 0
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     log("phase 2: kernels against their plain versions (B=8)")
@@ -2099,6 +2456,9 @@ def main(argv=None) -> int:
         test = test_path(root, ckpt_root, dev)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    log("phase 3d: data path, the hdf5 reader, the pinned loader and the "
+        "CLI's shapenet15k train, msgpack resume and test at full width")
+    data = data_path(root, smi, dev)
     log(f"phase 3p: point-ops path, pdgn_tpu_torch.ops at full width on "
         f"{PO_B} generated clouds")
     point_ops = point_ops_path(model, gen, dev)
@@ -2125,6 +2485,7 @@ def main(argv=None) -> int:
         by_path = {"sample": path["launches"].get(name, 0),
                    "train": train["launches"].get(name, 0),
                    "test": test["launches"].get(name, 0),
+                   "data": data["launches"].get(name, 0),
                    "point_ops": point_ops["launches"].get(name, 0)}
         require(sum(by_path.values()) > 0, f"{name} never launched")
         kernels.append({
@@ -2151,14 +2512,19 @@ def main(argv=None) -> int:
                        "kernels": kernels, "times": times, "path": path,
                        "core": core,
                        "wide": wide,
-                       "train": train, "test": test,
+                       "train": train, "test": test, "data": data,
                        "point_ops": point_ops}, f, indent=1)
     print(json.dumps({"card": smi,
                       "clouds_per_s_b128": path["clouds_per_s"],
                       "train_steps_per_s_b35": train["steps_per_s"],
+                      "train_steps_per_s_period":
+                          train["steps_per_s_period"],
                       "test_phase_s_64": test["seconds"],
                       "cd_emd_pairs_per_s": test["pairs_per_s"],
                       "chair_eval_min_estimate": test["chair_eval_min"],
+                      "loader_batches_per_s_b35":
+                          data["loader"]["batches_per_s"],
+                      "data_wait_share": data["wait_share"],
                       "point_ops_path_s": point_ops["seconds"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,11 @@ A second package beside the JAX one, with the same layout: ``models``
 shape-preserving), ``ops`` (kNN, gathers) and ``ops/kernels`` (the
 hand-written CUDA kernels of ``csrc/``, forward and backward, with their
 plain PyTorch versions), ``eval`` (the MMD/COV/1-NNA/JSD metric suite),
-``data`` (synthetic shapes), ``train`` (train step, trainer with the train
-and test phases, sampler, checkpoints, bulk generation) and ``cli``. It
-imports ``torch``, ``numpy`` and ``scipy``, never JAX or ``pdgn_tpu``.
+``data`` (shapenet15k through the package's own hdf5 reader, ModelNet,
+ShapeNet-part, synthetic shapes, augmentations, the pinned-memory loader),
+``train`` (train step, trainer with the train and test phases, sampler,
+``.pth`` and msgpack checkpoints, bulk generation), ``utils`` and ``cli``
+(also ``python -m pdgn_tpu_torch``). It imports ``torch``, ``numpy`` and
+``scipy``, never JAX, ``pdgn_tpu``, h5py or msgpack.
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

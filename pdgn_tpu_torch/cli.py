@@ -1,20 +1,29 @@
-"""Command-line interface of the PyTorch/CUDA port (the flags of
-pdgn_tpu/cli.py, plus ``--device``).
+"""Command-line interface of the PyTorch/CUDA port (every flag of
+pdgn_tpu/cli.py, ``--device`` taking ``cuda`` or ``cpu``).
 
-``--phase train`` and ``--phase test`` (synthetic data only) and
-``--phase sample`` (bulk generation) are ported. Run as::
+``--phase train``, ``--phase test`` (shapenet15k, ModelNet10/40 or
+synthetic data) and ``--phase sample`` (bulk generation). Run as
+``python -m pdgn_tpu_torch`` (the ``main.py``-style entry) or
+``python -m pdgn_tpu_torch.cli``::
 
-    python -m pdgn_tpu_torch.cli --network PDGNet_v2 --model_dir run1 \\
-        --phase train --dataset synthetic --max_epoch 1 --batch_size 35
-    python -m pdgn_tpu_torch.cli --network PDGNet_v2 --model_dir run1 \\
-        --phase test --dataset synthetic --pretrain_model_G 1_full_G.pth \\
-        --pretrain_model_D 1_full_D.pth
-    python -m pdgn_tpu_torch.cli --network PDGNet_v2 --model_dir run1 \\
+    python -m pdgn_tpu_torch --network PDGNet_v2 --model_dir run1 \\
+        --phase train --dataset shapenet15k --data_root shapenet.hdf5 \\
+        --choice chair --max_epoch 1 --batch_size 35
+    python -m pdgn_tpu_torch --network PDGNet_v2 --model_dir run1 \\
+        --phase test --dataset shapenet15k --data_root shapenet.hdf5 \\
+        --choice chair --pretrain_model_G 1_chair_G.pth \\
+        --pretrain_model_D 1_chair_D.pth
+    python -m pdgn_tpu_torch --network PDGNet_v2 --model_dir run1 \\
         --phase sample --num_samples 256 --batch_size 128
 
-Without ``--device cpu`` the run needs a CUDA card and fails loudly when
-none is visible. The port builds only exact kNN graphs: ``--exact_knn 0``
-(the fast bf16 graphs of the JAX package) is refused.
+``--pretrain_model_G/_D`` take ``.pth`` bundles or the JAX package's
+``.msgpack`` ones. The train phase copies the entry script and the port's
+generator source into ``<checkpoint_dir>/<model_dir>``; ``--profile_dir``
+writes a ``torch.profiler`` trace of global steps 2..4 there. Without
+``--device cpu`` the run needs a CUDA card and fails loudly when none is
+visible. The port builds only exact kNN graphs and computes in fp32:
+``--exact_knn 0`` (the fast bf16 graphs of the JAX package) and
+``--compute_dtype``/``--d_compute_dtype bfloat16`` are refused (exit 2).
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from __future__ import annotations
 import argparse
 import os
 import random
+import shutil
 import sys
 
 
@@ -57,12 +67,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help='PDGNet or PDGNet_v2')
     parser.add_argument('--savename', default=None)
     parser.add_argument('--pretrain_model_G', default=None,
-                        help='reference-format G .pth, relative to '
+                        help='G bundle (.pth, or the JAX package\'s '
+                             '.msgpack), relative to '
                              '<checkpoint_dir>/<model_dir>/<network>')
     parser.add_argument('--pretrain_model_D', default=None)
     parser.add_argument('--softmax', default='True')
     parser.add_argument('--dataset', default='shapenet15k',
-                        help='only synthetic is ported')
+                        help='[shapenet15k, modelnet10, modelnet40, '
+                             'synthetic]')
     parser.add_argument('--normalize', type=str, default='shape_bbox',
                         choices=[None, 'shape_unit', 'shape_bbox'])
     parser.add_argument('--seed', type=int, default=9999)
@@ -76,9 +88,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument('--base_points', type=int, default=128,
                         help='generator stage-1 points (128 = reference; '
                              'smaller shrinks every stage)')
+    parser.add_argument('--profile_dir', type=str, default=None,
+                        help='write a torch.profiler trace of steps 2..4')
     parser.add_argument('--compute_dtype', type=str, default=None,
-                        choices=[None, 'float32'],
-                        help='only fp32 is ported')
+                        choices=[None, 'float32', 'bfloat16'],
+                        help='only float32 is ported')
+    parser.add_argument('--d_compute_dtype', type=str, default=None,
+                        choices=[None, 'float32', 'bfloat16'],
+                        help='discriminator dtype: only float32 is ported')
     parser.add_argument('--exact_knn', type=str, default=None,
                         choices=[None, '0', '1'],
                         help='fp32-exact kNN graphs: the port builds only '
@@ -103,6 +120,11 @@ def check_args(args: argparse.Namespace) -> argparse.Namespace:
         print(" [!] --exact_knn 0 (fast bf16 kNN graphs) is not ported to "
               "pdgn_tpu_torch: it builds exact graphs only")
         sys.exit(2)
+    for flag in ('compute_dtype', 'd_compute_dtype'):
+        if getattr(args, flag) == 'bfloat16':
+            print(f" [!] --{flag} bfloat16 is not ported to pdgn_tpu_torch: "
+                  "it computes in float32 only")
+            sys.exit(2)
     return args
 
 
@@ -129,26 +151,47 @@ def _trainer(args: argparse.Namespace):
         pretrain_model_G=args.pretrain_model_G,
         pretrain_model_D=args.pretrain_model_D,
         softmax=(args.softmax == 'True'), dataset=args.dataset,
-        synthetic_size=args.synthetic_size,
+        data_root=args.data_root, synthetic_size=args.synthetic_size,
         max_steps_per_epoch=args.max_steps_per_epoch,
         base_points=args.base_points, normalize=args.normalize,
-        seed=args.seed, save_dir=args.save_dir, device=args.device)
+        seed=args.seed, save_dir=args.save_dir, device=args.device,
+        profile_dir=args.profile_dir)
     trainer = PDGNTrainer(cfg)
     trainer.build_model()
     return trainer
 
 
-def main(argv=None) -> None:
+def _copy_sources(args: argparse.Namespace) -> None:
+    """The train phase's backup of the entry script and the generator
+    source into ``<checkpoint_dir>/<model_dir>`` (reference main.py:97-99,
+    pdgn_tpu/cli.py:178-187); a source that cannot be copied is skipped."""
+    import pdgn_tpu_torch.models.generator as generator
+
+    dst = os.path.join(args.checkpoint_dir, args.model_dir)
+    os.makedirs(dst, exist_ok=True)
+    for src in (os.path.abspath(sys.argv[0]), generator.__file__):
+        try:
+            shutil.copy(src, dst)
+        except (OSError, shutil.SameFileError):
+            pass
+
+
+def main(argv=None):
+    """Runs one phase; returns the trainer of a train or test phase (its
+    step times and metrics), else None."""
     args = parse_args(argv)
     print(f'****************network: {args.network}****************')
     if args.phase == 'train':
-        _trainer(args).train()
+        trainer = _trainer(args)
+        _copy_sources(args)
+        trainer.train()
         print(" [*] Training finished!")
-        return
+        return trainer
     if args.phase == 'test':
-        _trainer(args).test()
+        trainer = _trainer(args)
+        trainer.test()
         print(" [*] Test finished!")
-        return
+        return trainer
     if args.phase == 'cls':
         print(" [!] phase 'cls' maps to extract_feature(), which the "
               "reference never defines (dead phase, main.py:108-109); "

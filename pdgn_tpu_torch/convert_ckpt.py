@@ -1,5 +1,5 @@
-"""Weights between the JAX package's flax trees and the port's
-``state_dict`` (port of pdgn_tpu/convert_ckpt.py:47-157).
+"""Weights and Adam state between the JAX package's flax trees and the
+port's ``state_dict`` (port of pdgn_tpu/convert_ckpt.py:47-253).
 
 The port's parameter names and layouts ARE the reference torch ones, so a
 reference ``.pth`` needs no conversion. :func:`generator_state_from_jax` and
@@ -8,8 +8,12 @@ reference ``.pth`` needs no conversion. :func:`generator_state_from_jax` and
 ``params``/``batch_stats`` (as numpy) -> a ``state_dict``, including the
 un-permutation of the window conv's block-ordered batch norm;
 :func:`edge_conv_state_from_jax` does the same for the plain ``EdgeConv``.
-Any tree shaped like ``params`` converts the same way (an Adam moment, for
-instance).
+:func:`generator_state_to_jax` and :func:`discriminator_state_to_jax` are
+their inverses (``convert_generator``'s direction), and
+:func:`adam_to_jax`/:func:`adam_from_jax` map torch's ``Adam`` state to
+optax's ``adam`` state and back (``convert_adam``'s direction and its
+inverse): the moments take the weights' layouts, optax ``count`` is torch
+``step``. All of them run on one table, :func:`tensor_map`.
 
 This module keeps its own copy of the rules: the port imports nothing of
 the JAX package.
@@ -93,36 +97,33 @@ def discriminator_rules(num_conv: int, num_linear: int
     return rules
 
 
-# flax kernel -> torch weight (inverses of convert_ckpt._WEIGHT_T)
-def _w_linear(k):
-    return k.T
+# torch weight <-> flax kernel: (to_jax, from_jax) per rule kind
+def _merge_to_jax(w):
+    # torch (2F, 2C, 1, 2k) -> slot-major (2k*2C, 2F)
+    two_f, two_c, _, two_k = w.shape
+    return np.transpose(w[:, :, 0, :], (2, 1, 0)).reshape(two_k * two_c,
+                                                          two_f)
 
 
-def _w_conv1d(k):
-    return k.T[:, :, None]
-
-
-def _w_conv1x1(k):
-    return k.T[:, :, None, None]
-
-
-def _w_window(k):
-    # flax HWIO (1, W, in, out) -> torch (out, in, 1, W)
-    return np.transpose(k, (3, 2, 0, 1))
-
-
-def _w_merge(k, two_k):
-    # slot-major (2k*2C, 2F) -> torch (2F, 2C, 1, 2k)
+def _merge_from_jax(k, two_k):
     rows, two_f = k.shape
     return np.transpose(k.reshape(two_k, rows // two_k, two_f),
                         (2, 1, 0))[:, :, None, :]
 
 
-def _get(tree: Dict, dotted: str):
-    node = tree
-    for part in dotted.split("."):
-        node = node[part]
-    return np.asarray(node, dtype=np.float32)
+_WEIGHTS = {
+    "linear": (lambda w: w.T, lambda k: k.T),
+    "conv1d": (lambda w: w[:, :, 0].T, lambda k: k.T[:, :, None]),
+    "conv1x1": (lambda w: w[:, :, 0, 0].T, lambda k: k.T[:, :, None, None]),
+    # torch (out, in, 1, W) <-> flax HWIO (1, W, in, out)
+    "window": (lambda w: np.transpose(w, (2, 3, 1, 0)),
+               lambda k: np.transpose(k, (3, 2, 0, 1))),
+}
+
+
+def _block(v):
+    """Reference channel order -> block order: ``blk[p] = ref[perm[p]]``."""
+    return v[np.asarray(_block_channel_perm(v.shape[0]))]
 
 
 def _unblock(v):
@@ -132,28 +133,81 @@ def _unblock(v):
     return out
 
 
-def _state_from_jax(rules, params: Dict, batch_stats: Dict,
-                    two_k: int = 0) -> Dict[str, torch.Tensor]:
-    sd: Dict[str, np.ndarray] = {}
+def _same(v):
+    return v
+
+
+def tensor_map(rules, two_k: int = 0):
+    """One entry per converted tensor: ``(torch name, "params" or
+    "batch_stats", flax dotted path, to_jax, from_jax)``. ``two_k`` is the
+    merge convs' slot count (2 * (num_k // 2)); BN's
+    ``num_batches_tracked`` has no flax counterpart and no entry."""
+    out = []
     for prefix, kind, fp in rules:
         if kind in ("bn", "bn_block"):
-            t = _unblock if kind == "bn_block" else (lambda v: v)
-            sd[f"{prefix}.weight"] = t(_get(params, f"{fp}.scale"))
-            sd[f"{prefix}.bias"] = t(_get(params, f"{fp}.bias"))
-            sd[f"{prefix}.running_mean"] = t(_get(batch_stats, f"{fp}.mean"))
-            sd[f"{prefix}.running_var"] = t(_get(batch_stats, f"{fp}.var"))
-            sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+            t = (_block, _unblock) if kind == "bn_block" else (_same, _same)
+            out += [(f"{prefix}.weight", "params", f"{fp}.scale", *t),
+                    (f"{prefix}.bias", "params", f"{fp}.bias", *t),
+                    (f"{prefix}.running_mean", "batch_stats", f"{fp}.mean",
+                     *t),
+                    (f"{prefix}.running_var", "batch_stats", f"{fp}.var",
+                     *t)]
             continue
-        kernel = _get(params, f"{fp}.kernel")
         if kind == "merge":
-            w = _w_merge(kernel, two_k)
+            t = (_merge_to_jax, lambda k: _merge_from_jax(k, two_k))
         else:
-            w = {"linear": _w_linear, "conv1d": _w_conv1d,
-                 "conv1x1": _w_conv1x1, "window": _w_window}[kind](kernel)
-        sd[f"{prefix}.weight"] = w
-        sd[f"{prefix}.bias"] = _get(params, f"{fp}.bias")
-    return {name: torch.from_numpy(np.array(v, copy=True))
-            for name, v in sd.items()}
+            t = _WEIGHTS[kind]
+        out += [(f"{prefix}.weight", "params", f"{fp}.kernel", *t),
+                (f"{prefix}.bias", "params", f"{fp}.bias", _same, _same)]
+    return out
+
+
+def _get(tree: Dict, dotted: str):
+    node = tree
+    for part in dotted.split("."):
+        node = node[part]
+    return np.asarray(node, dtype=np.float32)
+
+
+def _nest(flat: Dict[str, np.ndarray]) -> Dict:
+    out: Dict = {}
+    for k, v in flat.items():
+        node = out
+        parts = k.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = v
+    return out
+
+
+def _numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(v, np.float32)
+
+
+def _tensor(v) -> torch.Tensor:
+    return torch.from_numpy(np.array(v, np.float32, copy=True))
+
+
+def _state_from_jax(rules, params: Dict, batch_stats: Dict,
+                    two_k: int = 0) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    trees = {"params": params, "batch_stats": batch_stats}
+    for name, tree, fp, _, from_jax in tensor_map(rules, two_k):
+        sd[name] = _tensor(from_jax(_get(trees[tree], fp)))
+        if name.endswith(".running_var"):
+            sd[name[:-len("running_var")] + "num_batches_tracked"] = (
+                torch.zeros((), dtype=torch.int64))
+    return sd
+
+
+def _state_to_jax(rules, sd: Dict) -> Tuple[Dict, Dict]:
+    flat: Dict[str, Dict[str, np.ndarray]] = {"params": {},
+                                               "batch_stats": {}}
+    for name, tree, fp, to_jax, _ in tensor_map(rules):
+        flat[tree][fp] = np.ascontiguousarray(to_jax(_numpy(sd[name])))
+    return _nest(flat["params"]), _nest(flat["batch_stats"])
 
 
 def generator_state_from_jax(params: Dict, batch_stats: Dict,
@@ -186,3 +240,83 @@ def discriminator_state_from_jax(params: Dict, batch_stats: Dict
     num_linear = len(params) - num_conv
     return _state_from_jax(discriminator_rules(num_conv, num_linear), params,
                            batch_stats)
+
+
+def discriminator_rules_of(sd: Dict) -> List[Tuple[str, str, str]]:
+    """:func:`discriminator_rules` for the discriminator whose
+    ``state_dict`` is ``sd`` (Conv1d weights in ``fc1``, Linear in
+    ``mlp``)."""
+    num_conv = sum(1 for k, v in sd.items() if k.startswith("fc1.")
+                   and k.endswith(".weight") and v.ndim == 3)
+    num_linear = sum(1 for k in sd if k.startswith("mlp.")
+                     and k.endswith(".weight"))
+    return discriminator_rules(num_conv, num_linear)
+
+
+def generator_state_to_jax(sd: Dict) -> Tuple[Dict, Dict]:
+    """The port's generator ``state_dict`` -> flax ``(params,
+    batch_stats)`` as numpy (``pdgn_tpu.convert_ckpt.convert_generator``'s
+    layouts: block-ordered window BN, slot-major merge)."""
+    return _state_to_jax(generator_rules(), sd)
+
+
+def discriminator_state_to_jax(sd: Dict) -> Tuple[Dict, Dict]:
+    """The port's discriminator ``state_dict`` -> flax ``(params,
+    batch_stats)`` as numpy."""
+    return _state_to_jax(discriminator_rules_of(sd), sd)
+
+
+def _param_index(opt: torch.optim.Optimizer) -> Dict[int, int]:
+    """id(parameter) -> its index in ``opt.state_dict()``."""
+    params = [p for group in opt.param_groups for p in group["params"]]
+    return {id(p): i for i, p in enumerate(params)}
+
+
+def adam_to_jax(model: torch.nn.Module, opt: torch.optim.Optimizer,
+                rules) -> Dict:
+    """``opt``'s Adam state for ``model`` -> the state dict of optax's
+    ``adam`` (``chain(scale_by_adam, scale_by_learning_rate)``):
+    ``{"0": {"count", "mu", "nu"}, "1": {}}``. The moments take the
+    weights' layouts; ``count`` is torch's ``step`` (an int32 array). A
+    parameter never stepped has zero moments."""
+    table = {name: (fp, to_jax) for name, tree, fp, to_jax, _
+             in tensor_map(rules) if tree == "params"}
+    names = [name for name, _ in model.named_parameters()]
+    if set(names) != set(table):
+        raise KeyError(f"parameters without a rule: "
+                       f"{sorted(set(names) ^ set(table))[:5]}")
+    mu, nu, count = {}, {}, 0
+    for name, p in model.named_parameters():
+        fp, to_jax = table[name]
+        s = opt.state.get(p, {})
+        if s:
+            ea, eas = _numpy(s["exp_avg"]), _numpy(s["exp_avg_sq"])
+            count = max(count, int(s["step"]))
+        else:
+            ea = eas = np.zeros(tuple(p.shape), np.float32)
+        mu[fp] = np.ascontiguousarray(to_jax(ea))
+        nu[fp] = np.ascontiguousarray(to_jax(eas))
+    return {"0": {"count": np.asarray(count, np.int32), "mu": _nest(mu),
+                  "nu": _nest(nu)}, "1": {}}
+
+
+def adam_from_jax(opt_state: Dict, model: torch.nn.Module,
+                  opt: torch.optim.Optimizer, rules, two_k: int = 0) -> Dict:
+    """optax ``adam``'s state dict -> a ``state_dict`` for ``opt`` (its own
+    ``param_groups``): each parameter's ``exp_avg``/``exp_avg_sq`` from
+    ``mu``/``nu`` in torch layout, ``step`` = ``count``. ``count`` 0 (never
+    stepped) gives an empty state, as a fresh optimizer has."""
+    adam = opt_state["0"]
+    count = int(np.asarray(adam["count"]))
+    table = {name: (fp, from_jax) for name, tree, fp, _, from_jax
+             in tensor_map(rules, two_k) if tree == "params"}
+    index = _param_index(opt)
+    state = {}
+    if count:
+        for name, p in model.named_parameters():
+            fp, from_jax = table[name]
+            state[index[id(p)]] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": _tensor(from_jax(_get(adam["mu"], fp))),
+                "exp_avg_sq": _tensor(from_jax(_get(adam["nu"], fp)))}
+    return {"state": state, "param_groups": opt.state_dict()["param_groups"]}

@@ -141,6 +141,27 @@ class BatchNormFold(BatchNorm):
                         "call fold(mean, var)")
 
 
+class DenseDBR(nn.Sequential):
+    """Dense + Dropout + BN + ReLU, or LeakyReLU with ``negative_slope``
+    (port of ``DenseDBR``, pdgn_tpu/models/layers.py:521; the reference's
+    ``fcdbr``, utils/nn_utils.py:26-41). Weights at indices 0 (dense) and
+    2 (BN); dropout runs in training mode only (JAX's ``deterministic=not
+    training``)."""
+
+    def __init__(self, in_features: int, features: int,
+                 drop_rate: float = 0.5,
+                 negative_slope: Optional[float] = None):
+        super().__init__(TorchDense(in_features, features),
+                         nn.Dropout(drop_rate), BatchNorm(features))
+        self.negative_slope = negative_slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self[2](self[1](self[0](x)))
+        if self.negative_slope is None:
+            return torch.relu(x)
+        return leaky_relu(x, self.negative_slope)
+
+
 class MLP(nn.Sequential):
     """Dense layers with LeakyReLU between, no BN (the reference coordinate
     heads ``mlp1..4``: Conv1d(1x1) + LeakyReLU pairs, then a final Conv1d).

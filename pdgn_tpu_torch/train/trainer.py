@@ -1,15 +1,20 @@
 """The GAN trainer: train and test phases (port of
 pdgn_tpu/train/trainer.py, reference models/PDGNet_v2.py:26-430).
 
-Owns the dataset, the generator and the four discriminators on one device,
-the five Adam optimizers, the train loop with the reference's per-batch log
-line, the two-bundle ``.pth`` checkpoints (at every ``snapshot``-th epoch
-and at the end; ``--pretrain_model_G/_D`` resume), and the test phase:
-sampling with sigma=1 noise, renormalisation, the metric suite and the npy
-dumps. Randomness follows the JAX trainer: the initial weights and the
-training noise come from seeds drawn from numpy's global stream
-(``np.random.randint``), which the CLI seeds per run; the test phase seeds
-everything from ``seed``. Only the synthetic dataset is ported.
+Owns the dataset (shapenet15k, ModelNet10/40 or synthetic), the generator
+and the four discriminators on one device, the five Adam optimizers, the
+train loop fed by ``data.train_loader`` (pinned host batches copied on a
+side stream) with the reference's per-batch log line, the two-bundle
+checkpoints (``.pth`` written at every ``snapshot``-th epoch and at the
+end; ``--pretrain_model_G/_D`` resume from ``.pth`` or the JAX package's
+``.msgpack``), an optional ``torch.profiler`` trace of global steps 2..4,
+and the test phase: sampling with sigma=1 noise, renormalisation, the
+metric suite against the dataset's test split and the npy dumps.
+Randomness follows the JAX trainer: the initial weights and the training
+noise come from seeds drawn from numpy's global stream
+(``np.random.randint``), which the CLI seeds per run, as do the loader's
+shuffles and sub-resolution draws; the test phase seeds everything from
+``seed``.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from pdgn_tpu_torch.data.shapenet import SyntheticShapes, batch_iterator
+from pdgn_tpu_torch.data import (ModelNetDataset, ShapeNetCore,
+                                 SyntheticShapes, train_loader)
 from pdgn_tpu_torch.eval.metrics import (compute_all_metrics,
                                          jsd_between_point_cloud_sets)
 from pdgn_tpu_torch.models.discriminator import discriminators
@@ -53,7 +59,8 @@ class ExperimentConfig:
     pretrain_model_G: Optional[str] = None
     pretrain_model_D: Optional[str] = None
     softmax: bool = True
-    dataset: str = "synthetic"
+    dataset: str = "synthetic"          # shapenet15k | modelnet10/40 | synthetic
+    data_root: str = "shapenet.hdf5"    # the hdf5 file or ModelNet root
     synthetic_size: int = 64
     max_steps_per_epoch: Optional[int] = None
     base_points: int = 128
@@ -61,6 +68,7 @@ class ExperimentConfig:
     seed: int = 9999                         # noise seed and output root
     save_dir: str = "./results"
     device: str = "cuda"
+    profile_dir: Optional[str] = None   # torch.profiler trace of steps 2..4
 
     @property
     def category(self) -> str:
@@ -109,16 +117,13 @@ class PDGNTrainer:
     """Models, optimizers, data and the train loop on ``cfg.device``."""
 
     def __init__(self, cfg: ExperimentConfig):
-        if cfg.dataset != "synthetic":
-            raise NotImplementedError(
-                f"dataset {cfg.dataset!r} is not ported yet to pdgn_tpu_torch "
-                "(use --dataset synthetic, or pdgn_tpu for the hdf5 sets)")
         self.cfg = cfg
         self.tcfg = train_config(cfg)
         self.device = resolve_device(cfg.device)
         self.sizes = tuple(cfg.base_points * 2 ** i for i in range(1, 5))
         self.state: Optional[GANState] = None
         self.step_seconds: list = []     # wall time of each step, metrics read
+        self.wait_seconds: list = []     # each step's wait for its batch
         self.last_metrics: dict = {}
         self._log_fout = None
 
@@ -132,6 +137,26 @@ class PDGNTrainer:
         if self._log_fout is not None:
             self._log_fout.write(s + "\n")
             self._log_fout.flush()
+
+    def _make_dataset(self, split: str, scale_mode: Optional[str]):
+        """The split of the configured dataset (pdgn_tpu/train/trainer.py:
+        188-204): the train phase asks for ``shape_unit``, the test phase
+        for ``cfg.normalize``."""
+        cfg = self.cfg
+        if cfg.dataset == "shapenet15k":
+            return ShapeNetCore(path=cfg.data_root, cates_list=cfg.choice,
+                                split=split, scale_mode=scale_mode)
+        if cfg.dataset in ("modelnet10", "modelnet40"):
+            return ModelNetDataset(
+                root=cfg.data_root, batch_size=cfg.batch_size,
+                split="train" if split == "train" else "test",
+                normalize=True, normal_channel=False,
+                modelnet10=(cfg.dataset == "modelnet10"),
+                class_choice=cfg.choice)
+        if cfg.dataset == "synthetic":
+            return SyntheticShapes(size=cfg.synthetic_size,
+                                   num_points=self.sizes[-1])
+        raise ValueError(f"unknown dataset {cfg.dataset}")
 
     def build_model(self, seed: Optional[int] = None) -> None:
         """Generator + discriminators drawn (torch default init) from a CPU
@@ -192,39 +217,81 @@ class PDGNTrainer:
         else:
             print(f" [!] start epoch: {start_epoch}")
 
-        dataset = SyntheticShapes(size=cfg.synthetic_size,
-                                  num_points=self.sizes[-1])
+        dataset = self._make_dataset("train", "shape_unit")
         num_batches = len(dataset) // cfg.batch_size
         seed = seed if seed is not None else int(np.random.randint(0, 2 ** 31))
         rng = torch.Generator(device=self.device).manual_seed(seed)
         B, dev, sigma = cfg.batch_size, self.device, self.tcfg.noise_sigma
 
         start_time = time.time()
+        global_step, prof = 0, None
         for epoch in range(start_epoch, cfg.max_epoch + 1):
-            for idx, batch in enumerate(batch_iterator(dataset, B)):
-                if cfg.max_steps_per_epoch and idx >= cfg.max_steps_per_epoch:
-                    break
-                t0 = time.perf_counter()
-                reals = [torch.from_numpy(p).to(dev) for p in batch[:4]]
-                noise = [sigma * torch.randn(B, cfg.noise_dim, generator=rng,
-                                             device=dev) for _ in range(2)]
-                metrics = train_step(self.state, reals, *noise, self.tcfg)
-                m = {k: float(v) for k, v in metrics.items()}
-                self.step_seconds.append(time.perf_counter() - t0)
-                self.last_metrics = m
-                el = time.time() - start_time
-                self.log_string(
-                    "Epoch: [%2d] [%4d/%4d] time: %2dm %2ds d_loss1: %.8f "
-                    "d_loss2: %.8f d_loss3: %.8f d_loss4: %.8f, g_loss: %.8f,"
-                    " similar_loss: %.8f"
-                    % (epoch, idx + 1, num_batches, el / 60, el % 60,
-                       m["d_loss1"], m["d_loss2"], m["d_loss3"], m["d_loss4"],
-                       m["g_loss"], m["similar_loss"]))
+            loader = train_loader(dataset, B, device=dev)
+            idx = 0
+            try:
+                while not (cfg.max_steps_per_epoch
+                           and idx >= cfg.max_steps_per_epoch):
+                    t_wait = time.perf_counter()
+                    batch = next(loader, None)
+                    if batch is None:
+                        break
+                    t0 = time.perf_counter()
+                    if cfg.profile_dir and global_step == 2:
+                        prof = self._start_trace()
+                    noise = [sigma * torch.randn(B, cfg.noise_dim,
+                                                 generator=rng, device=dev)
+                             for _ in range(2)]
+                    metrics = train_step(self.state, list(batch[:4]),
+                                         *noise, self.tcfg)
+                    m = {k: float(v) for k, v in metrics.items()}
+                    self.wait_seconds.append(t0 - t_wait)
+                    self.step_seconds.append(time.perf_counter() - t0)
+                    self.last_metrics = m
+                    if prof is not None and global_step == 4:
+                        self._stop_trace(prof)
+                        prof = None
+                    global_step += 1
+                    idx += 1
+                    el = time.time() - start_time
+                    self.log_string(
+                        "Epoch: [%2d] [%4d/%4d] time: %2dm %2ds d_loss1: "
+                        "%.8f d_loss2: %.8f d_loss3: %.8f d_loss4: %.8f, "
+                        "g_loss: %.8f, similar_loss: %.8f"
+                        % (epoch, idx, num_batches, el / 60, el % 60,
+                           m["d_loss1"], m["d_loss2"], m["d_loss3"],
+                           m["d_loss4"], m["g_loss"], m["similar_loss"]))
+            finally:
+                loader.close()
             if epoch % cfg.snapshot == 0:
                 self.save(epoch)
+        if prof is not None:
+            self._stop_trace(prof)
         self.save(cfg.max_epoch)
         self._log_fout.close()
         self._log_fout = None
+
+    def _start_trace(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_trace(self, prof) -> str:
+        """Ends the trace and writes it as a Chrome trace into
+        ``profile_dir``; returns its path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir,
+                            "train_steps_2_4.pt.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"Profile trace of steps 2..4: {path}")
+        return path
 
     def _load_for_eval(self) -> None:
         """Build the models if needed and restore the bundles, test-phase
@@ -241,7 +308,7 @@ class PDGNTrainer:
 
     def test(self, tile: int = 64) -> dict:
         """The test phase (reference models/PDGNet_v2.py:271-326): generate
-        as many clouds as the test set holds (sigma=1 noise from ``seed``,
+        as many clouds as the dataset's test split holds (sigma=1 noise from ``seed``,
         batch-statistic BN, exact kNN graphs: the port has no other), save
         ``nonormal_out.npy``, renormalise, save ``out.npy``, score them
         against the test set with the metric suite in ``(tile, tile)``
@@ -257,8 +324,7 @@ class PDGNTrainer:
         seed_all(cfg.seed)
 
         logger.info("Loading datasets...")
-        test_dset = SyntheticShapes(size=cfg.synthetic_size,
-                                    num_points=self.sizes[-1])
+        test_dset = self._make_dataset("test", cfg.normalize)
         ref_pcs = test_dset.full_clouds()
         gen_pcs = generate(len(test_dset), cfg.batch_size, cfg.seed,
                            device=self.device, model=self.state.generator)

@@ -1,7 +1,10 @@
-"""Entry points of the port on the CPU: the CLI's sample and train phases,
-the CUDA default that fails loudly without a card, the sampler's frozen
-running statistics, reference-format checkpoints, import hygiene and the
-absence of any switch that routes around a kernel."""
+"""Entry points of the port on the CPU: the CLI's sample, train and test
+phases (synthetic data and a shapenet15k-layout hdf5 file), resuming from
+``.pth`` and from the JAX package's ``.msgpack`` bundles, ``--profile_dir``,
+``--data_root``, the refused flags, ``python -m pdgn_tpu_torch``, the CUDA
+default that fails loudly without a card, the sampler's frozen running
+statistics, reference-format checkpoints, import hygiene and the absence
+of any switch that routes around a kernel."""
 
 import os
 import pathlib
@@ -14,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_h5_fixture as fx
 from torch_port_util import rel
 
 from pdgn_tpu_torch import cli
@@ -157,11 +161,165 @@ def test_cli_train_resumes_from_pretrained_bundles(tmp_path, capsys):
                    for k in first["G_model"])
 
 
-def test_cli_train_refuses_an_unported_dataset(tmp_path):
-    args = _cli_args(tmp_path, "--phase", "train", "--device", "cpu",
-                     "--dataset", "shapenet15k")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(args)
+SPLITS = {fx.CHAIR: {"train": 8, "val": 2, "test": 6},
+          fx.AIRPLANE: {"train": 2, "val": 2, "test": 2}}
+
+
+@pytest.fixture
+def tiny_h5(tmp_path):
+    """A shapenet15k-layout file of 256-point clouds (chair: 8 train, 6
+    test, the test split chunked through shuffle and deflate)."""
+    path = tmp_path / "data" / "shapenet.hdf5"
+    path.parent.mkdir()
+    fx.write_shapenet(str(path), 4, n_points=256, splits=SPLITS)
+    return str(path)
+
+
+def _h5_args(tmp_path, data, *extra):
+    return _cli_args(tmp_path, "--dataset", "shapenet15k", "--data_root",
+                     data, "--choice", "chair", "--device", "cpu",
+                     "--batch_size", "4", *extra)
+
+
+def test_cli_train_on_shapenet15k_writes_bundles_and_copies_sources(
+        tmp_path, tiny_h5):
+    """``--dataset shapenet15k`` trains on the file's chair train split
+    (8 clouds, 2 batches of 4), writes both bundles under the category's
+    name and copies the generator source beside the log."""
+    _lib.LAUNCHES.clear()
+    trainer = cli.main(_h5_args(tmp_path, tiny_h5, "--phase", "train",
+                                "--max_epoch", "1"))
+    run = tmp_path / "ckpt" / "m"
+    bundles = run / "PDGNet_v2"
+    assert (bundles / "1_chair_G.pth").is_file()
+    assert (bundles / "1_chair_D.pth").is_file()
+    assert (run / "generator.py").read_text() == (
+        PKG / "models" / "generator.py").read_text()
+    steps = [ln for ln in (run / "log_info.txt").read_text().splitlines()
+             if ln.startswith("Epoch")]
+    assert len(steps) == 2 and all(LOG_LINE.match(ln) for ln in steps)
+    assert "[   2/   2]" in steps[1]
+    assert len(trainer.wait_seconds) == len(trainer.step_seconds) == 2
+    assert trainer.cfg.data_root == tiny_h5
+    assert sum(_lib.LAUNCHES.values()) == 0
+
+
+def test_cli_test_phase_scores_the_hdf5_test_split(tmp_path, tiny_h5,
+                                                   capsys):
+    """``--phase test`` generates as many clouds as the chair test split
+    holds (6) and scores them against that split, bbox-normalised (fresh
+    weights: no bundle given, so none is loaded)."""
+    from pdgn_tpu_torch.data import ShapeNetCore
+
+    tester = cli.main(_h5_args(tmp_path, tiny_h5, "--phase", "test"))
+    out = capsys.readouterr().out
+    assert " [*] Test finished!" in out
+    assert len(tester._make_dataset("test", "shape_bbox")) == 6
+    (run,) = (tmp_path / "out").iterdir()
+    assert run.name.startswith("GEN_Ours_c_h_a_i_r_")   # "_".join("chair")
+    assert np.load(run / "out.npy").shape == (6, 256, 3)
+    lines = (run / "log.txt").read_text().splitlines()
+    assert len([ln for ln in lines if RESULT_LINE.match(ln)]) == 13
+    ref = ShapeNetCore(tiny_h5, "chair", "test", "shape_bbox").full_clouds()
+    assert ref.shape == (6, 256, 3)
+
+
+def test_cli_resumes_from_msgpack_bundles(tmp_path, tiny_h5, capsys):
+    """Bundles written as the JAX package's msgpack resume a run: the
+    saved epoch, and Adam's state going on (1 + 2 steps: one a epoch)."""
+    from pdgn_tpu_torch.train import checkpoint as ckpt_lib
+
+    one = ("--max_steps_per_epoch", "1")
+    first = cli.main(_h5_args(tmp_path, tiny_h5, "--phase", "train",
+                              "--max_epoch", "1", *one))
+    bundles = tmp_path / "ckpt" / "m" / "PDGNet_v2"
+    paths = ckpt_lib.save(str(bundles), first.state, 1, "chair",
+                          fmt="msgpack")
+    assert [pathlib.Path(p).name for p in paths] == ["1_chair_G.msgpack",
+                                                     "1_chair_D.msgpack"]
+    capsys.readouterr()
+    cli.main(_h5_args(tmp_path, tiny_h5, "--phase", "train", "--max_epoch",
+                      "2", "--pretrain_model_G", "1_chair_G.msgpack",
+                      "--pretrain_model_D", "1_chair_D.msgpack", *one))
+    out = capsys.readouterr().out
+    assert "Load SUCCESS" in out
+    assert out.count("Epoch: [ 1]") == 1 and out.count("Epoch: [ 2]") == 1
+    second = torch.load(bundles / "2_chair_G.pth", weights_only=True)
+    steps = {int(v["step"]) for v in second["G_optimizer"]["state"].values()}
+    assert steps == {3}
+
+
+def test_cli_unknown_dataset_fails_as_in_jax(tmp_path):
+    """An unknown ``--dataset`` raises the JAX trainer's ValueError when
+    the train phase asks for its data."""
+    from pdgn_tpu.train import ExperimentConfig as JaxConfig
+    from pdgn_tpu.train import PDGNTrainer as JaxTrainer
+
+    with pytest.raises(ValueError) as want:
+        JaxTrainer(JaxConfig(dataset="shapenet55", base_points=16)
+                   )._make_dataset("train", "shape_unit")
+    with pytest.raises(ValueError) as got:
+        cli.main(_cli_args(tmp_path, "--phase", "train", "--device", "cpu",
+                           "--dataset", "shapenet55"))
+    assert str(got.value) == str(want.value) == "unknown dataset shapenet55"
+
+
+def test_data_root_reaches_the_trainer(tmp_path):
+    """``--data_root`` is the file the trainer opens."""
+    missing = str(tmp_path / "nowhere" / "shapenet.hdf5")
+    args = cli.parse_args(_cli_args(tmp_path, "--phase", "train",
+                                    "--device", "cpu", "--data_root",
+                                    missing))
+    assert args.data_root == missing
+    with pytest.raises(FileNotFoundError, match="nowhere"):
+        cli.main(_cli_args(tmp_path, "--phase", "train", "--device", "cpu",
+                           "--dataset", "shapenet15k", "--choice", "chair",
+                           "--data_root", missing))
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    """``--profile_dir``: a Chrome trace from global step 2 on (three
+    steps: the trace ends with the run)."""
+    import json
+
+    prof = tmp_path / "prof"
+    cli.main(_train_args(tmp_path, "--device", "cpu", "--synthetic_size",
+                         "12", "--max_steps_per_epoch", "3", "--profile_dir",
+                         str(prof)))
+    (trace,) = prof.iterdir()
+    assert trace.name.endswith(".json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert len(events) > 0
+
+
+@pytest.mark.parametrize("flag", ["--compute_dtype", "--d_compute_dtype"])
+def test_cli_refuses_bf16_compute(tmp_path, flag, capsys):
+    assert cli.parse_args(_cli_args(tmp_path, flag, "float32"))
+    with pytest.raises(SystemExit) as exc:
+        cli.main(_cli_args(tmp_path, "--phase", "train", "--device", "cpu",
+                           flag, "bfloat16"))
+    assert exc.value.code == 2
+    assert "not ported" in capsys.readouterr().out
+
+
+def test_cli_accepts_every_flag_of_the_jax_cli():
+    flag = re.compile(r"add_argument\(\s*'(--\w+)'")
+    jax_flags = set(flag.findall((ROOT / "pdgn_tpu" / "cli.py").read_text()))
+    ours = set(flag.findall((PKG / "cli.py").read_text()))
+    assert len(jax_flags) > 30 and jax_flags <= ours, jax_flags - ours
+
+
+def test_module_entry_point_runs(tmp_path):
+    """``python -m pdgn_tpu_torch``, ``main.py``'s counterpart."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-m", "pdgn_tpu_torch", *_cli_args(
+            tmp_path, "--phase", "sample", "--device", "cpu",
+            "--num_samples", "2")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert " [*] Sampling finished!" in res.stdout
+    assert np.load(tmp_path / "out" / "samples_m_2.npy").shape == (2, 256, 3)
 
 
 def test_cli_train_default_device_fails_loudly_without_cuda(tmp_path):
@@ -248,8 +406,8 @@ def test_cli_loads_pretrained_generator(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without pulling in JAX, flax or
-    the JAX package."""
+    """Every module of the port imports without pulling in JAX, flax, the
+    JAX package, h5py or msgpack (the card's machine has neither)."""
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in PKG.rglob("*.py"))
@@ -259,7 +417,7 @@ def test_port_imports_no_jax():
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'pdgn_tpu')]\n"
+            "('jax', 'flax', 'pdgn_tpu', 'h5py', 'msgpack')]\n"
             "print(len(bad), bad[:5])\n"
             "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

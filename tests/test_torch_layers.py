@@ -108,3 +108,39 @@ def test_mlp_matches_flax():
 def test_leaky_relu_slope():
     x = torch.tensor([-2.0, 0.0, 3.0])
     assert torch.equal(tl.leaky_relu(x), torch.tensor([-0.02, 0.0, 3.0]))
+
+
+@pytest.mark.parametrize("negative_slope", [None, 0.2])
+def test_dense_dbr_matches_flax(negative_slope):
+    """Dense + Dropout + BN + activation: deterministic (eval) output equal
+    to flax's; in training with drop rate 0 the running statistics move as
+    flax's do; in training at rate 0.5 about half the pre-BN units drop."""
+    rng = np.random.RandomState(4)
+    x = rng.randn(6, 5).astype(np.float32)
+    layer = tl.DenseDBR(5, 8, drop_rate=0.0, negative_slope=negative_slope)
+    scale = (1 + 0.3 * rng.randn(8)).astype(np.float32)
+    bias = rng.randn(8).astype(np.float32)
+    with torch.no_grad():
+        layer[2].weight.copy_(t(scale))
+        layer[2].bias.copy_(t(bias))
+    variables = {
+        "params": {"TorchDense_0": {"dense": {
+            "kernel": layer[0].kernel.detach().numpy(),
+            "bias": layer[0].bias.detach().numpy()}},
+            "BatchNorm_0": {"bn": {"scale": scale, "bias": bias}}},
+        "batch_stats": {"BatchNorm_0": {"bn": {
+            "mean": np.zeros(8, np.float32), "var": np.ones(8, np.float32)}}}}
+    module = jl.DenseDBR(8, drop_rate=0.0, negative_slope=negative_slope)
+    want, new = module.apply(variables, jnp.asarray(x), deterministic=True,
+                             mutable=["batch_stats"])
+    layer.train()
+    with torch.no_grad():
+        got = layer(t(x))
+    assert rel(got, want) <= TOL
+    bn = new["batch_stats"]["BatchNorm_0"]["bn"]
+    assert rel(layer[2].running_mean, bn["mean"]) <= TOL
+    assert rel(layer[2].running_var, bn["var"]) <= TOL
+    dropped = tl.DenseDBR(5, 4000, drop_rate=0.5)
+    with torch.no_grad():
+        h = dropped[1](dropped[0](t(x)))
+    assert 0.45 < float((h == 0).float().mean()) < 0.55

@@ -126,10 +126,11 @@ The data slice, after 3e:
    ``train_loader(ShapeNetCore(..., "chair", "train", "shape_unit"), 35)``
    yields the host ``batch_iterator``'s batches on the same numpy seed;
    times the loader over one epoch of 130 batches (a second file, 4,550
-   chairs) alone (batches/s, the first batch's latency) and under a 20 ms
-   stand-in step (a device sleep, synchronised each step as the trainer's
-   metrics are) against a plain synchronous copy in the consumer after the
-   same threaded host prefetch (pinned, plain, plain, pinned); runs
+   chairs) alone (batches/s, the first batch's latency) and, over the
+   first 33 batches of an epoch, under a 20 ms stand-in step (a device
+   sleep, synchronised each step as the trainer's metrics are) against a
+   plain synchronous copy in the consumer after the same threaded host
+   prefetch (pinned, plain, plain, pinned); runs
    ``cli.main([... '--phase', 'train', '--dataset', 'shapenet15k',
    '--choice', 'chair', '--batch_size', '35', '--max_epoch', '1',
    '--profile_dir', P])`` at full width with every launch counter set to 0
@@ -180,10 +181,36 @@ after 2p:
    set to 0 just before and read just after, each stage held to the plain
    CPU path's outputs as in phase 3) and its clouds/s at B=32.
 
+The bf16 slice (``--compute_dtype bfloat16``: the bf16 instances of the
+head, slot stats and both forward tails), after 2w, 3, 3e and 4p:
+
+2b. each bf16 instance against its bf16 plain version at stage 4, B=8
+   (the plain head and tail at stage 1), at k = 14 and 18 and at 4Fin =
+   130, 2F = 66: bf16 outputs within ``BF16_ULPS`` (2 ulps of the larger
+   magnitude, counted at no less than 1/256 of the tensor's largest), fp32
+   outputs rel <= 1e-4 (slot stats 1e-5), the graph equal to
+   ``knn_topk``'s on the fp32 upcast and to the plain one's but at
+   near-ties (phase 2's rule); two launches bit-identical;
+3b. ``generate()`` in bf16 at full width, 256 clouds in batches of 128, on
+   phase 3's weights: launch counters set to 0 just before and read just
+   after (the bf16 instances only: 4 head, 3 slot-stats, 3 gated and 1
+   plain tail a forward), fp32 finite clouds, each stage held to the
+   plain CPU bf16 path's (rel <= 2e-2, graphs equal but at near-ties;
+   the share of ec's entries that differ printed), their matched Chamfer
+   distance to phase 3's fp32 clouds from the same noise beside the one
+   between fp32 clouds from other noise, and clouds/s for the record;
+3be. ``PDGNTrainer.test`` with compute_dtype bfloat16 on 64 synthetic
+   clouds (seeded weights): the bf16 instances and ``emd_cd``, 13 finite
+   metrics;
+4b. each bf16 instance at B=128 (stage 4; the plain tail at stage 1): its
+   time, its bf16 plain version's, the library call where one computes
+   the same function (``h.T @ h`` in bf16 for slot stats; ``torch.addmm``
+   in bf16 as the merge's sub-yardstick), the bound (products at the bf16
+   tensor cores' 989 TFLOP/s), and the 2b checks again.
+
 Last, it prints the ``{"kernels": [...]}`` line (``launches`` summed over
-the sample, train, test, data and point-ops runs, ``launches_by_path``
-each),
-then the ``{"ok": ...}`` line.
+the sample, train, test, data, point-ops, bf16 sample and bf16 test runs,
+``launches_by_path`` each), then the ``{"ok": ...}`` line.
 """
 
 from __future__ import annotations
@@ -435,9 +462,9 @@ def check_core(gen, dev) -> dict:
 
 
 # ------------------------------------------------------------ phase 3: path
-def stage_check(model, dev) -> dict:
+def stage_check(model, dev, tol: float = 1e-3) -> dict:
     """Feed each stage on the card the inputs the plain CPU path gave it;
-    stage outputs rel <= 1e-3 where the kNN rows agree."""
+    stage outputs rel <= ``tol`` where the kNN rows agree."""
     import torch
     from pdgn_tpu_torch.train.sampler import frozen_running_stats
 
@@ -478,7 +505,8 @@ def stage_check(model, dev) -> dict:
                 if xs_in is not None:
                     x = torch.cat([xs_in[:, None, :].expand(
                         -1, x.shape[1], -1), x], dim=-1)
-                d = self_pairwise_sqdist(x)
+                d = self_pairwise_sqdist(
+                    x.double() if x.dtype == torch.bfloat16 else x)
                 dg = d.gather(-1, idx_g.long())
                 dw = d.gather(-1, idx_w.long())
                 scale = torch.maximum(dg.abs(), dw.abs()).clamp_min(1e-12)
@@ -492,12 +520,16 @@ def stage_check(model, dev) -> dict:
                     rel(got[2].cpu()[keep2], want[2][keep2])]
             if want[1] is not None:
                 errs.append(rel(got[1].cpu(), want[1]))
+            if want[2].dtype == torch.bfloat16:
+                frac = float((got[2].cpu()[keep2] != want[2][keep2])
+                             .float().mean())
+                log(f"  {name}: bf16 ec entries differing {frac:.5f}")
             idx_diff = float(mism.float().mean())
             log(f"  {name}: stage outputs rel {max(errs):.3e} "
                 f"(points with other neighbour lists left out: "
                 f"{int((~keep).sum())}), graph entries differing "
                 f"{idx_diff:.6f}, max near-tie gap {gap:.3e}")
-            require(max(errs) <= 1e-3, f"{name}: stage outputs rel "
+            require(max(errs) <= tol, f"{name}: stage outputs rel "
                     f"{max(errs)}")
             out[name] = {"rel": max(errs), "idx_differ": idx_diff,
                          "points_left_out": int((~keep).sum()),
@@ -1051,6 +1083,473 @@ def check_wide_shapes(gen, dev) -> dict:
                                   "clouds_per_s": cps}
         del model
     return out
+
+
+# ------------------------------------------------ the bf16 slice: phase 2b
+PEAK_BF16 = 989e12       # H100 SXM dense bf16 tensor cores (data sheet)
+# bf16 outputs of a kernel against its plain version: the largest difference
+# in bf16 ulps of the larger magnitude, counted at no less than 2^-8 of the
+# plain output's largest (a value near 0 after cancellation has ulps far
+# below the sums' rounding). Both sides sum exact products in other fp32
+# orders and round once, so a value at a bf16 midpoint rounds either way:
+# 1 ulp; the gate rounds two factors and their product, 2
+BF16_ULPS = 2.0
+
+
+def bf16_ulps(a, b) -> float:
+    """max |a - b| in bf16 ulps (2^(e - 7) at binary exponent e) of
+    max(|a|, |b|, max|b| / 256), elementwise."""
+    import torch
+
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(
+        float(b.abs().max()) * 2.0 ** -8).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+def head_bf16(args):
+    """The bf16 instance's operands from fp32 head inputs: features,
+    weights, pcat and ppoint rounded to bf16, pb_* fp32."""
+    import torch
+
+    bf = torch.bfloat16
+    (x, x_knn, wn, ca, pbp, am, wen, pbm, pcat, ppoint, k, window) = args
+    c = (lambda t: None if t is None else t.to(bf).contiguous())
+    return (c(x), c(x_knn), c(wn), c(ca), pbp, c(am), c(wen), pbm, c(pcat),
+            c(ppoint), k, window)
+
+
+def tail_bf16(args):
+    """The bf16 instance's operands from fp32 tail inputs: inte, h, w2k and
+    wi rounded to bf16, the rest fp32."""
+    import torch
+
+    bf = torch.bfloat16
+    (partial, inte, h, isc, ish, w2k, w2b, s2, t2, wi, bias, k, sm) = args
+    c = (lambda t: None if t is None else t.to(bf).contiguous())
+    return (partial, c(inte), c(h), isc, ish, c(w2k), w2b, s2, t2, c(wi),
+            bias, k, sm)
+
+
+def graph_near_ties(idx_k, idx_p, x, label: str):
+    """Two graphs of the same input ``x`` equal but at near-ties: at most
+    0.1% of entries differ, each within 1e-5 relative of the one it
+    replaces in float64. Returns (fraction, largest gap)."""
+    from pdgn_tpu_torch.ops.pairwise import self_pairwise_sqdist
+
+    mism = idx_k != idx_p
+    frac = float(mism.float().mean())
+    gap = 0.0
+    if bool(mism.any()):
+        d = self_pairwise_sqdist(x.double())
+        dk = d.gather(-1, idx_k.long())
+        dp = d.gather(-1, idx_p.long())
+        scale = dk.abs().maximum(dp.abs()).clamp_min(1e-12)
+        gap = float(((dk - dp).abs() / scale)[mism].max())
+        del d, dk, dp, scale
+    require(frac <= 1e-3, f"{label}: {frac} of the graph differs")
+    require(gap <= 1e-5, f"{label}: the graph differs beyond near-ties")
+    return frac, gap
+
+
+def compare_head_bf16(args, label: str) -> float:
+    """The head's bf16 instance against its bf16 plain version: two
+    launches bit-identical; the graph equal to ``knn_topk``'s on the fp32
+    upcast of x_knn and to the plain one's but at near-ties; given the
+    kernel's graph inte, wfea, wxyz within ``BF16_ULPS``, partial and the
+    sums rel <= 1e-4. Returns the largest absolute error."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.edge_head import (edge_head,
+                                                      head_reference_given_idx)
+    from pdgn_tpu_torch.ops.kernels.knn import knn_topk
+    from pdgn_tpu_torch.ops.knn import knn_exclude_first
+    from pdgn_tpu_torch.ops.pairwise import self_pairwise_sqdist
+
+    (x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge, pcat,
+     ppoint, k, window) = args
+    names = ("inte", "partial", "stats", "wfea", "wxyz", "wstats")
+    got = edge_head(*args)
+    again = edge_head(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("idx",) + names, got, again):
+        require(a is None or torch.equal(a, b),
+                f"head bf16 {label}: {name} differs between two launches")
+    del again
+    xk = x_knn.float()
+    require(torch.equal(got[0], knn_topk(xk, xk, k + 1)[..., 1:]),
+            f"head bf16 {label}: the graph is not knn_topk's of the upcast")
+    idx_p = knn_exclude_first(self_pairwise_sqdist(xk), k)
+    frac, gap = graph_near_ties(got[0], idx_p, xk, f"head bf16 {label}")
+    log(f"  head bf16 {label}: idx mismatch {frac:.6f}, max near-tie gap "
+        f"{gap:.3e}")
+    want = head_reference_given_idx(x, wn_flat, conv_a, pb_point, a_merge,
+                                    wen, pb_merge, pcat, ppoint, got[0], k,
+                                    window)
+    err = 0.0
+    for name, g, w in zip(names, got[1:], want):
+        if w is None:
+            require(g is None, f"head bf16: {name} should be None")
+            continue
+        require(g.dtype == w.dtype, f"head bf16 {label}: {name} dtype "
+                f"{g.dtype} != {w.dtype}")
+        if g.dtype == torch.bfloat16:
+            e = bf16_ulps(g, w)
+            log(f"    {name}: {e:.2f} ulps")
+            require(e <= BF16_ULPS, f"head bf16 {label}: {name} {e} ulps")
+        else:
+            e = rel(g, w)
+            log(f"    {name}: rel {e:.3e}")
+            require(e <= 1e-4, f"head bf16 {label}: {name} rel {e}")
+        err = max(err, max_abs(g, w))
+    return err
+
+
+def compare_slot_stats_bf16(h, label: str, k: int = K) -> float:
+    """Slot stats' bf16 instance against its plain version (fp32 products
+    of the upcast): rel <= 1e-5; two launches bit-identical."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.slot_stats import (slot_moment_stats,
+                                                       stats_plain)
+
+    s_k, S_k = slot_moment_stats(h, k)
+    s_2, S_2 = slot_moment_stats(h, k)
+    require(torch.equal(s_k, s_2) and torch.equal(S_k, S_2),
+            f"slot_stats bf16 {label}: two launches differ")
+    s_p, S_p = stats_plain(h, k)
+    e1, e2 = rel(s_k, s_p), rel(S_k, S_p)
+    log(f"  slot_stats bf16 {label}: s rel {e1:.3e}, S rel {e2:.3e}")
+    require(e1 <= 1e-5 and e2 <= 1e-5, f"slot_stats bf16 {label} disagrees")
+    return max(max_abs(s_k, s_p), max_abs(S_k, S_p))
+
+
+def bf16_differing(a, b) -> float:
+    """The share of entries in which two bf16 tensors differ."""
+    return float((a != b).float().mean())
+
+
+def compare_tail_bf16(args, label: str) -> float:
+    """A tail's bf16 instance against its bf16 plain version, in two parts
+    and as a whole. The gate g the kernel writes against the plain gate
+    (``gate_reference``): within ``BF16_ULPS``, at most 0.1% of its entries
+    differing (a factor at a bf16 midpoint). y against the bf16 rounding of
+    the float64 merge of the kernel's own g: within 1 ulp, at most 0.1%
+    differing (the merge's fp32 accumulation on the tensor cores). y against
+    the plain version's y: at most 1% differing; its ulps printed (one g
+    entry that rounds the other way moves a y near 0 by several ulps of
+    1/256 of the largest)."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.bilateral_tail import (gate_reference,
+                                                           tail_kernel,
+                                                           tail_reference)
+
+    (partial, inte, h, isc, ish, w2k, w2b, s2, t2, wi, bias, k, sm) = args
+    B, N, two_f = partial.shape
+    y_k, g_k = tail_kernel(*args, keep_g=True)
+    y_p = tail_reference(*args)
+    require(y_k.dtype == y_p.dtype == g_k.dtype == torch.bfloat16,
+            f"tail bf16 {label}: dtypes {y_k.dtype}, {y_p.dtype}")
+    g_p = gate_reference(inte, h, isc, ish, w2k, w2b, s2, t2, k,
+                         sm).reshape(B * N, -1)
+    y64 = (partial.double().reshape(B * N, two_f) + g_k.double()
+           @ wi.double() + bias.double()).to(torch.bfloat16)
+    y64 = y64.reshape(B, N, two_f)
+    e_g, f_g = bf16_ulps(g_k, g_p), bf16_differing(g_k, g_p)
+    e_m, f_m = bf16_ulps(y_k, y64), bf16_differing(y_k, y64)
+    e_y, f_y = bf16_ulps(y_k, y_p), bf16_differing(y_k, y_p)
+    log(f"  tail bf16 {label}: g {e_g:.2f} ulps, {f_g:.6f} differing; y "
+        f"against its float64 merge {e_m:.2f} ulps, {f_m:.6f}; against "
+        f"the plain version {e_y:.2f} ulps, {f_y:.6f} (rel "
+        f"{rel(y_k, y_p):.3e})")
+    require(e_g <= BF16_ULPS and f_g <= 1e-3, f"tail bf16 {label}: g")
+    require(e_m <= 1.0 and f_m <= 1e-3, f"tail bf16 {label}: the merge")
+    require(f_y <= 1e-2, f"tail bf16 {label}: {f_y} of y differs")
+    return max_abs(y_k, y_p)
+
+
+def check_bf16_kernels(gen, dev) -> dict:
+    """Phase 2b: the four bf16 instances against their bf16 plain versions
+    at stage 4 (B=8; the plain head and tail at stage 1), at the widened k
+    of phase 2w (14, 18) and at 4Fin = 130, 2F = 66 (the plain head's
+    scalar columns; the tails' 2Fin = 65, staged by plain loads in bf16).
+    Phase 4b holds them again at B=128."""
+    import torch
+
+    bf = torch.bfloat16
+    errs = {
+        "edge_head_bf16": max(
+            compare_head_bf16(head_bf16(head_inputs(4, 8, True, gen, dev)),
+                              "stage 4 B=8"),
+            compare_head_bf16(head_bf16(head_inputs(1, 8, False, gen, dev)),
+                              "stage 1 B=8")),
+        "slot_stats_bf16": compare_slot_stats_bf16(
+            torch.randn(8, stage_dims(4)[0], K * 64, generator=gen,
+                        device=dev).to(bf), "stage 4 B=8"),
+        "bilateral_tail_gated_bf16": compare_tail_bf16(
+            tail_bf16(tail_inputs(4, 8, True, gen, dev)), "stage 4 B=8 gated"),
+        "bilateral_tail_plain_bf16": compare_tail_bf16(
+            tail_bf16(tail_inputs(1, 8, False, gen, dev)),
+            "stage 1 B=8 plain"),
+    }
+    for k in WIDE_K:
+        errs["edge_head_bf16"] = max(errs["edge_head_bf16"], compare_head_bf16(
+            head_bf16(head_inputs(4, 8, True, gen, dev, k)),
+            f"stage 4 B=8 k={k}"))
+        errs["slot_stats_bf16"] = max(
+            errs["slot_stats_bf16"], compare_slot_stats_bf16(
+                torch.randn(8, stage_dims(4)[0], k * 64, generator=gen,
+                            device=dev).to(bf), f"stage 4 B=8 k={k}", k))
+        errs["bilateral_tail_gated_bf16"] = max(
+            errs["bilateral_tail_gated_bf16"], compare_tail_bf16(
+                tail_bf16(tail_inputs(4, 8, True, gen, dev, k)),
+                f"stage 4 B=8 gated k={k}"))
+    errs["edge_head_bf16"] = max(errs["edge_head_bf16"], compare_head_bf16(
+        head_bf16(odd_head_inputs(8, gen, dev)),
+        "stage 1 B=8 4Fin=130 2F=66"))
+    for gated in (True, False):
+        name = f"bilateral_tail_{'gated' if gated else 'plain'}_bf16"
+        errs[name] = max(errs[name], compare_tail_bf16(
+            tail_bf16(odd_tail_inputs(8, gated, gen, dev)),
+            f"B=8 4Fin=130 2F=66 {'gated' if gated else 'plain'}"))
+    return errs
+
+
+# ------------------------------------------------ the bf16 slice: phase 3b
+BF16_PER_FORWARD = {"edge_head_bf16": 4, "slot_stats_bf16": 3,
+                    "bilateral_tail_gated_bf16": 3,
+                    "bilateral_tail_plain_bf16": 1}
+
+
+def matched_chamfer(a, b, chunk: int = 16):
+    """Per-pair Chamfer distance (mean squared nearest distances, both
+    ways) of clouds a[i] and b[i], (n, P, 3) on the card."""
+    import torch
+
+    out = []
+    for i in range(0, a.shape[0], chunk):
+        d = torch.cdist(a[i:i + chunk].double(), b[i:i + chunk].double()) ** 2
+        out.append(d.min(2).values.mean(1) + d.min(1).values.mean(1))
+    return torch.cat(out)
+
+
+def main_path_bf16(dev, model32) -> dict:
+    """Phase 3b: ``generate()`` (``--phase sample --compute_dtype
+    bfloat16``) at full width, 256 clouds in batches of 128, on phase 3's
+    weights, every counter set to 0 just before and read just after: the
+    bf16 instances only, the clouds finite fp32. Against the fp32 path from
+    the same noise as matched Chamfer distance, beside the Chamfer distance
+    between two fp32 samples from different noise (the sampling gap): at
+    random weights the bf16 policy moves the clouds by a large share of
+    that gap in the JAX package too (0.69 of it on the CPU at base 16,
+    tests/test_torch_bf16_generator.py), so the share is reported and held
+    under 1. clouds/s for the record."""
+    import numpy as np
+    import torch
+    from pdgn_tpu_torch.ops.kernels import _lib
+    from pdgn_tpu_torch.train.generate import build_generator, generate
+
+    model = build_generator(SEED, dev, dtype=torch.bfloat16)
+    model.load_state_dict(model32.state_dict())
+    torch.cuda.synchronize()
+    _lib.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    clouds = generate(256, 128, SEED, device=dev, model=model)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    log(f"  generate(256, B=128) in bf16: {clouds.shape} {clouds.dtype} in "
+        f"{first_s:.3f} s, launches {launches}")
+    want = {k: 2 * v for k, v in BF16_PER_FORWARD.items()}
+    require(launches == want, f"bf16 launches {launches} != {want}")
+    require(clouds.shape == (256, 2048, 3) and clouds.dtype == np.float32
+            and bool(np.isfinite(clouds).all()),
+            f"bf16 clouds {clouds.shape} {clouds.dtype} or non-finite")
+    # each stage on the card against the plain CPU bf16 path's, rel <=
+    # 2e-2 where the graphs agree (measured 3.9e-3 to 8.7e-3); the share of
+    # ec's entries that differ is printed (0.25% to 7.5%: the batch norms'
+    # E[x^2] - E[x]^2 variances, summed in other orders on the two
+    # devices, move every normalised value by up to ~1e-4 relative where
+    # the mean is large, so those at a bf16 midpoint round the other way)
+    stages = stage_check(model, dev, tol=2e-2)
+    c32 = generate(256, 128, SEED, device=dev, model=model32)
+    other = generate(256, 128, SEED + 1, device=dev, model=model32)
+    g = torch.from_numpy(clouds).to(dev)
+    f = torch.from_numpy(c32).to(dev)
+    o = torch.from_numpy(other).to(dev)
+    gap_bf16 = float(matched_chamfer(g, f).mean())
+    gap_sampling = float(matched_chamfer(o, f).mean())
+    share = gap_bf16 / gap_sampling
+    log(f"  matched Chamfer, bf16 vs fp32 from the same noise: {gap_bf16:.6e};"
+        f" fp32 vs fp32 from other noise: {gap_sampling:.6e}; share "
+        f"{share:.4f}")
+    require(share < 1.0, f"bf16 clouds {share} of the sampling gap")
+    del g, f, o
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(256, 128, SEED, device=dev, model=model)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    cps = [256 / s for s in times]
+    log(f"  bf16 clouds/s at B=128 (256 clouds per run, for the record): "
+        f"{cps}")
+    return {"launches": launches, "clouds_per_s": cps, "first_run_s": first_s,
+            "stages": stages, "chamfer_bf16_vs_fp32": gap_bf16,
+            "chamfer_sampling": gap_sampling, "chamfer_share": share}
+
+
+def test_path_bf16(root: str, dev) -> dict:
+    """Phase 3be: ``PDGNTrainer.test`` with ``compute_dtype="bfloat16"``
+    (``--phase test --compute_dtype bfloat16``) on 64 synthetic clouds at
+    full width, seeded weights, counters set to 0 just before and read just
+    after: the bf16 instances and ``emd_cd``; 13 finite metrics."""
+    import numpy as np
+    import torch
+    from pdgn_tpu_torch.ops.kernels import _lib
+    from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
+
+    save_dir = os.path.join(root, "pdgn_tpu_torch", "_build",
+                            "smoke_test_bf16")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    try:
+        cfg = ExperimentConfig(batch_size=TRAIN_B, synthetic_size=TEST_CLOUDS,
+                               checkpoint_dir=os.path.join(save_dir, "ckpt"),
+                               model_dir="smoke", save_dir=save_dir,
+                               device=dev.type, compute_dtype="bfloat16")
+        trainer = PDGNTrainer(cfg)
+        trainer.build_model(seed=SEED + 3)
+        _lib.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = trainer.test(tile=TEST_TILE)
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        launches = dict(_lib.LAUNCHES)
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    forwards = -(-TEST_CLOUDS // TRAIN_B)
+    per_side = -(-TEST_CLOUDS // TEST_TILE)
+    want = {k: v * forwards for k, v in BF16_PER_FORWARD.items()}
+    want["emd_cd"] = 3 * per_side * per_side
+    log(f"  test(tile={TEST_TILE}) in bf16 on {TEST_CLOUDS} clouds: "
+        f"{test_s:.3f} s, launches {launches}")
+    require(launches == want, f"bf16 test launches {launches} != {want}")
+    for k, v in res.items():
+        log(f"    {k}: {v:.12f}")
+    require(len(res) == 13 and all(np.isfinite(v) for v in res.values()),
+            f"bf16 test metrics {res}")
+    return {"seconds": test_s, "launches": launches, "metrics": res}
+
+
+# ------------------------------------------------ the bf16 slice: phase 4b
+def time_bf16_kernels(dev, gen) -> dict:
+    """Phase 4b: each bf16 instance at the main path's B=128 shapes (stage
+    4; the plain tail stage 1), its bf16 plain version, the library call
+    where one PyTorch call computes the same function, and the bound:
+    products at the bf16 tensor-core rate (989 TFLOP/s dense), the rest at
+    the fp32 SIMT rate, against bf16 bytes (fp32 for partial, pb_*, the
+    sums and the folds); holds each against its plain version again."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.bilateral_tail import tail, tail_reference
+    from pdgn_tpu_torch.ops.kernels.edge_head import edge_head, head_plain
+    from pdgn_tpu_torch.ops.kernels.slot_stats import (slot_moment_stats,
+                                                       stats_plain)
+
+    bf = torch.bfloat16
+    B = 128
+    hk = K // 2
+    window = hk + 1
+    res = {}
+
+    n, c, cx, four_fin, two_f = stage_dims(4)
+    args = head_bf16(head_inputs(4, B, True, gen, dev))
+    rows = B * n
+    products = 2.0 * rows * c * ((window + 1) * four_fin + (K + 1) * two_f)
+    simt = (2.0 * B * n * n * (c + cx)                   # kNN distances
+            + 1.0 * rows * hk * window * four_fin        # window sums
+            + 1.0 * rows * K * two_f                     # merge sums
+            + 1.0 * rows * K * 32)                       # weight-net rows
+    t_ops = (products / PEAK_BF16 + simt / PEAK_FLOPS) * 1e3
+    nbytes = (2.0 * (rows * (c + cx) + rows * 64         # x, x_knn, pcat+pp
+                     + (window + 1) * c * four_fin + (K + 1) * c * two_f
+                     + rows * hk * four_fin + rows * K * 32)  # inte, wrows
+              + 4.0 * (B * (four_fin + two_f) + rows * K + rows * two_f
+                       + 2 * four_fin + 2 * K * 32))     # pb, idx, partial
+    b, by = bound(0.0, nbytes, t_ops)
+    res["edge_head_bf16"] = {
+        "ms": time_ms(lambda: edge_head(*args), 3),
+        "plain_ms": time_ms(lambda: head_plain(*args), 2),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "shape": f"stage 4, B={B}, N={n}, C={c}+{cx}, 4Fin={four_fin}, "
+                 f"2F={two_f}, gated, bf16"}
+    res["edge_head_bf16"]["max_abs_err"] = compare_head_bf16(
+        args, f"stage 4 B={B}")
+    del args
+
+    h = torch.randn(B, n, K * 64, generator=gen, device=dev).to(bf)
+    srows = B * n * K
+    b, by = bound(srows * 64.0, 2.0 * srows * 64 + 4.0 * (64 * 64 + 64),
+                  srows * 64 * 65 / PEAK_BF16 * 1e3)
+    hf = h.reshape(-1, 64)
+    res["slot_stats_bf16"] = {
+        "ms": time_ms(lambda: slot_moment_stats(h, K), 10),
+        "plain_ms": time_ms(lambda: stats_plain(h, K), 10),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": time_ms(lambda: torch.matmul(hf.T, hf), 10),
+        "shape": f"stage 4, B={B}, rows={srows}, H=64, bf16 (library: "
+                 f"h.T @ h in bf16)"}
+    res["slot_stats_bf16"]["max_abs_err"] = compare_slot_stats_bf16(
+        h, f"stage 4 B={B}")
+    del h, hf
+
+    targs = tail_bf16(tail_inputs(4, B, True, gen, dev))
+    two_fin = four_fin // 2
+    products = (2.0 * rows * K * 64 * two_fin + 2.0 * rows * hk * four_fin
+                * two_f)
+    simt = 8.0 * rows * K * two_fin + 2.0 * rows * two_f
+    nbytes = (2.0 * (rows * hk * four_fin + rows * K * 64 + rows * two_f
+                     + hk * four_fin * two_f + 64 * two_fin)
+              + 4.0 * (rows * two_f + 2 * four_fin + 4 * two_fin))
+    b, by = bound(simt, nbytes, products / PEAK_BF16 * 1e3)
+    res["bilateral_tail_gated_bf16"] = {
+        "ms": time_ms(lambda: tail(*targs), 3),
+        "plain_ms": time_ms(lambda: tail_reference(*targs), 3),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "shape": f"stage 4, B={B}, N={n}, 4Fin={four_fin}, 2F={two_f}, bf16"}
+    res["bilateral_tail_gated_bf16"]["max_abs_err"] = compare_tail_bf16(
+        targs, f"stage 4 B={B} gated")
+    partial, wi = targs[0].reshape(rows, two_f), targs[9]
+    del targs
+    # the merge product alone against torch.addmm on bf16 operands (fp32
+    # accumulation, bf16 out): a yardstick, never called by the port
+    g = torch.randn(rows, hk * four_fin, generator=gen, device=dev).to(bf)
+    pb = partial.to(bf)
+    sub_ms = time_ms(lambda: torch.addmm(pb, g, wi), 3)
+    flop = 2.0 * rows * hk * four_fin * two_f
+    log(f"  sub-yardstick merge g @ wi + partial in bf16: torch.addmm "
+        f"{sub_ms:.3f} ms ({flop / sub_ms / 1e9:.1f} TFLOP/s)")
+    res["bilateral_tail_gated_bf16"]["sub_yardstick"] = {
+        "what": "torch.addmm bf16 of the merge", "addmm_ms": sub_ms}
+    del g, pb, partial, wi
+
+    n1, _, _, four_fin1, two_f1 = stage_dims(1)
+    targs = tail_bf16(tail_inputs(1, B, False, gen, dev))
+    rows1 = B * n1
+    products = 2.0 * rows1 * hk * four_fin1 * two_f1
+    nbytes = (2.0 * (rows1 * hk * four_fin1 + rows1 * two_f1
+                     + hk * four_fin1 * two_f1)
+              + 4.0 * (rows1 * two_f1 + 2 * four_fin1))
+    b, by = bound(3.0 * rows1 * hk * four_fin1 + 2.0 * rows1 * two_f1, nbytes,
+                  products / PEAK_BF16 * 1e3)
+    res["bilateral_tail_plain_bf16"] = {
+        "ms": time_ms(lambda: tail(*targs), 10),
+        "plain_ms": time_ms(lambda: tail_reference(*targs), 10),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "shape": f"stage 1, B={B}, N={n1}, 4Fin={four_fin1}, 2F={two_f1}, "
+                 f"bf16"}
+    res["bilateral_tail_plain_bf16"]["max_abs_err"] = compare_tail_bf16(
+        targs, f"stage 1 B={B} plain")
+    return res
 
 
 # ----------------------------------------------- the train slice: phase 3t
@@ -1683,6 +2182,10 @@ def time_emd_cd(dev) -> dict:
 DATA_LONG_BATCHES = 130  # the loader's timed epoch, about the real chair
                          # train split's batches at B=35
 STANDIN_STEP_MS = 20.0   # device time of the step the loader feeds there
+# batches of each stand-in epoch read (the first quarter of the epoch: the
+# bf16 phases' seconds come out of these, so that the run stays within its
+# time before them)
+DATA_STANDIN_BATCHES = 33
 
 
 def _metric_lines(run_dir: str) -> dict:
@@ -1882,20 +2385,20 @@ def data_path(root: str, smi: str, dev) -> dict:
             "test_seconds": test_s, "metrics": lines}
 
 
-def _standin_epoch(batches, dev, cycles: int, copy: bool):
-    """One epoch read by a stand-in step: a device sleep of ``cycles`` and
-    a sum of each cloud tensor, synchronised every step as the trainer's
-    metrics are. ``copy``: the batch is on the host and is copied to the
-    card here, synchronously. Returns (wall s, s blocked on the batch)."""
+def _standin_epoch(batches, dev, cycles: int, copy: bool, limit: int):
+    """The first ``limit`` batches of an epoch read by a stand-in step: a
+    device sleep of ``cycles`` and a sum of each cloud tensor, synchronised
+    every step as the trainer's metrics are. ``copy``: the batch is on the
+    host and is copied to the card here, synchronously. Closes the loader;
+    returns (wall s, s blocked on the batch)."""
     import torch
 
     acc = torch.zeros((), device=dev)
     blocked = 0.0
-    it = iter(batches)
     t0 = time.perf_counter()
-    while True:
+    for _ in range(limit):
         tw = time.perf_counter()
-        b = next(it, None)
+        b = next(batches, None)
         if b is None:
             break
         if copy:
@@ -1905,15 +2408,18 @@ def _standin_epoch(batches, dev, cycles: int, copy: bool):
         for x in b[:4]:
             acc += x.sum()
         float(acc)
-    return time.perf_counter() - t0, blocked
+    wall = time.perf_counter() - t0
+    batches.close()
+    return wall, blocked
 
 
 def loader_times(work: str, smi: str, dev) -> dict:
     """The loader over one epoch of ``DATA_LONG_BATCHES`` batches of 35
     chairs (a contiguous train split written from a seed): alone, against
-    the host batches alone, and under a stand-in step of
-    ``STANDIN_STEP_MS`` against a plain copy in the consumer after the same
-    threaded host prefetch (pinned ring, plain, plain, pinned ring)."""
+    the host batches alone, and over the first ``DATA_STANDIN_BATCHES``
+    of an epoch under a stand-in step of ``STANDIN_STEP_MS`` against a
+    plain copy in the consumer after the same threaded host prefetch
+    (pinned ring, plain, plain, pinned ring)."""
     import numpy as np
     import torch
     from pdgn_tpu_torch.data import ShapeNetCore, batch_iterator, train_loader
@@ -1955,16 +2461,18 @@ def loader_times(work: str, smi: str, dev) -> dict:
         pinned = kind == "pinned"
         wall, blocked = _standin_epoch(
             train_loader(dset, TRAIN_B, device=dev if pinned else "cpu"),
-            dev, cycles, copy=not pinned)
+            dev, cycles, copy=not pinned, limit=DATA_STANDIN_BATCHES)
         runs[kind].append({"wall_s": wall, "blocked_s": blocked})
         log(f"  under a {STANDIN_STEP_MS} ms stand-in step, {kind} "
-            f"{'ring' if pinned else 'copy in the consumer'}: epoch "
-            f"{wall:.6f} s, consumer blocked {blocked:.6f} s on {smi}")
+            f"{'ring' if pinned else 'copy in the consumer'}: "
+            f"{DATA_STANDIN_BATCHES} batches in {wall:.6f} s, consumer "
+            f"blocked {blocked:.6f} s on {smi}")
     shutil.rmtree(os.path.join(work, "long_stats"), ignore_errors=True)
     os.remove(path)
     return {"batches_per_s": bps, "batches": n, "seconds": loader_s,
             "first_batch_s": first, "host_batches_seconds": host_s,
-            "standin_step_ms": STANDIN_STEP_MS, "standin": runs}
+            "standin_step_ms": STANDIN_STEP_MS,
+            "standin_batches": DATA_STANDIN_BATCHES, "standin": runs}
 
 
 # ----------------------------------------- the point-ops slice: phase 2p
@@ -2356,7 +2864,23 @@ KERNELS = {
                  "pdgn_tpu/ops/pallas/knn.py:32"),
     "knn_gather": ("pdgn_tpu_torch/csrc/knn.cu",
                    "pdgn_tpu/ops/pallas/knn.py:119"),
+    "edge_head_bf16": ("pdgn_tpu_torch/csrc/edge_head.cu",
+                       "pdgn_tpu/ops/pallas/edge_head.py:74"),
+    "slot_stats_bf16": ("pdgn_tpu_torch/csrc/slot_stats.cu",
+                        "pdgn_tpu/ops/pallas/slot_stats.py:43"),
+    "bilateral_tail_gated_bf16": ("pdgn_tpu_torch/csrc/bilateral_tail.cu",
+                                  "pdgn_tpu/ops/pallas/bilateral_tail.py:74"),
+    "bilateral_tail_plain_bf16": ("pdgn_tpu_torch/csrc/bilateral_tail.cu",
+                                  "pdgn_tpu/ops/pallas/bilateral_tail.py:117"),
 }
+
+
+T0 = time.perf_counter()
+
+
+def phase(msg: str) -> None:
+    """Log a phase's start with the seconds since the script started."""
+    log(f"[{time.perf_counter() - T0:.1f} s] {msg}")
 
 
 def main(argv=None) -> int:
@@ -2410,7 +2934,7 @@ def main(argv=None) -> int:
         return 0
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    log("phase 2: kernels against their plain versions (B=8)")
+    phase("phase 2: kernels against their plain versions (B=8)")
     errs = {
         "edge_head": max(
             compare_head(head_inputs(4, 8, True, gen, dev), "stage 4 B=8"),
@@ -2430,36 +2954,44 @@ def main(argv=None) -> int:
     require(bits == HEAD_BITS, "the head forward's bits moved")
     core = check_core(gen, dev)
 
-    log("phase 2t: train kernels against their plain versions (B=8)")
+    phase("phase 2t: train kernels against their plain versions (B=8)")
     errs.update(check_train_kernels(gen, dev))
-    log(f"phase 2e: emd_cd against its plain version (n={EMD_N})")
+    phase(f"phase 2e: emd_cd against its plain version (n={EMD_N})")
     errs["emd_cd"] = check_emd_cd(dev)
-    log("phase 2p: knn_topk and knn_gather against their plain versions "
+    phase("phase 2p: knn_topk and knn_gather against their plain versions "
         "(B=8)")
     errs.update(check_knn_kernels(gen, dev))
-    log("phase 2w: the widened shapes against their plain versions, timed "
+    phase("phase 2w: the widened shapes against their plain versions, timed "
         "once")
     wide = check_wide_shapes(gen, dev)
+    phase("phase 2b: the bf16 instances against their bf16 plain versions")
+    errs.update(check_bf16_kernels(gen, dev))
 
-    log("phase 3: main path, generate() at full width")
+    phase("phase 3: main path, generate() at full width")
     path = main_path(dev)
     model = path.pop("model")
+    phase("phase 3b: main path in bf16, generate() at full width, "
+        "--compute_dtype bfloat16")
+    path_bf16 = main_path_bf16(dev, model)
 
     ckpt_root = os.path.join(root, "pdgn_tpu_torch", "_build", "smoke_ckpt")
     shutil.rmtree(ckpt_root, ignore_errors=True)
     try:
-        log(f"phase 3t: train path, PDGNTrainer.train at full width, "
+        phase(f"phase 3t: train path, PDGNTrainer.train at full width, "
             f"B={TRAIN_B}")
         train = train_path(ckpt_root)
-        log(f"phase 3e: test path, PDGNTrainer.test(tile={TEST_TILE}) at "
+        phase(f"phase 3e: test path, PDGNTrainer.test(tile={TEST_TILE}) at "
             f"full width on {TEST_CLOUDS} clouds, 3t's bundles")
         test = test_path(root, ckpt_root, dev)
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
-    log("phase 3d: data path, the hdf5 reader, the pinned loader and the "
+    phase(f"phase 3be: test path in bf16, PDGNTrainer.test(tile={TEST_TILE}) "
+        f"with compute_dtype bfloat16 on {TEST_CLOUDS} clouds")
+    test_bf16 = test_path_bf16(root, dev)
+    phase("phase 3d: data path, the hdf5 reader, the pinned loader and the "
         "CLI's shapenet15k train, msgpack resume and test at full width")
     data = data_path(root, smi, dev)
-    log(f"phase 3p: point-ops path, pdgn_tpu_torch.ops at full width on "
+    phase(f"phase 3p: point-ops path, pdgn_tpu_torch.ops at full width on "
         f"{PO_B} generated clouds")
     point_ops = point_ops_path(model, gen, dev)
     del model
@@ -2467,18 +2999,22 @@ def main(argv=None) -> int:
     for name, e in point_ops.pop("max_abs_err").items():
         errs[name] = max(errs[name], e)
 
-    log("phase 4: kernel times and checks at the main path's B=128 shapes")
+    phase("phase 4: kernel times and checks at the main path's B=128 shapes")
     times = time_kernels(dev, gen)
-    log(f"phase 4t: train kernel times and checks at B={TRAIN_B}")
+    phase(f"phase 4t: train kernel times and checks at B={TRAIN_B}")
     times.update(time_train_kernels(dev, gen))
-    log(f"phase 4e: emd_cd times at the test path's {TEST_TILE}x{TEST_TILE} "
+    phase(f"phase 4e: emd_cd times at the test path's {TEST_TILE}x{TEST_TILE} "
         f"tile")
     times["emd_cd"] = time_emd_cd(dev)
-    log("phase 4p: knn_topk and knn_gather times at the point-ops path's "
+    phase("phase 4p: knn_topk and knn_gather times at the point-ops path's "
         "shapes")
     times.update(time_knn(po_inputs, dev))
     del po_inputs
+    phase("phase 4b: bf16 instance times and checks at the main path's B=128 "
+        "shapes")
+    times.update(time_bf16_kernels(dev, gen))
 
+    phase("the kernels line")
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = times[name]
@@ -2486,7 +3022,9 @@ def main(argv=None) -> int:
                    "train": train["launches"].get(name, 0),
                    "test": test["launches"].get(name, 0),
                    "data": data["launches"].get(name, 0),
-                   "point_ops": point_ops["launches"].get(name, 0)}
+                   "point_ops": point_ops["launches"].get(name, 0),
+                   "sample_bf16": path_bf16["launches"].get(name, 0),
+                   "test_bf16": test_bf16["launches"].get(name, 0)}
         require(sum(by_path.values()) > 0, f"{name} never launched")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -2513,7 +3051,8 @@ def main(argv=None) -> int:
                        "core": core,
                        "wide": wide,
                        "train": train, "test": test, "data": data,
-                       "point_ops": point_ops}, f, indent=1)
+                       "point_ops": point_ops, "path_bf16": path_bf16,
+                       "test_bf16": test_bf16}, f, indent=1)
     print(json.dumps({"card": smi,
                       "clouds_per_s_b128": path["clouds_per_s"],
                       "train_steps_per_s_b35": train["steps_per_s"],
@@ -2525,7 +3064,11 @@ def main(argv=None) -> int:
                       "loader_batches_per_s_b35":
                           data["loader"]["batches_per_s"],
                       "data_wait_share": data["wait_share"],
-                      "point_ops_path_s": point_ops["seconds"]}))
+                      "point_ops_path_s": point_ops["seconds"],
+                      "bf16_clouds_per_s_b128": path_bf16["clouds_per_s"],
+                      "bf16_test_phase_s_64": test_bf16["seconds"],
+                      "bf16_chamfer_share": path_bf16["chamfer_share"],
+                      "smoke_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,9 +21,13 @@ synthetic data) and ``--phase sample`` (bulk generation). Run as
 generator source into ``<checkpoint_dir>/<model_dir>``; ``--profile_dir``
 writes a ``torch.profiler`` trace of global steps 2..4 there. Without
 ``--device cpu`` the run needs a CUDA card and fails loudly when none is
-visible. The port builds only exact kNN graphs and computes in fp32:
-``--exact_knn 0`` (the fast bf16 graphs of the JAX package) and
-``--compute_dtype``/``--d_compute_dtype bfloat16`` are refused (exit 2).
+visible. The port builds only exact kNN graphs: ``--exact_knn 0`` (the
+fast bf16 graphs of the JAX package) is refused (exit 2).
+``--compute_dtype bfloat16`` runs the generator in the JAX package's bf16
+policy for ``--phase sample`` and ``--phase test``; ``--phase train`` with
+it, and ``--d_compute_dtype bfloat16`` in any phase, are refused (exit 2):
+the kernels have no bf16 backward yet and the discriminators compute in
+fp32.
 """
 
 from __future__ import annotations
@@ -92,7 +96,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help='write a torch.profiler trace of steps 2..4')
     parser.add_argument('--compute_dtype', type=str, default=None,
                         choices=[None, 'float32', 'bfloat16'],
-                        help='only float32 is ported')
+                        help='generator compute dtype; bfloat16 for the '
+                             'sample and test phases (not train)')
     parser.add_argument('--d_compute_dtype', type=str, default=None,
                         choices=[None, 'float32', 'bfloat16'],
                         help='discriminator dtype: only float32 is ported')
@@ -120,11 +125,15 @@ def check_args(args: argparse.Namespace) -> argparse.Namespace:
         print(" [!] --exact_knn 0 (fast bf16 kNN graphs) is not ported to "
               "pdgn_tpu_torch: it builds exact graphs only")
         sys.exit(2)
-    for flag in ('compute_dtype', 'd_compute_dtype'):
-        if getattr(args, flag) == 'bfloat16':
-            print(f" [!] --{flag} bfloat16 is not ported to pdgn_tpu_torch: "
-                  "it computes in float32 only")
-            sys.exit(2)
+    if args.d_compute_dtype == 'bfloat16':
+        print(" [!] --d_compute_dtype bfloat16 is not ported to "
+              "pdgn_tpu_torch: its discriminators compute in float32 only")
+        sys.exit(2)
+    if args.compute_dtype == 'bfloat16' and args.phase == 'train':
+        print(" [!] --compute_dtype bfloat16 is not ported to pdgn_tpu_torch "
+              "for --phase train: the kernels' bf16 backward is missing; it "
+              "runs --phase sample and --phase test")
+        sys.exit(2)
     return args
 
 
@@ -155,7 +164,8 @@ def _trainer(args: argparse.Namespace):
         max_steps_per_epoch=args.max_steps_per_epoch,
         base_points=args.base_points, normalize=args.normalize,
         seed=args.seed, save_dir=args.save_dir, device=args.device,
-        profile_dir=args.profile_dir)
+        profile_dir=args.profile_dir, compute_dtype=args.compute_dtype,
+        d_compute_dtype=args.d_compute_dtype)
     trainer = PDGNTrainer(cfg)
     trainer.build_model()
     return trainer
@@ -202,6 +212,7 @@ def main(argv=None):
         sys.exit(2)
 
     from pdgn_tpu_torch.train.generate import generate
+    from pdgn_tpu_torch.train.trainer import generator_dtype
     from pdgn_tpu_torch.utils.misc import seed_all
 
     seed_all(args.seed)
@@ -216,7 +227,8 @@ def main(argv=None):
                       device=args.device, out_path=out,
                       num_point=args.num_point, num_k=args.num_k,
                       base_points=args.base_points, pretrain_model_G=ckpt,
-                      softmax=softmax, noise_dim=args.noise_dim)
+                      softmax=softmax, noise_dim=args.noise_dim,
+                      dtype=generator_dtype(args.compute_dtype))
     print(f" [*] Wrote {clouds.shape} to {out}")
     print(" [*] Sampling finished!")
 

@@ -37,6 +37,15 @@
 //      time, the neighbour rows staged per warp in shared memory, with the
 //      same sums in the same order, in float4 columns or, when 4Fin or 2F is
 //      not a multiple of 4, in scalar ones.
+//
+// The bf16 instance (pdgn_edge_head_bf16; the TPU kernel with bf16 x, pcat,
+// ppoint and weights, edge_head.py:335-413): the graph by knn_select on
+// the fp32 upcast of x_knn (exact values; fp32 norms, as the TPU kernel's
+// :340-342); P on the same core's bf16 instance (bf16 operands, fp32 P);
+// the same gather pass, which rounds inte, wfea and wxyz to bf16 at their
+// stores and takes the batch-norm sums of the rounded values, the values
+// the tail normalises (as the JAX package's _head_reference_given_idx and
+// its _WindowConv's BatchNorm do); partial and the sums stay fp32.
 #include "common.cuh"
 #include "knn.cuh"
 #include "tf32x3_gemm.cuh"
@@ -51,23 +60,51 @@ __device__ __forceinline__ float4 operator*(float4 a, float4 b) {
   return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
 }
 
+// store value group v (4 columns, or 1) at group index i of out; returns
+// the values as stored (bf16: rounded to nearest even)
+__device__ __forceinline__ float4 put_v(float* out, size_t i, float4 v) {
+  reinterpret_cast<float4*>(out)[i] = v;
+  return v;
+}
+__device__ __forceinline__ float put_v(float* out, size_t i, float v) {
+  out[i] = v;
+  return v;
+}
+__device__ __forceinline__ float4 put_v(__nv_bfloat16* out, size_t i,
+                                        float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out) + 2 * i;
+  o[0] = a;
+  o[1] = b;
+  return make_float4(__low2float(a), __high2float(a), __low2float(b),
+                     __high2float(b));
+}
+__device__ __forceinline__ float put_v(__nv_bfloat16* out, size_t i,
+                                       float v) {
+  const __nv_bfloat16 b = __float2bfloat16_rn(v);
+  out[i] = b;
+  return __bfloat162float(b);
+}
+
 constexpr int kProj = 32;  // weight-net channels: 16 fea + 16 xyz
 
 // Pointers are offset to the chunk: P (rows, ld), idx (rows, K) with
 // in-cloud indices, pb_* (clouds, width), outputs (rows, ...); four_fin,
 // two_f and ld are multiples of 4 and every row 16-byte aligned (float4
-// columns). Shared memory: per warp [2][four_fin] and, gated, [2][K * 32]
-// floats of sums.
-template <int K>
+// columns; a bf16 inte row 8-byte aligned). T: the storage type of pcat,
+// ppoint, inte, wfea and wxyz. Shared memory: per warp [2][four_fin] and,
+// gated, [2][K * 32] floats of sums.
+template <int K, class T>
 __global__ void __launch_bounds__(256)
 head_gather_kernel(const float* __restrict__ P, int ld,
                    const int* __restrict__ idx, int rows, int N, int four_fin,
                    int two_f, const float* __restrict__ pb_point,
                    const float* __restrict__ pb_merge,
-                   const float* __restrict__ pcat,
-                   const float* __restrict__ ppoint, float* __restrict__ inte,
-                   float* __restrict__ partial, float* __restrict__ wfea,
-                   float* __restrict__ wxyz, float* __restrict__ stats_part,
+                   const T* __restrict__ pcat,
+                   const T* __restrict__ ppoint, T* __restrict__ inte,
+                   float* __restrict__ partial, T* __restrict__ wfea,
+                   T* __restrict__ wxyz, float* __restrict__ stats_part,
                    float* __restrict__ w_part) {
   constexpr int HK = K / 2, WIN = HK + 1;
   extern __shared__ __align__(16) float smem[];
@@ -84,7 +121,6 @@ head_gather_kernel(const float* __restrict__ P, int ld,
   const float4* Pv = reinterpret_cast<const float4*>(P);
   const float4* pbv = reinterpret_cast<const float4*>(pb_point);
   const float4* pbm = reinterpret_cast<const float4*>(pb_merge);
-  float4* intev = reinterpret_cast<float4*>(inte);
   float4* partv = reinterpret_cast<float4*>(partial);
   float4* ssum = reinterpret_cast<float4*>(st);
   float4* ssq = reinterpret_cast<float4*>(st + four_fin);
@@ -113,13 +149,13 @@ head_gather_kernel(const float* __restrict__ P, int ld,
         for (int t = 0; t < WIN; ++t)
           if (j - t >= 0 && j - t < HK)
             acc[j - t] = acc[j - t] + Pv[(size_t)row[j] * ldv + t * U + u];
-      float4 s = acc[0], q = acc[0] * acc[0];
-      intev[(size_t)p * HK * U + u] = acc[0];
+      const float4 a0 = put_v(inte, (size_t)p * HK * U + u, acc[0]);
+      float4 s = a0, q = a0 * a0;
 #pragma unroll
       for (int wp = 1; wp < HK; ++wp) {
-        intev[((size_t)p * HK + wp) * U + u] = acc[wp];
-        s = s + acc[wp];
-        q = q + acc[wp] * acc[wp];
+        const float4 a = put_v(inte, ((size_t)p * HK + wp) * U + u, acc[wp]);
+        s = s + a;
+        q = q + a * a;
       }
       ssum[u] = ssum[u] + s;
       ssq[u] = ssq[u] + q;
@@ -135,15 +171,18 @@ head_gather_kernel(const float* __restrict__ P, int ld,
 
     if (gated) {
       // slot s reads neighbour j = (s % 2) * HK + s / 2; channel = lane
-      const float pp = ppoint[(size_t)p * kProj + lane];
+      const float pp = to_f32(ppoint[(size_t)p * kProj + lane]);
 #pragma unroll
       for (int s = 0; s < K; ++s) {
         const int j = (s % 2) * HK + s / 2;
-        const float v = pcat[(size_t)row[j] * kProj + lane] + pp;
+        const float v =
+            round_as<T>(to_f32(pcat[(size_t)row[j] * kProj + lane]) + pp);
         if (lane < kProj / 2)
-          wfea[((size_t)p * K + s) * (kProj / 2) + lane] = v;
+          store_as(wfea + ((size_t)p * K + s) * (kProj / 2) + lane, v);
         else
-          wxyz[((size_t)p * K + s) * (kProj / 2) + lane - kProj / 2] = v;
+          store_as(wxyz + ((size_t)p * K + s) * (kProj / 2) + lane -
+                       kProj / 2,
+                   v);
         wst[s * kProj + lane] += v;
         wst[K * kProj + s * kProj + lane] += v * v;
       }
@@ -178,17 +217,17 @@ constexpr int kRowSlots = 128;
 __device__ __forceinline__ float4 vsq(float4 a) { return a * a; }
 __device__ __forceinline__ float vsq(float a) { return a * a; }
 
-template <class V>
+template <class V, class T>
 __global__ void __launch_bounds__(256)
 head_gather_any_kernel(const float* __restrict__ P, int ld,
                        const int* __restrict__ idx, int rows, int N, int K,
                        int four_fin, int two_f,
                        const float* __restrict__ pb_point,
                        const float* __restrict__ pb_merge,
-                       const float* __restrict__ pcat,
-                       const float* __restrict__ ppoint,
-                       float* __restrict__ inte, float* __restrict__ partial,
-                       float* __restrict__ wfea, float* __restrict__ wxyz,
+                       const T* __restrict__ pcat,
+                       const T* __restrict__ ppoint,
+                       T* __restrict__ inte, float* __restrict__ partial,
+                       T* __restrict__ wfea, T* __restrict__ wxyz,
                        float* __restrict__ stats_part,
                        float* __restrict__ w_part) {
   constexpr int VW = sizeof(V) / sizeof(float);
@@ -209,7 +248,6 @@ head_gather_any_kernel(const float* __restrict__ P, int ld,
   const V* Pv = reinterpret_cast<const V*>(P);
   const V* pbv = reinterpret_cast<const V*>(pb_point);
   const V* pbm = reinterpret_cast<const V*>(pb_merge);
-  V* intev = reinterpret_cast<V*>(inte);
   V* partv = reinterpret_cast<V*>(partial);
   V* ssum = reinterpret_cast<V*>(st);
   V* ssq = reinterpret_cast<V*>(st + four_fin);
@@ -233,7 +271,7 @@ head_gather_any_kernel(const float* __restrict__ P, int ld,
         V acc = point;
         for (int t = 0; t < WIN; ++t)
           acc = acc + Pv[(size_t)srow[wp + t] * ldv + t * U + u];
-        intev[((size_t)p * HK + wp) * U + u] = acc;
+        acc = put_v(inte, ((size_t)p * HK + wp) * U + u, acc);
         if (wp == 0) {
           s = acc;
           q = vsq(acc);
@@ -254,14 +292,17 @@ head_gather_any_kernel(const float* __restrict__ P, int ld,
     }
 
     if (gated) {
-      const float pp = ppoint[(size_t)p * kProj + lane];
+      const float pp = to_f32(ppoint[(size_t)p * kProj + lane]);
       for (int s = 0; s < K; ++s) {
         const int j = (s % 2) * HK + s / 2;
-        const float v = pcat[(size_t)srow[j] * kProj + lane] + pp;
+        const float v =
+            round_as<T>(to_f32(pcat[(size_t)srow[j] * kProj + lane]) + pp);
         if (lane < kProj / 2)
-          wfea[((size_t)p * K + s) * (kProj / 2) + lane] = v;
+          store_as(wfea + ((size_t)p * K + s) * (kProj / 2) + lane, v);
         else
-          wxyz[((size_t)p * K + s) * (kProj / 2) + lane - kProj / 2] = v;
+          store_as(wxyz + ((size_t)p * K + s) * (kProj / 2) + lane -
+                       kProj / 2,
+                   v);
         wst[s * kProj + lane] += v;
         wst[K * kProj + s * kProj + lane] += v * v;
       }
@@ -287,15 +328,14 @@ head_gather_any_kernel(const float* __restrict__ P, int ld,
 
 constexpr int kGSmemMax = 200 * 1024;
 
-template <class V>
+template <class V, class T>
 cudaError_t launch_gather_any(int k, int grid, const float* P, int ld,
                               const int* idx, int rows, int N, int four_fin,
                               int two_f, const float* pb_point,
-                              const float* pb_merge, const float* pcat,
-                              const float* ppoint, float* inte,
-                              float* partial, float* wfea, float* wxyz,
-                              float* stats_part, float* w_part,
-                              cudaStream_t stream) {
+                              const float* pb_merge, const T* pcat,
+                              const T* ppoint, T* inte, float* partial,
+                              T* wfea, T* wxyz, float* stats_part,
+                              float* w_part, cudaStream_t stream) {
   if (k < 2 || k % 2 || k > kRowSlots) return cudaErrorInvalidValue;
   const int ss = 2 * four_fin + (pcat != nullptr ? 2 * k * kProj : 0);
   const int per_warp = ((ss + kRowSlots + 3) & ~3) * 4;
@@ -304,21 +344,21 @@ cudaError_t launch_gather_any(int k, int grid, const float* P, int ld,
   if (warps < 1) return cudaErrorInvalidValue;
   const int smem = warps * per_warp;
   cudaError_t err = cudaFuncSetAttribute(
-      head_gather_any_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      head_gather_any_kernel<V, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  head_gather_any_kernel<V><<<grid, warps * 32, smem, stream>>>(
+  head_gather_any_kernel<V, T><<<grid, warps * 32, smem, stream>>>(
       P, ld, idx, rows, N, k, four_fin, two_f, pb_point, pb_merge, pcat,
       ppoint, inte, partial, wfea, wxyz, stats_part, w_part);
   return cudaGetLastError();
 }
 
-template <int K>
+template <int K, class T>
 cudaError_t launch_gather(int grid, const float* P, int ld, const int* idx,
                           int rows, int N, int four_fin, int two_f,
                           const float* pb_point, const float* pb_merge,
-                          const float* pcat, const float* ppoint, float* inte,
-                          float* partial, float* wfea, float* wxyz,
+                          const T* pcat, const T* ppoint, T* inte,
+                          float* partial, T* wfea, T* wxyz,
                           float* stats_part, float* w_part,
                           cudaStream_t stream) {
   const int per_warp =
@@ -328,30 +368,32 @@ cudaError_t launch_gather(int grid, const float* P, int ld, const int* idx,
   if (warps < 1) return cudaErrorInvalidValue;
   const int smem = warps * per_warp;
   cudaError_t err = cudaFuncSetAttribute(
-      head_gather_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      head_gather_kernel<K, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  head_gather_kernel<K><<<grid, warps * 32, smem, stream>>>(
+  head_gather_kernel<K, T><<<grid, warps * 32, smem, stream>>>(
       P, ld, idx, rows, N, four_fin, two_f, pb_point, pb_merge, pcat, ppoint,
       inte, partial, wfea, wxyz, stats_part, w_part);
   return cudaGetLastError();
 }
 
+template <class T>
 cudaError_t gather_for_k(int k, int grid, const float* P, int ld,
                          const int* idx, int rows, int N, int four_fin,
                          int two_f, const float* pb_point,
-                         const float* pb_merge, const float* pcat,
-                         const float* ppoint, float* inte, float* partial,
-                         float* wfea, float* wxyz, float* stats_part,
-                         float* w_part, cudaStream_t stream) {
+                         const float* pb_merge, const T* pcat,
+                         const T* ppoint, T* inte, float* partial, T* wfea,
+                         T* wxyz, float* stats_part, float* w_part,
+                         cudaStream_t stream) {
 #define PDGN_GATHER_K(KK)                                                   \
   case KK:                                                                  \
-    return launch_gather<KK>(grid, P, ld, idx, rows, N, four_fin, two_f,   \
+    return launch_gather<KK, T>(grid, P, ld, idx, rows, N, four_fin, two_f,\
                              pb_point, pb_merge, pcat, ppoint, inte,       \
                              partial, wfea, wxyz, stats_part, w_part,      \
                              stream);
   if (four_fin % 4 || two_f % 4)
-    return launch_gather_any<float>(k, grid, P, ld, idx, rows, N, four_fin,
+    return launch_gather_any<float, T>(k, grid, P, ld, idx, rows, N,
+                                       four_fin,
                                     two_f, pb_point, pb_merge, pcat, ppoint,
                                     inte, partial, wfea, wxyz, stats_part,
                                     w_part, stream);
@@ -364,12 +406,68 @@ cudaError_t gather_for_k(int k, int grid, const float* P, int ld,
     PDGN_GATHER_K(12)
     PDGN_GATHER_K(16)
     default:
-      return launch_gather_any<float4>(k, grid, P, ld, idx, rows, N,
+      return launch_gather_any<float4, T>(k, grid, P, ld, idx, rows, N,
                                        four_fin, two_f, pb_point, pb_merge,
                                        pcat, ppoint, inte, partial, wfea,
                                        wxyz, stats_part, w_part, stream);
   }
 #undef PDGN_GATHER_K
+}
+
+// 1. and 2.-3. of both instances: T the storage type of x, w_all, pcat,
+// ppoint and the rounded outputs; A the product's A loader; xk the graph's
+// fp32 input (x_knn itself, or the bf16 instance's upcast of it)
+template <class T, class ALoad>
+int edge_head_impl(const T* x, const float* xk, int B, int N, int C, int Cf,
+                   int k, const T* w_all, int ld, int four_fin, int two_f,
+                   const float* pb_point, const float* pb_merge,
+                   const T* pcat, const T* ppoint, int* idx, T* inte,
+                   float* partial, float* stats, T* wfea, T* wxyz,
+                   float* wstats, float* P, int chunk, int grid,
+                   float* stats_part, float* w_part, cudaStream_t stream) {
+  const int hk = k / 2;
+  cudaError_t err = pdgn::knn_select(xk, xk, B, N, N, Cf, k + 1, 1,
+                                     /*direct=*/false, idx, nullptr, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  const bool gated = pcat != nullptr;
+  int nchunks = 0;
+  for (int b0 = 0; b0 < B; b0 += chunk, ++nchunks) {
+    const int nc = B - b0 < chunk ? B - b0 : chunk;
+    const int M = nc * N;
+    const size_t r0 = (size_t)b0 * N;
+    err = tc_gemm<false, 0>(ALoad{x + r0 * C, C}, w_all, ld, M, ld, C, C,
+                            StorePairs{P, ld}, stream);
+    if (err != cudaSuccess) return (int)err;
+    float* sp = stats_part + (size_t)nchunks * grid * 2 * four_fin;
+    float* wp = gated ? w_part + (size_t)nchunks * grid * 2 * k * kProj
+                      : nullptr;
+    const T* pc = gated ? pcat + r0 * kProj : nullptr;
+    const T* pp = gated ? ppoint + r0 * kProj : nullptr;
+    T* wf = gated ? wfea + r0 * k * (kProj / 2) : nullptr;
+    T* wx = gated ? wxyz + r0 * k * (kProj / 2) : nullptr;
+    const int* ix = idx + r0 * k;
+    T* in = inte + r0 * hk * four_fin;
+    float* pa = partial + r0 * two_f;
+    const float* pbp = pb_point + (size_t)b0 * four_fin;
+    const float* pbm = pb_merge + (size_t)b0 * two_f;
+    err = gather_for_k<T>(k, grid, P, ld, ix, M, N, four_fin, two_f, pbp,
+                          pbm, pc, pp, in, pa, wf, wx, sp, wp, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  column_reduce(stats_part, nchunks * grid, 2 * four_fin, stats, stream);
+  PDGN_CHECK_LAUNCH();
+  if (gated) {
+    column_reduce(w_part, nchunks * grid, 2 * k * kProj, wstats, stream);
+    PDGN_CHECK_LAUNCH();
+  }
+  return (int)cudaSuccess;
+}
+
+__global__ void bf16_to_f32_kernel(const __nv_bfloat16* __restrict__ in,
+                                   long long n, float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = __bfloat162float(in[i]);
 }
 
 }  // namespace
@@ -394,43 +492,36 @@ int pdgn_edge_head(const float* x, const float* x_knn, int B, int N, int C,
                    float* stats_part, float* w_part, cudaStream_t stream) {
   if (C % 4 || ld % 4 || k < 2 || k % 2 || chunk < 1 || grid < 1)
     return (int)cudaErrorInvalidValue;
-  const int hk = k / 2;
-  cudaError_t err = pdgn::knn_select(x_knn, x_knn, B, N, N, Cf, k + 1, 1,
-                                     /*direct=*/false, idx, nullptr, stream);
-  if (err != cudaSuccess) return (int)err;
+  return edge_head_impl<float, RowsA>(
+      x, x_knn, B, N, C, Cf, k, w_all, ld, four_fin, two_f, pb_point,
+      pb_merge, pcat, ppoint, idx, inte, partial, stats, wfea, wxyz, wstats,
+      P, chunk, grid, stats_part, w_part, stream);
+}
 
-  const bool gated = pcat != nullptr;
-  int nchunks = 0;
-  for (int b0 = 0; b0 < B; b0 += chunk, ++nchunks) {
-    const int nc = B - b0 < chunk ? B - b0 : chunk;
-    const int M = nc * N;
-    const size_t r0 = (size_t)b0 * N;
-    err = tc_gemm<false, 0>(RowsA{x + r0 * C, C}, w_all, ld, M, ld, C, C,
-                            StorePairs{P, ld}, stream);
-    if (err != cudaSuccess) return (int)err;
-    float* sp = stats_part + (size_t)nchunks * grid * 2 * four_fin;
-    float* wp = gated ? w_part + (size_t)nchunks * grid * 2 * k * kProj
-                      : nullptr;
-    const float* pc = gated ? pcat + r0 * kProj : nullptr;
-    const float* pp = gated ? ppoint + r0 * kProj : nullptr;
-    float* wf = gated ? wfea + r0 * k * (kProj / 2) : nullptr;
-    float* wx = gated ? wxyz + r0 * k * (kProj / 2) : nullptr;
-    const int* ix = idx + r0 * k;
-    float* in = inte + r0 * hk * four_fin;
-    float* pa = partial + r0 * two_f;
-    const float* pbp = pb_point + (size_t)b0 * four_fin;
-    const float* pbm = pb_merge + (size_t)b0 * two_f;
-    err = gather_for_k(k, grid, P, ld, ix, M, N, four_fin, two_f, pbp, pbm,
-                       pc, pp, in, pa, wf, wx, sp, wp, stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  column_reduce(stats_part, nchunks * grid, 2 * four_fin, stats, stream);
+// The bf16 instance: x, x_knn, w_all, pcat, ppoint, inte, wfea and wxyz
+// bf16, C % 8 == 0 and ld % 8 == 0 (16-byte granules of 8); xk scratch
+// (B, N, Cf) floats for the graph's input; the rest as pdgn_edge_head.
+int pdgn_edge_head_bf16(const __nv_bfloat16* x, const __nv_bfloat16* x_knn,
+                        int B, int N, int C, int Cf, int k,
+                        const __nv_bfloat16* w_all, int ld, int four_fin,
+                        int two_f, const float* pb_point,
+                        const float* pb_merge, const __nv_bfloat16* pcat,
+                        const __nv_bfloat16* ppoint, int* idx,
+                        __nv_bfloat16* inte, float* partial, float* stats,
+                        __nv_bfloat16* wfea, __nv_bfloat16* wxyz,
+                        float* wstats, float* P, int chunk, int grid,
+                        float* stats_part, float* w_part, float* xk,
+                        cudaStream_t stream) {
+  if (C % 8 || ld % 8 || k < 2 || k % 2 || chunk < 1 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * N * Cf;
+  bf16_to_f32_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      x_knn, n, xk);
   PDGN_CHECK_LAUNCH();
-  if (gated) {
-    column_reduce(w_part, nchunks * grid, 2 * k * kProj, wstats, stream);
-    PDGN_CHECK_LAUNCH();
-  }
-  return (int)cudaSuccess;
+  return edge_head_impl<__nv_bfloat16, RowsBf16>(
+      x, xk, B, N, C, Cf, k, w_all, ld, four_fin, two_f, pb_point, pb_merge,
+      pcat, ppoint, idx, inte, partial, stats, wfea, wxyz, wstats, P, chunk,
+      grid, stats_part, w_part, stream);
 }
 
 }  // extern "C"

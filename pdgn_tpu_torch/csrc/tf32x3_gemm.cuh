@@ -30,6 +30,16 @@
 // adds. Totals and accumulators take 128 registers a thread, so a folding
 // instance runs one block an SM; the head's product (depth <= 128) does
 // not fold and keeps two.
+//
+// The operand type T (float or __nv_bfloat16) is a template parameter of
+// the same tile loop: the bf16 instances (the bf16 head's P = x W_all and
+// the bf16 tails' merge, forward only) stage 8-element granules through
+// the same ring, take m16n8k16 bf16 products with fp32 accumulation
+// (mma_bf16, two k16 steps a stage), keep the fold and the epilogues. Two
+// bf16 share a 32-bit word, so their rows are padded for 16-bit elements:
+// A [m][k + 8] (20 words a row: g*20 mod 32 = 0, 20, 8, ..., 12, and t
+// adds 0..3, 32 banks), B [k][n + 8] (68 words: rows 2t at 8t, g/2 adds
+// 0..3). A bf16 product takes row-major A only.
 #pragma once
 
 #include "common.cuh"
@@ -50,6 +60,22 @@ constexpr int kGBStage = kGK * kGBLd;
 constexpr int kGSmemBytes = kGStages * (kGAStage + kGBStage) * 4;  // 107,520
 constexpr int kGFold = 4;        // stages between folds: 128 of depth
 static_assert(kGK * kGATLd <= kGAStage, "reduction-major A tile too large");
+
+// per operand type: elements a 16-byte granule, the padded tile rows
+template <class T>
+struct GemmOp {
+  static constexpr int kVec = 16 / (int)sizeof(T);
+  static constexpr int kALd = kGK + kVec;  // A row-major tile [m][k]
+  static constexpr int kBLd = kGN + 8;     // B tile [k][n]
+  static constexpr int kAStage = kGM * kALd;
+  static constexpr int kBStage = kGK * kBLd;
+  static constexpr int kSmemBytes =
+      kGStages * (kAStage + kBStage) * (int)sizeof(T);
+};
+static_assert(GemmOp<float>::kAStage == kGAStage &&
+                  GemmOp<float>::kBStage == kGBStage &&
+                  GemmOp<float>::kSmemBytes == kGSmemBytes,
+              "the fp32 instance's tiles");
 // rows a split of a transposed product's reduction
 constexpr int kSplitRows = 4096;
 
@@ -57,20 +83,24 @@ inline int tn_splits(long long R) {
   return (int)((R + kSplitRows - 1) / kSplitRows);
 }
 
-// A (rows, ld) row-major: at(r, c) is the address of element (r, c). A
-// reduction-major loader also gives, in two steps, the source row of a
-// granule (src_row: may read an index table) and its address (ptr).
-struct RowsA {
-  const float* a;
+// A (rows, ld) row-major, of fp32 or bf16: at(r, c) is the address of
+// element (r, c). A reduction-major loader also gives, in two steps, the
+// source row of a granule (src_row: may read an index table) and its
+// address (ptr).
+template <class T>
+struct RowsOf {
+  const T* a;
   int ld;
-  __device__ __forceinline__ const float* at(int r, int c) const {
+  __device__ __forceinline__ const T* at(int r, int c) const {
     return a + (size_t)r * ld + c;
   }
   __device__ __forceinline__ int src_row(int r, int) const { return r; }
-  __device__ __forceinline__ const float* ptr(int src, int c) const {
+  __device__ __forceinline__ const T* ptr(int src, int c) const {
     return a + (size_t)src * ld + c;
   }
 };
+using RowsA = RowsOf<float>;
+using RowsBf16 = RowsOf<__nv_bfloat16>;
 
 // out[r, c] = acc as float2 pairs: out (rows, ld), ld and N even
 struct StorePairs {
@@ -84,16 +114,18 @@ struct StorePairs {
 };
 
 // out[r, c] = (addend[r, c] + acc) + bias[c], out and addend (rows, ld);
-// addend and bias nullable
-struct AddStore {
-  float* out;
+// addend and bias nullable, fp32; out fp32 or bf16 (rounded once, at the
+// store)
+template <class TO>
+struct AddStoreTo {
+  TO* out;
   const float* addend;
   const float* bias;
   int ld, N;
   __device__ __forceinline__ void put(size_t o, int c, float acc) const {
     float v = addend ? addend[o] + acc : acc;
     if (bias) v += bias[c];
-    out[o] = v;
+    store_as(out + o, v);
   }
   __device__ __forceinline__ void operator()(int, int r, int c, float v0,
                                              float v1) const {
@@ -102,6 +134,8 @@ struct AddStore {
     if (c + 1 < N) put(o + 1, c + 1, v1);
   }
 };
+
+using AddStore = AddStoreTo<float>;
 
 // split z's partial of a transposed product: scratch (splits, M, N)
 struct StorePartial {
@@ -115,13 +149,16 @@ struct StorePartial {
   }
 };
 
-template <bool kTrans, int kFold, class ALoad, class Epi>
+template <bool kTrans, int kFold, class ALoad, class Epi, class T>
 __global__ void __launch_bounds__(kGThreads, kFold ? 1 : 2)
-tc_gemm_kernel(ALoad A, const float* __restrict__ B, int ldb, int M, int N,
+tc_gemm_kernel(ALoad A, const T* __restrict__ B, int ldb, int M, int N,
                int K, int k_split, Epi epi) {
+  using Op = GemmOp<T>;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  static_assert(!(kBf16 && kTrans), "bf16 products take row-major A");
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                       // [stage][kGAStage]
-  float* Bs = smem + kGStages * kGAStage;  // [stage][kGK][kGBLd]
+  T* As = reinterpret_cast<T*>(smem);       // [stage][Op::kAStage]
+  T* Bs = As + kGStages * Op::kAStage;      // [stage][kGK][Op::kBLd]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
@@ -149,8 +186,8 @@ tc_gemm_kernel(ALoad A, const float* __restrict__ B, int ldb, int M, int N,
 
   auto load = [&](int stage, int kt) {
     const int k0 = kb + kt * kGK;
-    float* as = As + stage * kGAStage;
-    float* bs = Bs + stage * kGBStage;
+    T* as = As + stage * Op::kAStage;
+    T* bs = Bs + stage * Op::kBStage;
     if constexpr (kTrans) {
 #pragma unroll
       for (int i = 0; i < kAGran; ++i) {
@@ -161,24 +198,26 @@ tc_gemm_kernel(ALoad A, const float* __restrict__ B, int ldb, int M, int N,
                    ok ? A.ptr(a_row[i], m0 + 4 * q) : B, ok ? 16 : 0);
       }
     } else {
+      constexpr int V = Op::kVec;
 #pragma unroll
-      for (int i = 0; i < kGM * kGK / 4 / kGThreads; ++i) {
+      for (int i = 0; i < kGM * kGK / V / kGThreads; ++i) {
         const unsigned e = tid + i * kGThreads;
-        const int r = e / (kGK / 4), q = e % (kGK / 4);
-        const int gm = m0 + r, gk = k0 + 4 * q;
+        const int r = e / (kGK / V), q = e % (kGK / V);
+        const int gm = m0 + r, gk = k0 + V * q;
         const bool ok = gm < M && gk < ke;
-        cp_async16(as + r * kGALd + 4 * q, ok ? A.at(gm, gk) : B,
+        cp_async16(as + r * Op::kALd + V * q, ok ? A.at(gm, gk) : B,
                    ok ? 16 : 0);
       }
     }
+    constexpr int V = Op::kVec;
 #pragma unroll
-    for (int i = 0; i < kGK * kGN / 4 / kGThreads; ++i) {
+    for (int i = 0; i < kGK * kGN / V / kGThreads; ++i) {
       const unsigned e = tid + i * kGThreads;
-      const int r = e / (kGN / 4), q = e % (kGN / 4);
-      const int gk = k0 + r, gc = n0 + 4 * q;
+      const int r = e / (kGN / V), q = e % (kGN / V);
+      const int gk = k0 + r, gc = n0 + V * q;
       const bool ok = gk < ke && gc < N;
-      cp_async16(bs + r * kGBLd + 4 * q, ok ? B + (size_t)gk * ldb + gc : B,
-                 ok ? 16 : 0);
+      cp_async16(bs + r * Op::kBLd + V * q,
+                 ok ? B + (size_t)gk * ldb + gc : B, ok ? 16 : 0);
     }
   };
 
@@ -212,6 +251,35 @@ tc_gemm_kernel(ALoad A, const float* __restrict__ B, int ldb, int M, int N,
       }
     }
     cp_async_commit();
+    if constexpr (kBf16) {
+      // a thread's A rows wm + mt*16 + g (+ 8), columns 2t (+ 8); its B
+      // column wn + nt*8 + g, rows 2t (+ 1, + 8, + 9)
+      const T* as = As + (kt % kGStages) * Op::kAStage +
+                    (wm + g) * Op::kALd + 2 * t;
+      const T* bs =
+          Bs + (kt % kGStages) * Op::kBStage + 2 * t * Op::kBLd + wn + g;
+#pragma unroll
+      for (int kk = 0; kk < kGK; kk += 16) {
+        uint32_t bf[kGNT][2];
+#pragma unroll
+        for (int nt = 0; nt < kGNT; ++nt) {
+          const T* b = bs + kk * Op::kBLd + nt * 8;
+          bf[nt][0] = pack_bf16(b[0], b[Op::kBLd]);
+          bf[nt][1] = pack_bf16(b[8 * Op::kBLd], b[9 * Op::kBLd]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < kGMT; ++mt) {
+          const T* a = as + mt * 16 * Op::kALd + kk;
+          const uint32_t af[4] = {
+              *reinterpret_cast<const uint32_t*>(a),
+              *reinterpret_cast<const uint32_t*>(a + 8 * Op::kALd),
+              *reinterpret_cast<const uint32_t*>(a + 8),
+              *reinterpret_cast<const uint32_t*>(a + 8 * Op::kALd + 8)};
+#pragma unroll
+          for (int nt = 0; nt < kGNT; ++nt) mma_bf16(acc[mt][nt], af, bf[nt]);
+        }
+      }
+    } else {
     const float* as = As + (kt % kGStages) * kGAStage +
                       (kTrans ? t * kGATLd + wm + g : (wm + g) * kGALd + t);
     const float* bs = Bs + (kt % kGStages) * kGBStage + t * kGBLd + wn + g;
@@ -243,6 +311,7 @@ tc_gemm_kernel(ALoad A, const float* __restrict__ B, int ldb, int M, int N,
         for (int nt = 0; nt < kGNT; ++nt)
           mma_tf32x3(acc[mt][nt], ahi, alo, bhi[nt], blo[nt]);
       }
+    }
     }
     if constexpr (kFold > 0) {
       if ((kt + 1) % kFold == 0) {
@@ -277,21 +346,22 @@ tc_gemm_kernel(ALoad A, const float* __restrict__ B, int ldb, int M, int N,
 }
 
 // out = A B (kTrans false) or A^T B (true) over depth K, a transposed one
-// in splits of k_split (a plain one ignores it). Row-major A needs K % 4 ==
-// 0, a reduction-major one M % 4 == 0, and their rows and B's 16-byte
-// aligned.
-template <bool kTrans, int kFold, class ALoad, class Epi>
-inline cudaError_t tc_gemm(ALoad A, const float* B, int ldb, int M, int N,
+// in splits of k_split (a plain one ignores it). Row-major A needs K a
+// multiple of a granule (4 fp32, 8 bf16), a reduction-major one M % 4 ==
+// 0, and their rows and B's 16-byte aligned; B's ldb >= N rounded up to a
+// granule.
+template <bool kTrans, int kFold, class ALoad, class Epi, class T>
+inline cudaError_t tc_gemm(ALoad A, const T* B, int ldb, int M, int N,
                            int K, int k_split, Epi epi, cudaStream_t stream) {
-  auto kern = tc_gemm_kernel<kTrans, kFold, ALoad, Epi>;
+  auto kern = tc_gemm_kernel<kTrans, kFold, ALoad, Epi, T>;
+  constexpr int smem = GemmOp<T>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmemBytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   if (M < 1 || N < 1 || K < 1) return cudaSuccess;
   dim3 grid((N + kGN - 1) / kGN, (M + kGM - 1) / kGM,
             kTrans ? (K + k_split - 1) / k_split : 1);
-  kern<<<grid, kGThreads, kGSmemBytes, stream>>>(A, B, ldb, M, N, K, k_split,
-                                                 epi);
+  kern<<<grid, kGThreads, smem, stream>>>(A, B, ldb, M, N, K, k_split, epi);
   return cudaGetLastError();
 }
 

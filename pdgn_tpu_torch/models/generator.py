@@ -15,8 +15,17 @@ loads with ``load_state_dict`` once the ``module.`` prefix is stripped. The
 window conv's output channels run in block order: the weight, bias and
 batch norm are permuted on the parameter side in ``forward``.
 
-Left out against the JAX module: the padded-batch mask branches, sync BN
-(``axis_name``) and the bf16 compute policy. v2 always applies softmax.
+``dtype=torch.bfloat16`` is the JAX module's compute dtype (its ``_cast``
+and ``_to`` points, pdgn_tpu/models/generator.py:155-183): every large
+activation is stored in bf16 (GEMM outputs, gathers, batch-norm outputs,
+the stage boundaries), every GEMM takes bf16 operands and accumulates in
+fp32, the three kernels run their bf16 instances; parameters, batch-norm
+statistics, the head's ``partial`` and ``fc1`` stay fp32, and the clouds
+come out fp32. It serves the sample and test phases: the kernels have no
+bf16 backward yet.
+
+Left out against the JAX module: the padded-batch mask branches and sync
+BN (``axis_name``). v2 always applies softmax.
 """
 
 from __future__ import annotations
@@ -27,7 +36,8 @@ import torch
 from torch import nn
 
 from pdgn_tpu_torch.models.layers import (MLP, BatchNorm, BatchNormFold,
-                                          TorchDense, leaky_relu)
+                                          TorchDense, cast, leaky_relu,
+                                          matmul_f32, upcast)
 from pdgn_tpu_torch.ops.edges import neighbor_idx
 from pdgn_tpu_torch.ops.grouping import grouping
 from pdgn_tpu_torch.ops.kernels.bilateral_tail import edge_conv_tail
@@ -73,10 +83,10 @@ class _Conv(nn.Module):
 class _ConvBN(nn.Module):
     """The reference ``conv2dbr`` merge conv: ``conv`` + ``bn``."""
 
-    def __init__(self, out_ch: int, in_ch: int, width: int):
+    def __init__(self, out_ch: int, in_ch: int, width: int, dtype=None):
         super().__init__()
         self.conv = _Conv(out_ch, in_ch, width)
-        self.bn = BatchNorm(out_ch)
+        self.bn = BatchNorm(out_ch, dtype=dtype)
 
     def merge_kernel(self) -> torch.Tensor:
         """``(2F, 2C, 1, 2k)`` -> the slot-major ``(2k*2C, 2F)`` kernel."""
@@ -123,11 +133,11 @@ class UpsampleEdgeConv(nn.Module):
     """Point-doubling edge convolution (reference ``upsample_edgeConv``,
     models/PDGNet_v2.py:547-588): ``(B, N, Fin) -> (B, 2N, Fout)``."""
 
-    def __init__(self, fin: int, fout: int, k: int):
+    def __init__(self, fin: int, fout: int, k: int, dtype=None):
         super().__init__()
         self.fin, self.fout, self.k = fin, fout, k
         window = k // 2 + 1
-        self.conv2 = _ConvBN(2 * fout, 2 * fin, 2 * k)
+        self.conv2 = _ConvBN(2 * fout, 2 * fin, 2 * k, dtype)
         self.inte_conv_hk = nn.Sequential(_Conv(4 * fin, 2 * fin, window),
                                           BatchNormFold(4 * fin))
         self.register_buffer(
@@ -152,11 +162,13 @@ class BilateralUpsampleEdgeConv(nn.Module):
     ``bilateral_upsample_edgeConv``, models/PDGNet_v2.py:590-650), taking
     the stage input as the ``(xs, x)`` pair (``xs=None``: plain input)."""
 
-    def __init__(self, fin: int, fout: int, k: int, softmax: bool = True):
+    def __init__(self, fin: int, fout: int, k: int, softmax: bool = True,
+                 dtype=None):
         super().__init__()
         self.fin, self.fout, self.k, self.softmax = fin, fout, k, softmax
+        self.dtype = dtype
         window = k // 2 + 1
-        self.conv2 = _ConvBN(2 * fout, 2 * fin, 2 * k)
+        self.conv2 = _ConvBN(2 * fout, 2 * fin, 2 * k, dtype)
         self.inte_conv_hk = nn.Sequential(_Conv(4 * fin, 2 * fin, window),
                                           BatchNormFold(4 * fin))
         self.conv_fea = nn.Sequential(TorchDense(2 * fin, 16, (1, 1)),
@@ -173,7 +185,7 @@ class BilateralUpsampleEdgeConv(nn.Module):
     def forward(self, x: torch.Tensor, pc: torch.Tensor,
                 xs: Optional[torch.Tensor] = None):
         B, N, _ = x.shape
-        C, k = self.fin, self.k
+        C, k, dt = self.fin, self.k, self.dtype
         cx = 0 if xs is None else xs.shape[-1]
         conv_kernel, conv_bias = _window_kernel(self.inte_conv_hk[0],
                                                 self.perm)
@@ -184,16 +196,19 @@ class BilateralUpsampleEdgeConv(nn.Module):
         fk, fb = self.conv_fea[0].kernel, self.conv_fea[0].bias
         xk, xb = self.conv_xyz[0].kernel, self.conv_xyz[0].bias
         cp = pc.shape[-1]
+        x, pc = cast(dt, x), cast(dt, pc)
         fwc_full = fk[:C] - fk[C:]
         fwn_full = fk[C:]
-        pp_fea = torch.matmul(x, fwc_full[cx:]) + fb
+        pp_fea = cast(dt, matmul_f32(x, cast(dt, fwc_full[cx:])) + fb)
         if xs is not None:
-            pb_fea = torch.matmul(xs, fwc_full[:cx] + fwn_full[:cx])
-            pp_fea = pp_fea + pb_fea[:, None, :]
+            pb_fea = torch.matmul(upcast(xs), fwc_full[:cx] + fwn_full[:cx])
+            pp_fea = pp_fea + cast(dt, pb_fea)[:, None, :]
         ppoint = torch.cat(
-            [pp_fea, torch.matmul(pc, xk[:cp] - xk[cp:]) + xb], dim=-1)
-        pcat = torch.cat([torch.matmul(x, fwn_full[cx:]),
-                          torch.matmul(pc, xk[cp:])], dim=-1)
+            [pp_fea, cast(dt, matmul_f32(pc, cast(dt, xk[:cp] - xk[cp:]))
+                          + xb)], dim=-1)
+        pcat = torch.cat([cast(dt, matmul_f32(x, cast(dt, fwn_full[cx:]))),
+                          cast(dt, matmul_f32(pc, cast(dt, xk[cp:])))],
+                         dim=-1)
 
         (idx, inte_raw, partial, (i_mean, i_var), wfea, wxyz, fea_stats,
          xyz_stats) = edge_conv_head(x, conv_kernel, conv_bias, merge_kernel,
@@ -207,21 +222,24 @@ class BilateralUpsampleEdgeConv(nn.Module):
         fs = fsc * torch.rsqrt(fv + _EPS)
         xs_ = xsc * torch.rsqrt(xv + _EPS)
         # normalise + LeakyReLU + gate-multiply in the lane-flat layout
-        w_flat = (leaky_relu(wfea * fs.repeat(k) + (fsh - fm * fs).repeat(k))
-                  * leaky_relu(wxyz * xs_.repeat(k)
-                               + (xsh - xm * xs_).repeat(k)))
+        w_flat = cast(dt, leaky_relu(upcast(wfea) * fs.repeat(k)
+                                     + (fsh - fm * fs).repeat(k))
+                      * leaky_relu(upcast(wxyz) * xs_.repeat(k)
+                                   + (xsh - xm * xs_).repeat(k)))
         # conv_all1 per slot (16 -> 64) + bn_all1 pooled over the k slots
         c1 = self.conv_all[0]
-        h_pre = (torch.matmul(w_flat.reshape(B, N, k, 16), c1.kernel)
-                 + c1.bias).reshape(B, N, k * 64)
+        h_pre = cast(dt, matmul_f32(w_flat.reshape(B, N, k, 16),
+                                    cast(dt, c1.kernel))
+                     + c1.bias).reshape(B, N, k * 64)
         cnt = float(B * N * k)
-        hs = h_pre.sum(dim=(0, 1)).reshape(k, 64)
-        hq = (h_pre * h_pre).sum(dim=(0, 1)).reshape(k, 64)
+        hf = upcast(h_pre)
+        hs = hf.sum(dim=(0, 1)).reshape(k, 64)
+        hq = (hf * hf).sum(dim=(0, 1)).reshape(k, 64)
         m1 = hs.sum(dim=0) / cnt
         v1 = hq.sum(dim=0) / cnt - m1 * m1
         _, _, sc1, bi1 = self.conv_all[1].fold(m1, v1)
         s1 = sc1 * torch.rsqrt(v1 + _EPS)
-        h = leaky_relu(h_pre * s1.repeat(k) + (bi1 - m1 * s1).repeat(k))
+        h = cast(dt, leaky_relu(hf * s1.repeat(k) + (bi1 - m1 * s1).repeat(k)))
 
         # bn_all2's statistics from the slot moments of h through the
         # linear identity: E[y] = m.W + b, E[y^2] = W^T S W + 2b(m.W) + b^2
@@ -244,11 +262,12 @@ class BilateralUpsampleEdgeConv(nn.Module):
         return _point_pixel_shuffle(torch.relu(y)), idx
 
 
-def _fc(fin: int, fout: int) -> nn.Sequential:
+def _fc(fin: int, fout: int, dtype=None) -> nn.Sequential:
     """Reference ``fc``: Linear, BN, LeakyReLU, Linear, BN (indices 0-4)."""
-    return nn.Sequential(TorchDense(fin, fin), BatchNorm(fin),
-                         nn.LeakyReLU(0.01), TorchDense(fin, fout),
-                         BatchNorm(fout))
+    return nn.Sequential(TorchDense(fin, fin, dtype=dtype),
+                         BatchNorm(fin, dtype=dtype), nn.LeakyReLU(0.01),
+                         TorchDense(fin, fout, dtype=dtype),
+                         BatchNorm(fout, dtype=dtype))
 
 
 def _global_branch(fc: nn.Sequential, g_fc: Optional[nn.Sequential],
@@ -270,20 +289,21 @@ class BilateralBlock(nn.Module):
     ``bn_uc``. Stage 4 has no ``g_fc``."""
 
     def __init__(self, fin: int, fout: int, k: int, bilateral: bool = True,
-                 with_g: bool = True, softmax: bool = True):
+                 with_g: bool = True, softmax: bool = True, dtype=None):
         super().__init__()
         self.bilateral = bilateral
-        self.fc = _fc(fin, fout)
-        self.g_fc = (nn.Sequential(TorchDense(fout, 512), BatchNorm(512))
+        self.fc = _fc(fin, fout, dtype)
+        self.g_fc = (nn.Sequential(TorchDense(fout, 512, dtype=dtype),
+                                   BatchNorm(512, dtype=dtype))
                      if with_g else None)
         if bilateral:
             self.upsample_cov = BilateralUpsampleEdgeConv(fin, fout, k,
-                                                          softmax)
-            self.bn_uc = BatchNorm(fout)
+                                                          softmax, dtype)
+            self.bn_uc = BatchNorm(fout, dtype=dtype)
         else:
             self.upsample_cov = nn.Sequential(
-                UpsampleEdgeConv(fin, fout, k), BatchNorm(fout),
-                nn.LeakyReLU(0.01))
+                UpsampleEdgeConv(fin, fout, k, dtype),
+                BatchNorm(fout, dtype=dtype), nn.LeakyReLU(0.01))
 
     def forward(self, x: torch.Tensor, pc: Optional[torch.Tensor] = None,
                 xs_in: Optional[torch.Tensor] = None):
@@ -311,10 +331,11 @@ class PairMLP(MLP):
 
     def forward(self, g: torch.Tensor, ec: torch.Tensor) -> torch.Tensor:
         dense = [m for m in self if isinstance(m, TorchDense)]
-        kernel = dense[0].kernel
+        kernel, dt = dense[0].kernel, dense[0].dtype
         cg = g.shape[-1]
-        pb = torch.matmul(g, kernel[:cg]) + dense[0].bias
-        x = leaky_relu(torch.matmul(ec, kernel[cg:]) + pb[:, None, :])
+        pb = matmul_f32(cast(dt, g), cast(dt, kernel[:cg])) + dense[0].bias
+        x = leaky_relu(cast(dt, matmul_f32(cast(dt, ec), cast(dt, kernel[cg:]))
+                            + pb[:, None, :]))
         for d in dense[1:-1]:
             x = leaky_relu(d(x))
         return dense[-1](x)
@@ -324,25 +345,28 @@ class PointGenerator(nn.Module):
     """128-d noise -> four point clouds (reference ``PointGenerator``,
     models/PDGNet_v2.py:820-877). ``base_points`` < 128 shrinks every stage
     proportionally (small test configurations); it must exceed
-    ``num_k // 2``."""
+    ``num_k // 2``. ``dtype``: ``None`` (fp32) or ``torch.bfloat16`` (see
+    the module docstring)."""
 
     def __init__(self, num_point: int = 2048, num_k: int = 20,
                  softmax: bool = True, base_points: int = 128,
-                 noise_dim: int = 128):
+                 noise_dim: int = 128, dtype=None):
         super().__init__()
         self.num_point = num_point
         self.base_points = base_points
         self.noise_dim = noise_dim
+        self.dtype = dtype
         k = num_k // 2
         self.fc1 = nn.Sequential(TorchDense(noise_dim, 32 * base_points),
                                  BatchNorm(32 * base_points))
-        self.bilateral1 = BilateralBlock(32, 32, k, bilateral=False)
-        self.bilateral2 = BilateralBlock(64, 64, k, softmax=softmax)
-        self.bilateral3 = BilateralBlock(128, 128, k, softmax=softmax)
+        dt = dict(dtype=dtype)
+        self.bilateral1 = BilateralBlock(32, 32, k, bilateral=False, **dt)
+        self.bilateral2 = BilateralBlock(64, 64, k, softmax=softmax, **dt)
+        self.bilateral3 = BilateralBlock(128, 128, k, softmax=softmax, **dt)
         self.bilateral4 = BilateralBlock(256, 256, k, with_g=False,
-                                         softmax=softmax)
+                                         softmax=softmax, **dt)
         for i, cin in enumerate((512 + 32, 512 + 64, 512 + 128, 256 + 256)):
-            self.add_module(f"mlp{i + 1}", PairMLP(cin, (256, 64, 3)))
+            self.add_module(f"mlp{i + 1}", PairMLP(cin, (256, 64, 3), **dt))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Re-draw every parameter (torch default init) from ``generator``."""
@@ -355,8 +379,9 @@ class PointGenerator(nn.Module):
         with ``return_graphs`` also the four stages' kNN graphs."""
         B = z.shape[0]
         x = leaky_relu(self.fc1[1](self.fc1[0](z)))
-        # torch view(B, 32, base) is (channel, point): to (B, N, C)
-        x = x.reshape(B, 32, self.base_points).transpose(1, 2)
+        # torch view(B, 32, base) is (channel, point): to (B, N, C); the
+        # compute dtype applies from the first block on
+        x = cast(self.dtype, x.reshape(B, 32, self.base_points).transpose(1, 2))
         xs1, g1, ec1, i1 = self.bilateral1(x)
         x1s = self.mlp1(g1, ec1)
         xs2, g2, ec2, i2 = self.bilateral2(ec1, x1s, xs_in=xs1)
@@ -365,7 +390,7 @@ class PointGenerator(nn.Module):
         x3s = self.mlp3(g3, ec3)
         xs4, _, ec4, i4 = self.bilateral4(ec3, x3s, xs_in=xs3)
         x4s = self.mlp4(xs4, ec4)
-        clouds = (x1s, x2s, x3s, x4s)
+        clouds = tuple(upcast(c) for c in (x1s, x2s, x3s, x4s))
         if return_graphs:
             return clouds, [i1, i2, i3, i4]
         return clouds

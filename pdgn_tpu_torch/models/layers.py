@@ -12,10 +12,17 @@ eval mode: it ALWAYS normalises with the current batch's statistics.
 momentum 0.1, biased batch variance, as the JAX ``_BNStatsVars``); this is
 why the port does not use ``nn.BatchNorm1d``, whose running variance takes
 the unbiased estimate.
+
+A layer's ``dtype`` (``None`` or ``torch.bfloat16``) is the JAX package's
+compute dtype: ``TorchDense`` computes as flax's ``Dense(dtype=...)``
+(operands and bias cast, the product rounded, then the bias added in that
+dtype), ``BatchNorm`` takes its statistics from the fp32 upcast and casts
+its output. Parameters and statistics stay fp32.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -23,9 +30,44 @@ import torch
 from torch import nn
 
 
+@functools.lru_cache(maxsize=None)
+def _bf16_value(v: float) -> float:
+    """``v`` rounded to bf16 (round to nearest even), as a Python float."""
+    return float(torch.tensor(v, dtype=torch.bfloat16))
+
+
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
-    """torch-default LeakyReLU (slope 0.01)."""
+    """torch-default LeakyReLU (slope 0.01). On a bf16 tensor the slope is
+    rounded to bf16 and the product once, as JAX multiplies a bf16
+    activation by a weakly typed scalar (0.01 -> 0.010009765625)."""
+    if x.dtype == torch.bfloat16:
+        negative_slope = _bf16_value(negative_slope)
     return torch.nn.functional.leaky_relu(x, negative_slope)
+
+
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in fp32 when it is stored in bf16, else as it is (fp32, and the
+    float64 of the checks' arbiters)."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 operands accumulated and returned in fp32 (XLA's
+    ``preferred_element_type=float32``; bf16 products are exact in fp32):
+    on the card one bf16 product with an fp32 result (cuBLAS, fp32
+    accumulation), on the CPU the product of the fp32 upcasts. fp32 and
+    float64 operands as they are."""
+    if a.dtype == b.dtype == torch.bfloat16 and a.is_cuda and b.dim() == 2:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b,
+                       out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(upcast(a), upcast(b))
+
+
+def cast(dtype: Optional[torch.dtype], t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the compute dtype (the JAX package's ``_cast``/``_to``);
+    ``dtype=None`` leaves it as it is."""
+    return t if dtype is None else t.to(dtype)
 
 
 class TorchDense(nn.Module):
@@ -38,10 +80,12 @@ class TorchDense(nn.Module):
     """
 
     def __init__(self, in_features: int, out_features: int,
-                 trailing: Tuple[int, ...] = ()):
+                 trailing: Tuple[int, ...] = (),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
+        self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features, *trailing))
         self.bias = nn.Parameter(torch.empty(out_features))
@@ -59,7 +103,11 @@ class TorchDense(nn.Module):
         return self.weight.reshape(self.out_features, self.in_features).T
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.kernel) + self.bias
+        if self.dtype is None:
+            return torch.matmul(x, self.kernel) + self.bias
+        dt = self.dtype
+        return (matmul_f32(x.to(dt), self.kernel.to(dt)).to(dt)
+                + self.bias.to(dt))
 
 
 class BatchNorm(nn.Module):
@@ -67,11 +115,12 @@ class BatchNorm(nn.Module):
     batch statistics (see the module docstring)."""
 
     def __init__(self, num_features: int, momentum: float = 0.1,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_features = num_features
         self.momentum = momentum
         self.eps = eps
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -113,13 +162,14 @@ class BatchNorm(nn.Module):
         n = 1
         for a in axes:
             n *= x.shape[a]
+        x = upcast(x)
         mean = torch.sum(x, dim=axes) / n
         mean2 = torch.sum(x * x, dim=axes) / n
         # clamp at 0: the E[x^2] - E[x]^2 form can go slightly negative
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         self.update_running(mean.detach(), var.detach())
         s = self.weight * torch.rsqrt(var + self.eps)
-        return x * s + (self.bias - mean * s)
+        return cast(self.dtype, x * s + (self.bias - mean * s))
 
 
 class BatchNormFold(BatchNorm):
@@ -168,13 +218,14 @@ class MLP(nn.Sequential):
     Weights sit at indices 0, 2, 4, ... as in the reference Sequential."""
 
     def __init__(self, in_features: int, features: Sequence[int],
-                 trailing: Tuple[int, ...] = (1,)):
+                 trailing: Tuple[int, ...] = (1,),
+                 dtype: Optional[torch.dtype] = None):
         layers = []
         fin = in_features
         for i, f in enumerate(features):
             if i:
                 layers.append(nn.LeakyReLU(0.01))
-            layers.append(TorchDense(fin, f, trailing))
+            layers.append(TorchDense(fin, f, trailing, dtype))
             fin = f
         super().__init__(*layers)
 

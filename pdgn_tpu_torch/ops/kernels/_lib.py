@@ -10,7 +10,8 @@ the first kernel launch builds.
 
 ``LAUNCHES`` counts kernel launches by name. Each wrapper adds one where it
 launches its kernel on a CUDA tensor, and nowhere else; the CPU route (the
-plain version) never touches it.
+plain version) never touches it. A bf16 instance counts under its kernel's
+name with ``_bf16`` appended.
 """
 
 from __future__ import annotations
@@ -41,8 +42,12 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "pdgn_edge_head": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I]
                       + [_P] * 11 + [_P, _I, _I, _P, _P, _P],
+    "pdgn_edge_head_bf16": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I]
+                           + [_P] * 11 + [_P, _I, _I, _P, _P, _P, _P],
     "pdgn_slot_stats": [_P, _L, _I, _P, _P, _P],
+    "pdgn_slot_stats_bf16": [_P, _L, _I, _P, _P, _P],
     "pdgn_bilateral_tail": [_P] * 10 + [_I, _P] + [_I] * 6 + [_P] * 3,
+    "pdgn_bilateral_tail_bf16": [_P] * 10 + [_I, _P] + [_I] * 6 + [_P] * 3,
     "pdgn_edge_head_bwd": [_P] * 4 + [_I] * 8 + [_P] * 10 + [_P] * 15
                           + [_P],
     "pdgn_bilateral_tail_bwd": [_P] * 12 + [_I] * 8 + [_P] * 12 + [_P],
@@ -150,6 +155,24 @@ def up4(v: int) -> int:
     """``v`` rounded up to a multiple of 4 (the products' 16-byte
     ``cp.async`` granules)."""
     return -(-v // 4) * 4
+
+
+def up8(v: int) -> int:
+    """``v`` rounded up to a multiple of 8 (a 16-byte granule of bf16)."""
+    return -(-v // 8) * 8
+
+
+def instance(t) -> str:
+    """The kernel instance a tensor's dtype takes: ``""`` for float32,
+    ``"_bf16"`` for bfloat16 (the suffix of its C entry and of its
+    ``LAUNCHES`` name); any other dtype raises."""
+    import torch
+
+    if t.dtype == torch.float32:
+        return ""
+    if t.dtype == torch.bfloat16:
+        return "_bf16"
+    raise TypeError(f"no kernel instance for {t.dtype}: float32 or bfloat16")
 
 
 def check_rows(rows: int, per_block: int, name: str) -> None:

@@ -9,6 +9,11 @@ tensors its forward launches ``csrc/bilateral_tail.cu`` and its backward
 ``csrc/bilateral_tail_bwd.cu`` (gated for stages 2-4, plain for stage 1);
 for CPU tensors they run the plain PyTorch versions (:func:`tail_reference`
 and autograd's VJP of it, :func:`tail_bwd_plain`).
+
+bf16 ``inte`` (the generator's ``--compute_dtype bfloat16``) takes the
+kernels' bf16 instances, with ``h``, ``w2k`` and ``wi`` in bf16 and the
+folds, ``partial`` and the bias in fp32; ``y`` is bf16. They have no
+backward yet: a bf16 tail raises in ``backward``.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from pdgn_tpu_torch.models.layers import cast, matmul_f32, upcast
 from pdgn_tpu_torch.ops.kernels import _lib
 
 # the gated gate kernel's widest k (csrc/tail_gate.cuh, kGateMaxK): k + 1 <=
@@ -33,23 +39,41 @@ def _leaky(x):
     return torch.where(x >= 0, x, 0.01 * x)
 
 
-def tail_reference(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2,
-                   wi, bias, k: int, softmax: bool):
-    """Port of ``_reference``: the tail on lane-flat operands."""
-    B, N, _ = partial.shape
+def gate_reference(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, k: int,
+                   softmax: bool):
+    """The tail's gate ``g (B, N, k/2, 4Fin)`` on lane-flat operands: the
+    BN-folded LeakyReLU of ``inte``, times the slot weights when ``h`` is
+    given. With bf16 ``inte`` (and ``h``, ``w2k``) the first factor, the
+    slot weights and their product are rounded to bf16, as in
+    ``_reference``."""
+    B, N, _ = inte_flat.shape
     hk = k // 2
     four_fin = inte_flat.shape[-1] // hk
-    gi = _leaky(inte_flat.reshape(B, N, hk, four_fin) * isc + ish)
+    dt = torch.bfloat16 if inte_flat.dtype == torch.bfloat16 else None
+    gi = cast(dt, _leaky(upcast(inte_flat.reshape(B, N, hk, four_fin)) * isc
+                         + ish))
     if h_flat is not None:
         hidden = h_flat.shape[-1] // k
         h = h_flat.reshape(B, N, k, hidden)
-        u = _leaky((torch.matmul(h, w2k) + w2b) * s2 + t2)
+        u = _leaky((matmul_f32(h, w2k) + w2b) * s2 + t2)
         if softmax:
             u = torch.softmax(u, dim=2)
         # slot pairs (2wp, 2wp+1) -> block channels (contiguous reshape)
-        gi = gi * u.reshape(B, N, hk, four_fin)
-    acc = partial + torch.matmul(gi.reshape(B, N, hk * four_fin), wi)
-    return acc + bias
+        gi = gi * cast(dt, u.reshape(B, N, hk, four_fin))
+    return gi
+
+
+def tail_reference(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2,
+                   wi, bias, k: int, softmax: bool):
+    """Port of ``_reference``: the tail on lane-flat operands, the gate of
+    :func:`gate_reference` through the merge. With bf16 operands the merge
+    accumulates in fp32 and ``y`` is rounded to bf16, as there."""
+    B, N, _ = partial.shape
+    dt = torch.bfloat16 if inte_flat.dtype == torch.bfloat16 else None
+    g = gate_reference(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, k,
+                       softmax)
+    acc = partial + matmul_f32(g.reshape(B, N, -1), wi)
+    return cast(dt, acc + bias)
 
 
 def tail_kernel(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
@@ -64,23 +88,26 @@ def tail_kernel(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
     rows = B * N
     kd = inte_flat.shape[-1]                      # k/2 * 4Fin
     four_fin = kd // (k // 2)
-    ldg, ldw = _lib.up4(kd), _lib.up4(two_f)
+    sfx = _lib.instance(inte_flat)
+    # 16-byte granules: 4 fp32 or 8 bf16
+    up = _lib.up8 if sfx else _lib.up4
+    ldg, ldw = up(kd), up(two_f)
     _lib.check_rows(rows, 128, "bilateral_tail")
     if (ldg, ldw) != tuple(wi.shape):
         wi = torch.nn.functional.pad(wi, (0, ldw - two_f, 0, ldg - kd))
     wi = _lib.aligned(wi.contiguous())
     inte_flat = _lib.aligned(inte_flat)
     h_flat = None if h_flat is None else _lib.aligned(h_flat)
-    g = torch.empty(rows, ldg, device=partial.device, dtype=torch.float32)
-    y = torch.empty_like(partial)
+    g = torch.empty(rows, ldg, device=partial.device, dtype=inte_flat.dtype)
+    y = torch.empty(B, N, two_f, device=partial.device, dtype=inte_flat.dtype)
     p = _lib.ptr
-    _lib.check(_lib.library().pdgn_bilateral_tail(
+    _lib.check(getattr(_lib.library(), "pdgn_bilateral_tail" + sfx)(
         p(partial), p(inte_flat), p(h_flat), p(isc), p(ish), p(w2k), p(w2b),
         p(s2), p(t2), p(wi), ldw, p(bias), rows, k, four_fin, two_f, ldg,
         int(softmax), p(g), p(y), _lib.stream_handle(partial.device)),
-        "pdgn_bilateral_tail")
-    _lib.LAUNCHES["bilateral_tail_gated" if h_flat is not None
-                  else "bilateral_tail_plain"] += 1
+        "pdgn_bilateral_tail" + sfx)
+    _lib.LAUNCHES[("bilateral_tail_gated" if h_flat is not None
+                   else "bilateral_tail_plain") + sfx] += 1
     return (y, g[:, :kd]) if keep_g else y
 
 
@@ -199,6 +226,10 @@ class _Tail(torch.autograd.Function):
     def backward(ctx, dy):
         (partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
          bias) = ctx.saved_tensors
+        if inte_flat.dtype != torch.float32:
+            raise TypeError("tail: no backward for "
+                            f"{inte_flat.dtype} (bf16 training is not "
+                            "ported)")
         if dy.device.type == "cuda":
             g = tail_bwd_kernel(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2,
                                 wi, dy, ctx.k, ctx.softmax)
@@ -212,23 +243,31 @@ def tail(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi, bias,
          k: int, softmax: bool = True):
     """The tail on prepared operands, differentiable; ``h_flat=None`` is
     the plain stage (``w2k``..``t2`` are then ignored and may be ``None``).
-    CUDA tensors launch the kernels, CPU tensors run the plain versions."""
+    CUDA tensors launch the kernels, CPU tensors run the plain versions.
+    ``inte`` float32 or bfloat16: ``h``, ``w2k`` and ``wi`` in its dtype,
+    the rest float32."""
     B, N, two_f = partial.shape
     hk = k // 2
     four_fin = inte_flat.shape[-1] // max(hk, 1)
     two_fin = four_fin // 2
-    checks = [("partial", partial, (B, N, two_f)),
-              ("inte", inte_flat, (B, N, hk * four_fin)),
-              ("isc", isc, (four_fin,)), ("ish", ish, (four_fin,)),
-              ("wi", wi, (hk * four_fin, two_f)), ("bias", bias, (two_f,))]
+    dt = inte_flat.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"inte: expected float32 or bfloat16, got {dt}")
+    f32 = torch.float32
+    checks = [("partial", partial, (B, N, two_f), f32),
+              ("inte", inte_flat, (B, N, hk * four_fin), dt),
+              ("isc", isc, (four_fin,), f32), ("ish", ish, (four_fin,), f32),
+              ("wi", wi, (hk * four_fin, two_f), dt),
+              ("bias", bias, (two_f,), f32)]
     if h_flat is not None:
         hidden = h_flat.shape[-1] // k
-        checks += [("h", h_flat, (B, N, k * hidden)),
-                   ("w2k", w2k, (hidden, two_fin)), ("w2b", w2b, (two_fin,)),
-                   ("s2", s2, (two_fin,)), ("t2", t2, (two_fin,))]
-    for name, t, shape in checks:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        checks += [("h", h_flat, (B, N, k * hidden), dt),
+                   ("w2k", w2k, (hidden, two_fin), dt),
+                   ("w2b", w2b, (two_fin,), f32),
+                   ("s2", s2, (two_fin,), f32), ("t2", t2, (two_fin,), f32)]
+    for name, t, shape, dtype in checks:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got "
                              f"{tuple(t.shape)}")
@@ -258,7 +297,9 @@ def edge_conv_tail(partial, inte_raw, h: Optional[torch.Tensor], inte_stats,
 
     ``inte_stats``/``w2_stats`` are ``(mean, var, scale, bias)`` in block
     channel order; ``merge_kernel (2k*2Fin, 2F)`` is the reference slot
-    layout. Returns ``y (B, N, 2F)``.
+    layout. Returns ``y (B, N, 2F)`` in ``inte_raw``'s dtype (a bf16
+    ``inte`` takes the merge weight and conv_all2's kernel in bf16, as the
+    JAX entry casts them).
     """
     B, N, _ = partial.shape
     hk = k // 2
@@ -268,7 +309,8 @@ def edge_conv_tail(partial, inte_raw, h: Optional[torch.Tensor], inte_stats,
     kr = merge_kernel.reshape(2 * k, two_fin, two_f)
     # inte half -> block conv layout: wi_blk[wp, j*2Fin+c] = wi[j*hk+wp, c]
     wi = kr[k:].reshape(2, hk, two_fin, two_f).transpose(0, 1)
-    wi = wi.reshape(hk * four_fin, two_f).contiguous()
+    dt = torch.bfloat16 if inte_raw.dtype == torch.bfloat16 else None
+    wi = cast(dt, wi.reshape(hk * four_fin, two_f)).contiguous()
 
     i_mean, i_var, i_scale, i_bias = inte_stats
     isc = i_scale * torch.rsqrt(i_var + epsilon)
@@ -277,7 +319,8 @@ def edge_conv_tail(partial, inte_raw, h: Optional[torch.Tensor], inte_stats,
     if h is not None:
         if h.dim() == 4:
             h = h.reshape(B, N, k * h.shape[-1])
-        w2k, w2b = (t.contiguous() for t in w2_params)
+        w2k, w2b = w2_params
+        w2k, w2b = cast(dt, w2k).contiguous(), w2b.contiguous()
         m2, v2, sc2, b2 = w2_stats
         s2 = sc2 * torch.rsqrt(v2 + epsilon)
         t2 = b2 - m2 * s2

@@ -10,6 +10,14 @@ a ``torch.autograd.Function``. For CUDA tensors its forward launches
 tensors they run the plain PyTorch versions (:func:`head_plain`: exact kNN +
 :func:`head_reference_given_idx`; :func:`head_bwd_plain`: autograd's VJP of
 that body for the same graph).
+
+bf16 ``x`` (the generator's ``--compute_dtype bfloat16``) takes the
+kernel's bf16 instance: ``x_knn``, ``pcat``, ``ppoint`` and the weights in
+bf16, ``pb_point``/``pb_merge`` in fp32; the graph of the bf16 values
+(fp32 norms of the upcast), products accumulated in fp32, ``inte``,
+``wfea`` and ``wxyz`` rounded to bf16, ``partial`` and the sums (of the
+rounded values) fp32. It has no backward yet: a bf16 head raises in
+``backward``.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from pdgn_tpu_torch.models.layers import cast, matmul_f32, upcast
 from pdgn_tpu_torch.ops.grouping import grouping
 from pdgn_tpu_torch.ops.kernels import _lib
 from pdgn_tpu_torch.ops.knn import knn_exclude_first
@@ -37,27 +46,31 @@ def head_reference_given_idx(x, wn_flat, conv_a, pb_point, a_merge, wen,
 
     Returns ``inte (B, N, hk*4Fin)``, ``partial (B, N, 2F)``,
     ``stats (2, 4Fin)`` and, gated, ``wfea``/``wxyz (B, N, k*16)`` and
-    ``wstats (2, k*32)`` (else ``None``s).
+    ``wstats (2, k*32)`` (else ``None``s). With bf16 ``x`` (and weights,
+    ``pcat``, ``ppoint``) the products accumulate in fp32, ``inte`` and the
+    weight-net rows are rounded to bf16 and the sums taken of the rounded
+    values (``_head_reference_given_idx`` in bf16).
     """
     B, N, C = x.shape
     hk = k // 2
     four_fin = conv_a.shape[-1]
+    dt = torch.bfloat16 if x.dtype == torch.bfloat16 else None
 
     nbr = grouping(x, idx)                                # (B, N, k, C)
     nbr_flat = nbr.reshape(B, N, k * C)
-    partial = (torch.matmul(x, a_merge) + torch.matmul(nbr_flat, wen)
+    partial = (matmul_f32(x, a_merge) + matmul_f32(nbr_flat, wen)
                + pb_merge[:, None, :])
 
-    point = torch.matmul(x, conv_a) + pb_point[:, None, :]
+    point = matmul_f32(x, conv_a) + pb_point[:, None, :]
     wnr = wn_flat.reshape(window, C, four_fin)
     parts = []
     for wp in range(hk):
         y = point
         for t in range(window):
-            y = y + torch.matmul(nbr[:, :, wp + t, :], wnr[t])
-        parts.append(y)
+            y = y + matmul_f32(nbr[:, :, wp + t, :], wnr[t])
+        parts.append(cast(dt, y))
     inte = torch.cat(parts, dim=-1)                       # (B, N, hk*4Fin)
-    inte4 = inte.reshape(B, N, hk, four_fin)
+    inte4 = upcast(inte.reshape(B, N, hk, four_fin))
     stats = torch.stack([inte4.sum(dim=(0, 1, 2)),
                          (inte4 * inte4).sum(dim=(0, 1, 2))])
     if pcat is None:
@@ -66,19 +79,22 @@ def head_reference_given_idx(x, wn_flat, conv_a, pb_point, a_merge, wen,
     # weight-net front in the (window, j) slot order
     idx_b = idx.reshape(B, N, 2, hk).transpose(2, 3).reshape(B, N, k)
     half = PROJ // 2
-    wrow = grouping(pcat, idx_b) + ppoint[:, :, None, :]  # (B, N, k, 32)
+    wrow = cast(dt, upcast(grouping(pcat, idx_b))
+                + upcast(ppoint)[:, :, None, :])          # (B, N, k, 32)
     wfea = wrow[..., :half].reshape(B, N, k * half)
     wxyz = wrow[..., half:].reshape(B, N, k * half)
-    wstats = torch.stack([wrow.sum(dim=(0, 1)).reshape(k * PROJ),
-                          (wrow * wrow).sum(dim=(0, 1)).reshape(k * PROJ)])
+    wf = upcast(wrow)
+    wstats = torch.stack([wf.sum(dim=(0, 1)).reshape(k * PROJ),
+                          (wf * wf).sum(dim=(0, 1)).reshape(k * PROJ)])
     return inte, partial, stats, wfea, wxyz, wstats
 
 
 def head_plain(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
                pcat, ppoint, k: int, window: int):
-    """Plain PyTorch head: exact kNN on ``x_knn`` (norm expansion, row
-    minimum dropped) + the fixed-graph body."""
-    idx = knn_exclude_first(self_pairwise_sqdist(x_knn), k)
+    """Plain PyTorch head: exact kNN on ``x_knn`` (norm expansion in fp32,
+    of the upcast of a bf16 ``x_knn``; row minimum dropped) + the
+    fixed-graph body."""
+    idx = knn_exclude_first(self_pairwise_sqdist(upcast(x_knn)), k)
     return (idx,) + head_reference_given_idx(
         x, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge, pcat, ppoint,
         idx, k, window)
@@ -104,8 +120,9 @@ _P_BUDGET = 1 << 30
 def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
                 pcat, ppoint, k: int, window: int):
     """Launch ``csrc/edge_head.cu`` (CUDA tensors, checked by
-    :func:`edge_head`): the kNN, then per chunk of clouds the product
-    ``P = x @ W_all`` and the gather pass."""
+    :func:`edge_head`; its fp32 or its bf16 instance, by ``x``'s dtype):
+    the kNN, then per chunk of clouds the product ``P = x @ W_all`` and the
+    gather pass."""
     B, N, C = x.shape
     cf = x_knn.shape[-1]
     hk = k // 2
@@ -113,11 +130,15 @@ def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     two_f = a_merge.shape[-1]
     dev = x.device
     f32 = dict(device=dev, dtype=torch.float32)
+    io = dict(device=dev, dtype=x.dtype)
+    sfx = _lib.instance(x)
     _lib.check_rows(B, 1, "edge_head")
-    # the product's operands: depth and columns padded to 16-byte rows
-    c4 = -(-C // 4) * 4
+    # the product's operands: depth and columns padded to 16-byte rows (4
+    # fp32 or 8 bf16)
+    up = _lib.up8 if sfx else _lib.up4
+    c4 = up(C)
     w_all = pack_head_weights(wn_flat, conv_a, a_merge, wen, k, window)
-    ld = -(-w_all.shape[1] // 4) * 4
+    ld = up(w_all.shape[1])
     w_all = torch.nn.functional.pad(
         w_all, (0, ld - w_all.shape[1], 0, c4 - C)).contiguous()
     xa = (_lib.aligned(x) if c4 == C
@@ -130,25 +151,27 @@ def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     P = torch.empty(chunk * N, ld, **f32)
     stats_part = torch.empty(parts, 2, four_fin, **f32)
     idx = torch.empty(B, N, k, device=dev, dtype=torch.int32)
-    inte = torch.empty(B, N, hk * four_fin, **f32)
+    inte = torch.empty(B, N, hk * four_fin, **io)
     partial = torch.empty(B, N, two_f, **f32)
     stats = torch.empty(2, four_fin, **f32)
     gated = pcat is not None
     if gated:
-        wfea = torch.empty(B, N, k * PROJ // 2, **f32)
-        wxyz = torch.empty(B, N, k * PROJ // 2, **f32)
+        wfea = torch.empty(B, N, k * PROJ // 2, **io)
+        wxyz = torch.empty(B, N, k * PROJ // 2, **io)
         wstats = torch.empty(2, k * PROJ, **f32)
         w_part = torch.empty(parts, 2, k * PROJ, **f32)
     else:
         wfea = wxyz = wstats = w_part = None
+    # the bf16 instance builds its graph from an fp32 upcast of x_knn
+    xk = (torch.empty(B, N, cf, **f32),) if sfx else ()
     p = _lib.ptr
-    _lib.check(_lib.library().pdgn_edge_head(
+    _lib.check(getattr(_lib.library(), "pdgn_edge_head" + sfx)(
         p(xa), p(x_knn), B, N, c4, cf, k, p(w_all), ld, four_fin, two_f,
         p(pb_point), p(pb_merge), p(pcat), p(ppoint), p(idx), p(inte),
         p(partial), p(stats), p(wfea), p(wxyz), p(wstats), p(P), chunk,
-        grid, p(stats_part), p(w_part), _lib.stream_handle(dev)),
-        "pdgn_edge_head")
-    _lib.LAUNCHES["edge_head"] += 1
+        grid, p(stats_part), p(w_part), *map(p, xk),
+        _lib.stream_handle(dev)), "pdgn_edge_head" + sfx)
+    _lib.LAUNCHES["edge_head" + sfx] += 1
     return idx, inte, partial, stats, wfea, wxyz, wstats
 
 
@@ -296,6 +319,9 @@ class _Head(torch.autograd.Function):
     def backward(ctx, *grads):
         (x, idx, inte, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
          pcat, ppoint) = ctx.saved_tensors
+        if x.dtype != torch.float32:
+            raise TypeError(f"edge_head: no backward for {x.dtype} (bf16 "
+                            "training is not ported)")
         cts = grads[1:]                                   # idx has none
         if x.device.type == "cuda":
             g = head_bwd_kernel(x, idx, inte, wn_flat, conv_a, a_merge, wen,
@@ -326,24 +352,28 @@ def edge_head(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     versions; anything else raises.
 
     Returns ``idx, inte, partial, stats, wfea, wxyz, wstats`` (the last
-    three ``None`` for the plain stage).
+    three ``None`` for the plain stage). ``x`` float32 or bfloat16: ``x_knn``,
+    the weights, ``pcat`` and ``ppoint`` in its dtype, ``pb_*`` float32.
     """
     B, N, C = x.shape
     cf = x_knn.shape[-1]
     four_fin = conv_a.shape[-1]
     two_f = a_merge.shape[-1]
-    checks = [("x", x, (B, N, C)), ("x_knn", x_knn, (B, N, cf)),
-              ("wn_flat", wn_flat, (window * C, four_fin)),
-              ("conv_a", conv_a, (C, four_fin)),
-              ("pb_point", pb_point, (B, four_fin)),
-              ("a_merge", a_merge, (C, two_f)),
-              ("wen", wen, (k * C, two_f)),
-              ("pb_merge", pb_merge, (B, two_f))]
+    dt, f32 = x.dtype, torch.float32
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x: expected float32 or bfloat16, got {dt}")
+    checks = [("x", x, (B, N, C), dt), ("x_knn", x_knn, (B, N, cf), dt),
+              ("wn_flat", wn_flat, (window * C, four_fin), dt),
+              ("conv_a", conv_a, (C, four_fin), dt),
+              ("pb_point", pb_point, (B, four_fin), f32),
+              ("a_merge", a_merge, (C, two_f), dt),
+              ("wen", wen, (k * C, two_f), dt),
+              ("pb_merge", pb_merge, (B, two_f), f32)]
     if pcat is not None:
-        checks += [("pcat", pcat, (B, N, PROJ)),
-                   ("ppoint", ppoint, (B, N, PROJ))]
-    for name, t, shape in checks:
-        _check(name, t, shape)
+        checks += [("pcat", pcat, (B, N, PROJ), dt),
+                   ("ppoint", ppoint, (B, N, PROJ), dt)]
+    for name, t, shape, dtype in checks:
+        _check(name, t, shape, dtype)
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if k % 2 or window != k // 2 + 1 or N <= k:
@@ -367,7 +397,9 @@ def head_operands(x, conv_kernel, conv_bias, merge_kernel, k: int,
 
     With ``xs`` every contraction of the per-batch half collapses to a
     per-batch bias; the graph is still built from the full concat
-    ``[xs broadcast | x]``, as the JAX package's exact path does.
+    ``[xs broadcast | x]``, as the JAX package's exact path does. With bf16
+    ``x`` the weights are cast to bf16 (as ``_head_pallas`` casts them) and
+    ``pb_*`` stay fp32, from the upcast ``xs``.
     """
     B, N, C = x.shape
     window = conv_kernel.shape[1]
@@ -390,20 +422,24 @@ def head_operands(x, conv_kernel, conv_bias, merge_kernel, k: int,
         a_merge = a_merge_full
         wen = wen_full.reshape(k * cf, two_f)
         pb_point = conv_bias[None, :].expand(B, four_fin)
-        pb_merge = x.new_zeros(B, two_f)
+        pb_merge = conv_bias.new_zeros(B, two_f)
     else:
         x_knn = torch.cat([xs[:, None, :].expand(B, N, cx), x], dim=-1)
         conv_a = conv_a_full[cx:]
         wn_flat = wn[:, cx:, :].reshape(window * C, four_fin)
         m_point = conv_a_full[:cx] + torch.sum(wn[:, :cx, :], dim=0)
-        pb_point = torch.matmul(xs, m_point) + conv_bias
+        pb_point = torch.matmul(upcast(xs), m_point) + conv_bias
         a_merge = a_merge_full[cx:]
         wen = wen_full[:, cx:, :].reshape(k * C, two_f)
         m_merge = a_merge_full[:cx] + torch.sum(wen_full[:, :cx, :], dim=0)
-        pb_merge = torch.matmul(xs, m_merge)
-    c = torch.Tensor.contiguous
-    return (c(x_knn), c(wn_flat), c(conv_a), c(pb_point), c(a_merge), c(wen),
-            c(pb_merge), window)
+        pb_merge = torch.matmul(upcast(xs), m_merge)
+    dt = torch.bfloat16 if x.dtype == torch.bfloat16 else None
+
+    def c(t):
+        return torch.Tensor.contiguous(cast(dt, t))
+
+    return (c(x_knn), c(wn_flat), c(conv_a), pb_point.contiguous(),
+            c(a_merge), c(wen), pb_merge.contiguous(), window)
 
 
 def edge_conv_head(x, conv_kernel, conv_bias, merge_kernel, k: int,

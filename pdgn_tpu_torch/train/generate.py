@@ -6,6 +6,8 @@ from ``seed``: the weights come from ``pretrain_model_G`` when given, else
 from a seeded torch default init; the noise from a ``torch.Generator`` on
 the device seeded with ``seed``. The port's noise stream differs from the
 JAX package's, so the same seed gives other clouds than ``pdgn_tpu``.
+``dtype=torch.bfloat16`` builds the generator in the bf16 compute policy
+(``--compute_dtype bfloat16``); the clouds are fp32 either way.
 """
 
 from __future__ import annotations
@@ -25,14 +27,15 @@ from pdgn_tpu_torch.utils.misc import resolve_device
 def build_generator(seed: int, device="cuda", num_point: int = 2048,
                     num_k: int = 20, base_points: int = 128,
                     pretrain_model_G: Optional[str] = None,
-                    softmax: bool = True,
-                    noise_dim: int = 128) -> PointGenerator:
+                    softmax: bool = True, noise_dim: int = 128,
+                    dtype: Optional[torch.dtype] = None) -> PointGenerator:
     """A generator on ``device``: loaded from ``pretrain_model_G`` or drawn
     from a CPU ``torch.Generator`` seeded with ``seed`` (same weights on
-    every device)."""
+    every device, whatever the compute ``dtype``)."""
     device = resolve_device(device)
     model = PointGenerator(num_point, num_k, softmax=softmax,
-                           base_points=base_points, noise_dim=noise_dim)
+                           base_points=base_points, noise_dim=noise_dim,
+                           dtype=dtype)
     if pretrain_model_G is not None:
         load_generator(pretrain_model_G, model)
     else:

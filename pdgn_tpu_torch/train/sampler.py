@@ -4,7 +4,8 @@ z ~ N(0, 1) (test sigma; training noise is 0.2), drawn from an explicit
 ``torch.Generator`` on the model's device. The generator normalises with
 the sampled batch's statistics (the reference never switches to eval), and
 sampling leaves the running statistics unchanged, as the JAX sampler
-discards its updated ``batch_stats``.
+discards its updated ``batch_stats``. The noise is fp32 whatever the
+generator's compute dtype, and so are the clouds it returns.
 """
 
 from __future__ import annotations

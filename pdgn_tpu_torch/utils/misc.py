@@ -62,7 +62,8 @@ def resolve_device(device: str = "cuda") -> torch.device:
     the CPU, which runs only when asked for.
 
     Also turns TF32 off for matmuls and cuDNN: the port serves in full fp32,
-    as the JAX package's default compute dtype does.
+    as the JAX package's default compute dtype does; and bf16 products keep
+    fp32 reductions (no reduced-precision split-K).
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -73,6 +74,7 @@ def resolve_device(device: str = "cuda") -> torch.device:
         raise ValueError(f"unsupported device {device!r}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev
 
 

@@ -10,7 +10,9 @@ on ``--clouds`` synthetic clouds, sampled in batches of ``--batch``), or
 with ``--local-stats`` the backward of each of the shape loss's 9
 ``local_mean_cov`` calls of a train step alone (``torch.autograd.grad``
 through the public entry, so any checkout's kernels), after one warm-up
-iteration. Prints, per CUDA kernel name, its device time per
+iteration. ``--compute_dtype bfloat16`` builds the sampler's generator in
+bf16 (the bf16 instances of the forward kernels). Prints, per CUDA kernel
+name, its device time per
 iteration and share, plus the iteration's wall time and the share of it in
 which the device ran no kernel (negative if the kernel events overlap or are
 counted twice). With ``--wall`` it runs no profiler and prints each
@@ -20,6 +22,7 @@ the other checkout's root imports that checkout's package). Needs a CUDA
 card; run from the root of the repository::
 
     python3 profile_torch_sample.py --batch 128 --out breakdown.json
+    python3 profile_torch_sample.py --batch 128 --compute_dtype bfloat16
     python3 profile_torch_sample.py --train --batch 35
     python3 profile_torch_sample.py --train --batch 35 --reps 30 --wall
     python3 profile_torch_sample.py --test --batch 35 --clouds 64 --reps 2
@@ -35,14 +38,15 @@ import tempfile
 import time
 
 
-def sample_iteration(batch: int, seed: int, dev):
-    """One sampler forward of a seeded full-width generator."""
+def sample_iteration(batch: int, seed: int, dev, dtype=None):
+    """One sampler forward of a seeded full-width generator (in ``dtype``:
+    None for fp32, or ``torch.bfloat16``)."""
     import torch
 
     from pdgn_tpu_torch.train.generate import build_generator
     from pdgn_tpu_torch.train.sampler import make_sampler
 
-    sample = make_sampler(build_generator(seed, dev))
+    sample = make_sampler(build_generator(seed, dev, dtype=dtype))
     rng = torch.Generator(device=dev).manual_seed(seed)
     return lambda: sample(batch, rng)
 
@@ -126,7 +130,8 @@ def profile_local_stats(batch: int, reps: int, seed: int) -> dict:
 
 
 def profile(batch: int, reps: int, seed: int, train: bool = False,
-            test: bool = False, clouds: int = 64, wall: bool = False) -> dict:
+            test: bool = False, clouds: int = 64, wall: bool = False,
+            bf16: bool = False) -> dict:
     import torch
 
     from pdgn_tpu_torch.utils.misc import resolve_device
@@ -135,9 +140,11 @@ def profile(batch: int, reps: int, seed: int, train: bool = False,
     out_dir = tempfile.TemporaryDirectory()
     if test:
         iteration = test_iteration(batch, seed, dev, clouds, out_dir.name)
+    elif train:
+        iteration = train_iteration(batch, seed, dev)
     else:
-        iteration = (train_iteration if train else sample_iteration)(
-            batch, seed, dev)
+        iteration = sample_iteration(batch, seed, dev,
+                                     torch.bfloat16 if bf16 else None)
     kind = "test phase" if test else "train step" if train else "forward"
     if wall:
         iteration()                          # build + warm up
@@ -224,13 +231,19 @@ def main(argv=None) -> None:
     ap.add_argument("--local-stats", action="store_true",
                     help="profile the backward of each of the shape loss's "
                          "9 local_mean_cov calls alone")
+    ap.add_argument("--compute_dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="the sampler's generator dtype (forwards only)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    bf16 = args.compute_dtype == "bfloat16"
+    if bf16 and (args.train or args.test or args.local_stats):
+        ap.error("--compute_dtype bfloat16 profiles sampler forwards only")
     if args.local_stats:
         res = profile_local_stats(args.batch, args.reps, args.seed)
     else:
         res = profile(args.batch, args.reps, args.seed, args.train,
-                      args.test, args.clouds, args.wall)
+                      args.test, args.clouds, args.wall, bf16)
     if args.local_stats:
         for call in res["calls"]:
             print_breakdown(call)

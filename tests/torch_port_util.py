@@ -84,3 +84,27 @@ def tail_inputs(seed, B=2, N=40, k=6, fin=8, two_f=12, H=64):
         merge_kernel=(rng.randn(2 * k * two_fin, two_f) * 0.05).astype(f),
         merge_bias=(rng.randn(two_f) * 0.1).astype(f),
         k=k)
+
+
+def bf16_ulps(a, b) -> float:
+    """The largest difference of two bf16-valued arrays in bf16 ulps (2^(e -
+    7) at binary exponent e) of max(|a|, |b|, max|b| / 256), elementwise:
+    values near 0 after cancellation count at 1/256 of the largest, whose
+    sums' rounding they carry."""
+    a = a.detach().float().cpu().numpy() if isinstance(a, torch.Tensor) else a
+    b = b.detach().float().cpu().numpy() if isinstance(b, torch.Tensor) else b
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    mag = np.maximum(np.maximum(np.abs(a), np.abs(b)),
+                     max(np.abs(b).max() * 2.0 ** -8, 1e-30))
+    ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+    return float((np.abs(a - b) / ulp).max())
+
+
+def bf16_pair(a):
+    """numpy fp32 -> the same values rounded to bf16, as a torch tensor and
+    as a JAX array."""
+    import jax.numpy as jnp
+
+    tb = torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16()
+    return tb, jnp.asarray(tb.float().numpy()).astype(jnp.bfloat16)

@@ -84,6 +84,10 @@ The train slice, in the same phases:
    launches queued back to back; its largest call also timed unqueued, the
    earlier measure); prints the head backward's input-gradient product alone
    (Gc @ W_conv on the shared core) against ``torch.addmm`` in fp32.
+   Phase 2t also prints the fp32 head and tail backwards' digest on
+   numpy-drawn operands (``compare_head_bits.bwd_digest``) and requires it
+   to equal ``compare_head_bits.BWD_BITS``, the digest of those kernels
+   before their bf16 instances were added.
 
 The test slice, in the same phases:
 
@@ -108,7 +112,9 @@ The test slice, in the same phases:
    estimated full chair evaluation, 3 x 662^2 pairs, on this card), checks
    their MMD/COV equal the phase's results and holds each one's 8x8 corner
    against the plain version; then runs ``python -m pdgn_tpu_torch.cli
-   --phase test --dataset synthetic`` on the same bundles;
+   --phase test --dataset synthetic`` on the same bundles, in a process of
+   its own (the script's one run of the module entry: 3bt and 3d call
+   ``cli.main`` in process);
 4e. times the kernel on one 64x64 and one 8x8 tile beside its bound
    (max of 80 FLOP an element at 67 TFLOP/s and three expf an element at
    16 per SM per clock), the 64x64 tile again with culling off, and the
@@ -208,15 +214,42 @@ head, slot stats and both forward tails), after 2w, 3, 3e and 4p:
    in bf16 as the merge's sub-yardstick), the bound (products at the bf16
    tensor cores' 989 TFLOP/s), and the 2b checks again.
 
+The bf16 train slice (``--phase train --compute_dtype bfloat16``: the
+bf16 instances of the head backward and both tail backwards), after 2b,
+3be and 4b:
+
+2bt. each bf16 backward instance against its bf16 plain version (the TPU
+   kernels' rounding points, ``head_bwd_plain_bf16``,
+   ``tail_bwd_plain_bf16``) at stage 4 and stage 1, B=35, and at phase
+   2w's k = 14 and 18 (B=8), with cotangents as bf16 training gives them:
+   bf16 outputs within ``BF16_ULPS``, fp32 outputs rel <= 1e-4, two
+   launches bit-identical. The gated tail's slot-logit entries at a kink
+   (``kink_mask``: each side takes LeakyReLU's branch from its own fp32
+   sum) are counted and printed, and d h is held on the rows free of them;
+3bt. ``PDGNTrainer.train`` with compute_dtype bfloat16 at full width,
+   B=35, synthetic, 21 steps (one warm-up, twenty timed), counters set to 0
+   just before and read just after: only the bf16 instances of the head,
+   slot stats and both tails, forward and backward (``BF16_PER_STEP``),
+   and the fp32 local statistics of the shape loss; finite losses, finite
+   fp32 gradients, the generator moved; train steps/s printed as a
+   reading. Then 3 steps with ``d_compute_dtype="bfloat16"`` too (finite)
+   and ``cli.main([... '--phase', 'train', '--compute_dtype', 'bfloat16',
+   '--dataset', 'synthetic'])`` (``python -m pdgn_tpu_torch``'s entry, in
+   process as 3d drives it) for 3 steps;
+4bt. each bf16 backward instance at B=35 (stage 4; the plain tail stage
+   1): its time, its bf16 plain version's and its bound (products at the
+   bf16 tensor cores' 989 TFLOP/s), and the 2bt checks again.
+
 Last, it prints the ``{"kernels": [...]}`` line (``launches`` summed over
-the sample, train, test, data, point-ops, bf16 sample and bf16 test runs,
-``launches_by_path`` each), then the ``{"ok": ...}`` line.
+the sample, train, test, data, point-ops, bf16 sample, bf16 test and bf16
+train runs, ``launches_by_path`` each), then the ``{"ok": ...}`` line.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -1132,6 +1165,17 @@ def tail_bf16(args):
             bias, k, sm)
 
 
+HEAD_WEIGHTS, TAIL_WEIGHTS = (2, 3, 5, 6), (5, 9)
+
+
+def fp32_weights(args, at):
+    """bf16 operands with the weights at ``at`` back in fp32 (exact), as the
+    differentiable ``edge_head`` and ``tail`` take them: they round them to
+    the same bf16 values inside, for the kernels."""
+    return tuple(t.float() if i in at and t is not None else t
+                 for i, t in enumerate(args))
+
+
 def graph_near_ties(idx_k, idx_p, x, label: str):
     """Two graphs of the same input ``x`` equal but at near-ties: at most
     0.1% of entries differ, each within 1e-5 relative of the one it
@@ -1169,8 +1213,8 @@ def compare_head_bf16(args, label: str) -> float:
     (x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge, pcat,
      ppoint, k, window) = args
     names = ("inte", "partial", "stats", "wfea", "wxyz", "wstats")
-    got = edge_head(*args)
-    again = edge_head(*args)
+    got = edge_head(*fp32_weights(args, HEAD_WEIGHTS))
+    again = edge_head(*fp32_weights(args, HEAD_WEIGHTS))
     torch.cuda.synchronize()
     for name, a, b in zip(("idx",) + names, got, again):
         require(a is None or torch.equal(a, b),
@@ -1476,15 +1520,16 @@ def time_bf16_kernels(dev, gen) -> dict:
               + 4.0 * (B * (four_fin + two_f) + rows * K + rows * two_f
                        + 2 * four_fin + 2 * K * 32))     # pb, idx, partial
     b, by = bound(0.0, nbytes, t_ops)
+    wargs = fp32_weights(args, HEAD_WEIGHTS)
     res["edge_head_bf16"] = {
-        "ms": time_ms(lambda: edge_head(*args), 3),
+        "ms": time_ms(lambda: edge_head(*wargs), 3),
         "plain_ms": time_ms(lambda: head_plain(*args), 2),
         "bound_ms": b, "bound_by": by, "library_ms": None,
         "shape": f"stage 4, B={B}, N={n}, C={c}+{cx}, 4Fin={four_fin}, "
                  f"2F={two_f}, gated, bf16"}
     res["edge_head_bf16"]["max_abs_err"] = compare_head_bf16(
         args, f"stage 4 B={B}")
-    del args
+    del args, wargs
 
     h = torch.randn(B, n, K * 64, generator=gen, device=dev).to(bf)
     srows = B * n * K
@@ -1511,15 +1556,16 @@ def time_bf16_kernels(dev, gen) -> dict:
                      + hk * four_fin * two_f + 64 * two_fin)
               + 4.0 * (rows * two_f + 2 * four_fin + 4 * two_fin))
     b, by = bound(simt, nbytes, products / PEAK_BF16 * 1e3)
+    wargs = fp32_weights(targs, TAIL_WEIGHTS)
     res["bilateral_tail_gated_bf16"] = {
-        "ms": time_ms(lambda: tail(*targs), 3),
+        "ms": time_ms(lambda: tail(*wargs), 3),
         "plain_ms": time_ms(lambda: tail_reference(*targs), 3),
         "bound_ms": b, "bound_by": by, "library_ms": None,
         "shape": f"stage 4, B={B}, N={n}, 4Fin={four_fin}, 2F={two_f}, bf16"}
     res["bilateral_tail_gated_bf16"]["max_abs_err"] = compare_tail_bf16(
         targs, f"stage 4 B={B} gated")
     partial, wi = targs[0].reshape(rows, two_f), targs[9]
-    del targs
+    del targs, wargs
     # the merge product alone against torch.addmm on bf16 operands (fp32
     # accumulation, bf16 out): a yardstick, never called by the port
     g = torch.randn(rows, hk * four_fin, generator=gen, device=dev).to(bf)
@@ -1541,14 +1587,437 @@ def time_bf16_kernels(dev, gen) -> dict:
               + 4.0 * (rows1 * two_f1 + 2 * four_fin1))
     b, by = bound(3.0 * rows1 * hk * four_fin1 + 2.0 * rows1 * two_f1, nbytes,
                   products / PEAK_BF16 * 1e3)
+    wargs = fp32_weights(targs, TAIL_WEIGHTS)
     res["bilateral_tail_plain_bf16"] = {
-        "ms": time_ms(lambda: tail(*targs), 10),
+        "ms": time_ms(lambda: tail(*wargs), 10),
         "plain_ms": time_ms(lambda: tail_reference(*targs), 10),
         "bound_ms": b, "bound_by": by, "library_ms": None,
         "shape": f"stage 1, B={B}, N={n1}, 4Fin={four_fin1}, 2F={two_f1}, "
                  f"bf16"}
     res["bilateral_tail_plain_bf16"]["max_abs_err"] = compare_tail_bf16(
         targs, f"stage 1 B={B} plain")
+    return res
+
+
+# ------------------------------------------ the bf16 train slice: phase 2bt
+def head_bwd_case_bf16(stage: int, B: int, gated: bool, gen, dev,
+                       k: int = K):
+    """The bf16 head's operands, its graph and forward from the bf16
+    instance, and random cotangents as bf16 training gives them: bf16 for
+    inte and the weight-net rows, fp32 holding bf16 values for partial (the
+    bf16 tail's upcast cotangent), fp32 for the sums."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.edge_head import edge_head
+
+    bf = torch.bfloat16
+    args = head_bf16(head_inputs(stage, B, gated, gen, dev, k))
+    idx, inte = edge_head(*fp32_weights(args, HEAD_WEIGHTS))[:2]
+    n, _, _, four_fin, two_f = stage_dims(stage)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    cts = [r(*inte.shape).to(bf), r(B, n, two_f).to(bf).float(),
+           r(2, four_fin, scale=0.01)]
+    if gated:
+        cts += [r(B, n, k * 16).to(bf), r(B, n, k * 16).to(bf),
+                r(2, k * 32, scale=0.01)]
+    return args, idx, inte, cts
+
+
+def compare_bf16_grads(names, got, want, label: str, rows_ok=None) -> float:
+    """Each gradient of a bf16 backward instance against its plain version:
+    dtypes equal, bf16 ones within ``BF16_ULPS``, fp32 ones rel <= 1e-4;
+    ``rows_ok`` maps a name to the mask of the rows to hold (the rest at a
+    kink, counted apart). Returns the largest absolute error."""
+    import torch
+
+    err, worst = 0.0, {}
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            require(g is None, f"{label}: {name} should be None")
+            continue
+        require(g.dtype == w.dtype and g.shape == w.shape,
+                f"{label}: d{name} {g.dtype} {tuple(g.shape)} against "
+                f"{w.dtype} {tuple(w.shape)}")
+        if rows_ok is not None and name in rows_ok:
+            keep = rows_ok[name]
+            g, w = g.reshape(keep.numel(), -1)[keep], w.reshape(
+                keep.numel(), -1)[keep]
+        if g.dtype == torch.bfloat16:
+            e = bf16_ulps(g, w)
+            require(e <= BF16_ULPS, f"{label}: d{name} {e} bf16 ulps")
+            worst[name] = f"{e:.3g} ulps"
+        else:
+            e = rel(g, w)
+            require(e <= 1e-4, f"{label}: d{name} rel {e}")
+            worst[name] = f"rel {e:.2e}"
+        err = max(err, max_abs(g, w))
+    log(f"  {label}: {worst}")
+    return err
+
+
+def compare_head_bwd_bf16(case, label: str) -> float:
+    """The bf16 head backward against ``head_bwd_plain_bf16`` on the same
+    graph, forward and cotangents; a second launch bit-identical."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels import _lib
+    from pdgn_tpu_torch.ops.kernels.edge_head import (head_bwd_kernel,
+                                                      head_bwd_plain_bf16)
+
+    args, idx, inte, cts = case
+    x, _, wn, ca, _, am, wen, _, pcat, ppoint, k, window = args
+    before = _lib.LAUNCHES["edge_head_bwd_bf16"]
+    got = head_bwd_kernel(x, idx, inte, wn, ca, am, wen, pcat, ppoint, cts,
+                          k)
+    again = head_bwd_kernel(x, idx, inte, wn, ca, am, wen, pcat, ppoint, cts,
+                            k)
+    require(_lib.LAUNCHES["edge_head_bwd_bf16"] == before + 2,
+            "head bwd bf16: launches not counted")
+    require(all(a is None or torch.equal(a, b) for a, b in zip(got, again)),
+            f"head bwd bf16 {label}: two launches differ")
+    want = head_bwd_plain_bf16(x, idx, inte, wn, ca, am, wen, pcat, ppoint,
+                               cts, k, window)
+    return compare_bf16_grads(HEAD_GRADS, got, want, f"head bwd bf16 {label}")
+
+
+def compare_tail_bwd_bf16(args, dy, label: str):
+    """The bf16 tail backward against ``tail_bwd_plain_bf16``; a second
+    launch bit-identical. Each rounded operand is held to the plain
+    version's (d_inte, the d_wi operand g, the d_h and d_w2k operand dv:
+    ``BF16_ULPS``), each product to the float64 product of the kernel's own
+    operands (d_h rounded to bf16 within 1 ulp; d_wi, d_w2k rel <= 1e-4),
+    the sums to the plain version's (rel <= 1e-4): a value within fp32
+    rounding of a bf16 midpoint may round the other way on either side,
+    and a sum of such operands with cancellation moves by many of its own
+    ulps. The gated tail's slot-logit entries at a kink (``kink_mask``:
+    each side takes LeakyReLU's branch from its own fp32 sum) are counted;
+    dv is held on the (point, slot) rows free of them, and the sums over
+    the slot logits (d_w2b, d_t2, d_s2) to the plain version's within rel
+    1e-4 plus what the two sides' dv at the kink entries account for.
+    Returns (largest absolute error, share of entries at a kink)."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.bilateral_tail import (
+        kink_mask, tail_bwd_kernel_bf16, tail_bwd_plain_bf16)
+
+    bf = torch.bfloat16
+    k, softmax = args[11], args[12]
+    gated = args[2] is not None
+    keep = dict(keep_g=True, keep_dv=True)
+    got = tail_bwd_kernel_bf16(*args[1:10], dy, k, softmax, **keep)
+    again = tail_bwd_kernel_bf16(*args[1:10], dy, k, softmax, **keep)
+    require(all(a is None or torch.equal(a, b) for a, b in zip(got, again)),
+            f"tail bwd bf16 {label}: two launches differ")
+    del again
+    want = tail_bwd_plain_bf16(*args[1:10], dy, k, softmax, **keep)
+    res, err = {}, 0.0
+
+    def ulps(name, a, b, limit=BF16_ULPS):
+        nonlocal err
+        require(a.dtype == b.dtype == bf and a.shape == b.shape,
+                f"{label}: {name} {a.dtype} {tuple(a.shape)}")
+        e = bf16_ulps(a, b)
+        require(e <= limit, f"tail bwd bf16 {label}: {name} {e} bf16 ulps")
+        res[name] = f"{e:.3g} ulps"
+        err = max(err, max_abs(a, b))
+
+    def close(name, a, b, allow=None):
+        nonlocal err
+        require(a.dtype == torch.float32 and a.shape == b.shape,
+                f"{label}: {name} {a.dtype} {tuple(a.shape)}")
+        e = rel(a, b)
+        if allow is not None:   # the kinks' share taken out first
+            over = ((a.double() - b.double()).abs() - allow).clamp_min(0)
+            e = float(over.max() / b.double().abs().max().clamp_min(1e-12))
+        require(e <= 1e-4, f"tail bwd bf16 {label}: {name} rel {e}")
+        res[name] = f"rel {e:.2e}" + ("" if allow is None else
+                                      f" (raw {rel(a, b):.2e})")
+        err = max(err, max_abs(a, b))
+
+    g_k = got[11]
+    rows = g_k.shape[0]
+    ulps("d_inte", got[1], want[1])
+    ulps("g", g_k, want[11])
+    close("d_wi", got[9], g_k.double().T @ dy.reshape(rows, -1).double())
+    for i, name in ((3, "d_isc"), (4, "d_ish"), (10, "d_bias"),
+                    (0, "d_partial")):
+        close(name, got[i], want[i])
+    share = 0.0
+    if gated:
+        dv_k, h = got[12], args[2].reshape(rows, k, -1)
+        kinks = kink_mask(args[2], *args[5:9], k)
+        share = float(kinks.float().mean())
+        ok = ~kinks.any(-1)
+        ulps("dv", dv_k[ok], want[12][ok])
+        w2k = args[5].to(bf).double()
+        ulps("d_h", got[2].reshape(rows, k, -1),
+             (dv_k.double() @ w2k.T).to(bf), 1.0)
+        close("d_w2k", got[5],
+              torch.einsum("rsh,rsc->hc", h.double(), dv_k.double()))
+        # at a kink entry the two dpre differ by what the two dv differ
+        # (each rounded to bf16: 2^-8 of each added); dhat = dpre / s2
+        s2 = args[7].double().abs()
+        pre = h.double() @ w2k + args[6].double()
+        dd = ((dv_k.double() - want[12].double()).abs()
+              + (dv_k.double().abs() + want[12].double().abs()) * 2.0 ** -8)
+        dd = dd * kinks
+        allow = {"d_w2b": dd.sum((0, 1)), "d_t2": dd.sum((0, 1)) / s2,
+                 "d_s2": (dd * pre.abs()).sum((0, 1)) / s2}
+        for i, name in ((6, "d_w2b"), (7, "d_s2"), (8, "d_t2")):
+            close(name, got[i], want[i], allow[name])
+        log(f"  tail bwd bf16 {label}: {int(kinks.sum())} slot-logit "
+            f"entries at a kink (share {share:.3e}); dv held on "
+            f"{int(ok.sum())} of {ok.numel()} (point, slot) rows")
+    log(f"  tail bwd bf16 {label}: {res}")
+    return err, share
+
+
+def check_bf16_train_kernels(gen, dev) -> dict:
+    """Phase 2bt: the three bf16 backward instances against their bf16 plain
+    versions at stage 4 and stage 1 (B=35) and at phase 2w's k (B=8);
+    phase 4bt holds them again where it times them."""
+    import torch
+
+    bf = torch.bfloat16
+    B = TRAIN_B
+    errs = {"edge_head_bwd_bf16": 0.0, "bilateral_tail_gated_bwd_bf16": 0.0,
+            "bilateral_tail_plain_bwd_bf16": 0.0}
+    kinks = {}
+    cases = [(4, B, True, K), (1, B, False, K)] + [(4, 8, True, k)
+                                                    for k in WIDE_K]
+    for stage, b, gated, k in cases:
+        label = f"stage {stage} B={b} k={k}"
+        errs["edge_head_bwd_bf16"] = max(
+            errs["edge_head_bwd_bf16"], compare_head_bwd_bf16(
+                head_bwd_case_bf16(stage, b, gated, gen, dev, k), label))
+        targs = tail_bf16(tail_inputs(stage, b, gated, gen, dev, k))
+        dy = torch.randn(*targs[0].shape, generator=gen, device=dev).to(bf)
+        name = f"bilateral_tail_{'gated' if gated else 'plain'}_bwd_bf16"
+        e, share = compare_tail_bwd_bf16(targs, dy, label)
+        errs[name] = max(errs[name], e)
+        if gated:
+            kinks[label] = share
+        del targs, dy
+    return errs, kinks
+
+
+# ------------------------------------------ the bf16 train slice: phase 3bt
+BF16_PER_STEP = {"edge_head_bf16": 8, "edge_head_bwd_bf16": 4,
+                 "slot_stats_bf16": 6, "bilateral_tail_gated_bf16": 6,
+                 "bilateral_tail_gated_bwd_bf16": 3,
+                 "bilateral_tail_plain_bf16": 2,
+                 "bilateral_tail_plain_bwd_bf16": 1,
+                 "local_stats_fwd": 9, "local_stats_bwd": 9}
+BF16_D_STEPS = 3         # steps with bf16 discriminators too
+BF16_CLI_STEPS = 3       # steps of the CLI's bf16 train run
+
+
+def train_path_bf16(root: str, smi: str) -> dict:
+    """Phase 3bt: ``PDGNTrainer.train`` with ``compute_dtype="bfloat16"`` at
+    full width, B=35, synthetic (``--phase train --compute_dtype
+    bfloat16``): TRAIN_STEPS steps, counters set to 0 just before and read
+    just after (the bf16 instances only, forward and backward, and the
+    fp32 local statistics of the shape loss); finite losses and gradients,
+    fp32 parameters that moved; steps/s as a reading. Then BF16_D_STEPS
+    steps with ``d_compute_dtype="bfloat16"`` too, finite, and the CLI's
+    bf16 train (``cli.main``) for BF16_CLI_STEPS steps."""
+    import math
+
+    import numpy as np
+    import torch
+    from pdgn_tpu_torch.ops.kernels import _lib
+    from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
+
+    work = os.path.join(root, "pdgn_tpu_torch", "_build", "smoke_train_bf16")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        cfg = ExperimentConfig(batch_size=TRAIN_B, max_epoch=1,
+                               max_steps_per_epoch=TRAIN_STEPS,
+                               synthetic_size=TRAIN_B * TRAIN_STEPS,
+                               checkpoint_dir=os.path.join(work, "ckpt"),
+                               model_dir="smoke", device="cuda",
+                               compute_dtype="bfloat16")
+        trainer = PDGNTrainer(cfg)
+        trainer.build_model(seed=SEED)
+        st = trainer.state
+        require(st.generator.dtype == torch.bfloat16
+                and all(d.dtype is None for d in st.discriminators),
+                "bf16 generator, fp32 discriminators expected")
+        g_before = [p.detach().clone() for p in st.generator.parameters()]
+        np.random.seed(SEED)
+        _lib.LAUNCHES.clear()
+        trainer.train(seed=SEED)
+        torch.cuda.synchronize()
+        launches = dict(_lib.LAUNCHES)
+        steps = len(trainer.step_seconds)
+        log(f"  {steps} bf16 train steps at B={TRAIN_B}, launches "
+            f"{launches}")
+        require(steps == TRAIN_STEPS, f"{steps} steps ran")
+        want = {k: v * steps for k, v in BF16_PER_STEP.items()}
+        require(launches == want, f"bf16 launches {launches} != {want}")
+        m = trainer.last_metrics
+        require(len(m) == 6 and all(math.isfinite(v) for v in m.values()),
+                f"bf16 losses {m}")
+        for net in (st.generator,) + st.discriminators:
+            for name, p in net.named_parameters():
+                require(p.dtype == torch.float32 and p.grad is not None
+                        and bool(torch.isfinite(p.grad).all()),
+                        f"{name}: no finite fp32 gradient")
+        moved = sum(not torch.equal(a, b) for a, b in
+                    zip(g_before, st.generator.parameters()))
+        require(moved > 0, "the bf16 generator's parameters did not move")
+        timed = trainer.step_seconds[1:]
+        sps = len(timed) / sum(timed)
+        log(f"  bf16 train step seconds {trainer.step_seconds}; steps/s at "
+            f"B={TRAIN_B} over the {len(timed)} timed steps: {sps:.4f} (a "
+            f"reading); last losses {m}; generator tensors moved {moved}")
+        del trainer, st, g_before
+
+        dcfg = dataclasses.replace(
+            cfg, max_steps_per_epoch=BF16_D_STEPS, model_dir="smoke_d",
+            synthetic_size=TRAIN_B * BF16_D_STEPS,
+            d_compute_dtype="bfloat16")
+        dtrainer = PDGNTrainer(dcfg)
+        dtrainer.build_model(seed=SEED + 5)
+        require(all(d.dtype == torch.bfloat16
+                    for d in dtrainer.state.discriminators),
+                "bf16 discriminators expected")
+        dtrainer.train(seed=SEED + 5)
+        dm = dtrainer.last_metrics
+        require(len(dtrainer.step_seconds) == BF16_D_STEPS
+                and all(math.isfinite(v) for v in dm.values()),
+                f"d_compute_dtype bfloat16: losses {dm}")
+        log(f"  {BF16_D_STEPS} steps with bf16 discriminators too: last "
+            f"losses {dm}")
+        del dtrainer
+
+        # the CLI's entry (what python -m pdgn_tpu_torch runs), in this
+        # process as phase 3d drives it
+        from pdgn_tpu_torch import cli
+
+        argv = ["--network", "PDGNet_v2", "--phase", "train",
+                "--compute_dtype", "bfloat16", "--dataset", "synthetic",
+                "--batch_size", str(TRAIN_B), "--synthetic_size",
+                str(TRAIN_B * BF16_CLI_STEPS), "--max_epoch", "1",
+                "--model_dir", "smoke_cli", "--checkpoint_dir",
+                os.path.join(work, "cli_ckpt"), "--save_dir",
+                os.path.join(work, "cli_out")]
+        t0 = time.perf_counter()
+        ctr = cli.main(argv)
+        cli_s = time.perf_counter() - t0
+        cm = ctr.last_metrics
+        require(ctr.state.generator.dtype == torch.bfloat16
+                and len(ctr.step_seconds) == BF16_CLI_STEPS
+                and all(math.isfinite(v) for v in cm.values()),
+                f"the CLI's bf16 train: {len(ctr.step_seconds)} steps, "
+                f"losses {cm}")
+        log(f"  cli.main(--phase train --compute_dtype bfloat16 --dataset "
+            f"synthetic): {BF16_CLI_STEPS} steps, {cli_s:.1f} s; last "
+            f"losses {cm}")
+        del ctr
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches, "steps_per_s": sps,
+            "step_seconds": timed, "metrics": m, "d_bf16_metrics": dm,
+            "cli_seconds": cli_s,
+            "per_step": {k: v // steps for k, v in launches.items()},
+            "card": smi}
+
+
+# ------------------------------------------ the bf16 train slice: phase 4bt
+def time_bf16_train_kernels(dev, gen) -> dict:
+    """Phase 4bt: each bf16 backward instance at the train path's B=35
+    shapes (stage 4; the plain tail stage 1), its bf16 plain version and
+    its bound: the products at the bf16 tensor-core rate (989 TFLOP/s
+    dense; the head's least work the gathered design's 7 + 7 and 11 + 11
+    products a point, as its fp32 row counts it), the rest as phase 4t
+    counts it at the fp32 SIMT rate, against bf16 bytes where the data is
+    bf16; holds each against its plain version again."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.bilateral_tail import (
+        tail_bwd_kernel, tail_bwd_plain_bf16)
+    from pdgn_tpu_torch.ops.kernels.edge_head import (head_bwd_kernel,
+                                                      head_bwd_plain_bf16)
+
+    bf = torch.bfloat16
+    B = TRAIN_B
+    hk = K // 2
+    window = hk + 1
+    res = {}
+
+    n, c, cx, four_fin, two_f = stage_dims(4)
+    case = head_bwd_case_bf16(4, B, True, gen, dev)
+    args, idx, inte, cts = case
+    x, _, wn, ca, _, am, wen, _, pcat, ppoint, k, _ = args
+    rows = B * n
+    products = (2 * 2.0 * rows * (window + 1) * c * four_fin
+                + 2 * 2.0 * rows * (K + 1) * c * two_f)
+    simt = (3.0 * rows * hk * four_fin                   # dy
+            + 1.0 * rows * hk * (window + 1) * four_fin  # A_t and S sums
+            + 1.0 * rows * K * c                         # merge gather
+            + 1.0 * rows * c)                            # d_x addend
+    nbytes = (2.0 * (rows * c + 2 * rows * hk * four_fin  # x, inte, d_inte
+                     + (window + 1) * c * four_fin + (K + 1) * c * two_f
+                     + 2 * rows * K * 16 + 2 * rows * 32  # d_w*, pcat, pp
+                     + rows * c + 2 * rows * 32)          # d_x, d_pc, d_pp
+              + 4.0 * (rows * K + rows * two_f + 2 * four_fin + 2 * K * 32
+                       + (window + 1) * c * four_fin + (K + 1) * c * two_f
+                       + B * (four_fin + two_f)))
+    b, by = bound(simt, nbytes, products / PEAK_BF16 * 1e3)
+    res["edge_head_bwd_bf16"] = {
+        "ms": time_ms(lambda: head_bwd_kernel(x, idx, inte, wn, ca, am, wen,
+                                              pcat, ppoint, cts, k), 3),
+        "plain_ms": time_ms(lambda: head_bwd_plain_bf16(
+            x, idx, inte, wn, ca, am, wen, pcat, ppoint, cts, k, window), 2),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "shape": f"stage 4, B={B}, N={n}, C={c}+{cx}, gated, bf16"}
+    res["edge_head_bwd_bf16"]["max_abs_err"] = compare_head_bwd_bf16(
+        case, f"stage 4 B={B}")
+    del case, args, idx, inte, cts, x
+
+    two_fin = four_fin // 2
+    KK = hk * four_fin
+    targs = tail_bf16(tail_inputs(4, B, True, gen, dev))
+    dy = torch.randn(*targs[0].shape, generator=gen, device=dev).to(bf)
+    products = (2 * 2.0 * rows * KK * two_f          # dg and d_wi
+                + 3 * 2.0 * rows * K * 64 * two_fin)  # conv_all2, d_h, d_w2k
+    simt = 30.0 * rows * K * two_fin                 # gate, softmax, BN walk
+    nbytes = (2.0 * (2 * rows * KK + 2 * rows * K * 64 + rows * two_f
+                     + KK * two_f + 64 * two_fin)
+              + 4.0 * (rows * two_f + KK * two_f + 64 * two_fin
+                       + 4 * four_fin + 6 * two_fin))
+    b, by = bound(simt, nbytes, products / PEAK_BF16 * 1e3)
+    res["bilateral_tail_gated_bwd_bf16"] = {
+        "ms": time_ms(lambda: tail_bwd_kernel(*targs[1:10], dy, K, True), 3),
+        "plain_ms": time_ms(lambda: tail_bwd_plain_bf16(
+            *targs[1:10], dy, K, True), 2),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "shape": f"stage 4, B={B}, N={n}, 4Fin={four_fin}, 2F={two_f}, bf16"}
+    e, share = compare_tail_bwd_bf16(targs, dy, f"stage 4 B={B} gated")
+    res["bilateral_tail_gated_bwd_bf16"].update(max_abs_err=e,
+                                                kink_share=share)
+    del targs, dy
+
+    n1, _, _, four_fin1, two_f1 = stage_dims(1)
+    targs = tail_bf16(tail_inputs(1, B, False, gen, dev))
+    dy = torch.randn(*targs[0].shape, generator=gen, device=dev).to(bf)
+    rows1 = B * n1
+    products = 2 * 2.0 * rows1 * hk * four_fin1 * two_f1
+    nbytes = (2.0 * (2 * rows1 * hk * four_fin1 + rows1 * two_f1
+                     + hk * four_fin1 * two_f1)
+              + 4.0 * (rows1 * two_f1 + hk * four_fin1 * two_f1
+                       + 4 * four_fin1))
+    b, by = bound(6.0 * rows1 * hk * four_fin1, nbytes,
+                  products / PEAK_BF16 * 1e3)
+    res["bilateral_tail_plain_bwd_bf16"] = {
+        "ms": time_ms(lambda: tail_bwd_kernel(*targs[1:10], dy, K, True), 10),
+        "plain_ms": time_ms(lambda: tail_bwd_plain_bf16(
+            *targs[1:10], dy, K, True), 10),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "shape": f"stage 1, B={B}, N={n1}, 4Fin={four_fin1}, 2F={two_f1}, "
+                 f"bf16"}
+    res["bilateral_tail_plain_bwd_bf16"]["max_abs_err"] = (
+        compare_tail_bwd_bf16(targs, dy, f"stage 1 B={B} plain")[0])
     return res
 
 
@@ -2073,6 +2542,9 @@ def test_path(root: str, ckpt_root: str, dev) -> dict:
         f"tile {TEST_TILE}); estimated full chair evaluation on this card "
         f"(3 x {CHAIR_CLOUDS}^2 pairs): {chair_min:.3f} min")
 
+    # the module entry in a process of its own: the one run of
+    # python -m pdgn_tpu_torch.cli in this script (3bt and 3d call
+    # cli.main in process)
     cmd = [sys.executable, "-m", "pdgn_tpu_torch.cli", "--network",
            "PDGNet_v2", "--model_dir", "smoke", "--phase", "test",
            "--dataset", "synthetic", "--checkpoint_dir", ckpt_root,
@@ -2872,6 +3344,14 @@ KERNELS = {
                                   "pdgn_tpu/ops/pallas/bilateral_tail.py:74"),
     "bilateral_tail_plain_bf16": ("pdgn_tpu_torch/csrc/bilateral_tail.cu",
                                   "pdgn_tpu/ops/pallas/bilateral_tail.py:117"),
+    "edge_head_bwd_bf16": ("pdgn_tpu_torch/csrc/edge_head_bwd.cu",
+                           "pdgn_tpu/ops/pallas/edge_head.py:200"),
+    "bilateral_tail_gated_bwd_bf16": (
+        "pdgn_tpu_torch/csrc/bilateral_tail_bwd.cu",
+        "pdgn_tpu/ops/pallas/bilateral_tail.py:135"),
+    "bilateral_tail_plain_bwd_bf16": (
+        "pdgn_tpu_torch/csrc/bilateral_tail_bwd.cu",
+        "pdgn_tpu/ops/pallas/bilateral_tail.py:240"),
 }
 
 
@@ -2956,6 +3436,10 @@ def main(argv=None) -> int:
 
     phase("phase 2t: train kernels against their plain versions (B=8)")
     errs.update(check_train_kernels(gen, dev))
+    from compare_head_bits import BWD_BITS, _kernels, bwd_digest
+    bwd_bits = bwd_digest(_kernels(), dev)
+    log(f"  fp32 backward digest {bwd_bits}")
+    require(bwd_bits == BWD_BITS, "the fp32 backward kernels' bits moved")
     phase(f"phase 2e: emd_cd against its plain version (n={EMD_N})")
     errs["emd_cd"] = check_emd_cd(dev)
     phase("phase 2p: knn_topk and knn_gather against their plain versions "
@@ -2966,6 +3450,10 @@ def main(argv=None) -> int:
     wide = check_wide_shapes(gen, dev)
     phase("phase 2b: the bf16 instances against their bf16 plain versions")
     errs.update(check_bf16_kernels(gen, dev))
+    phase("phase 2bt: the bf16 backward instances against their bf16 plain "
+        "versions")
+    bt_errs, bt_kinks = check_bf16_train_kernels(gen, dev)
+    errs.update(bt_errs)
 
     phase("phase 3: main path, generate() at full width")
     path = main_path(dev)
@@ -2988,6 +3476,10 @@ def main(argv=None) -> int:
     phase(f"phase 3be: test path in bf16, PDGNTrainer.test(tile={TEST_TILE}) "
         f"with compute_dtype bfloat16 on {TEST_CLOUDS} clouds")
     test_bf16 = test_path_bf16(root, dev)
+    phase(f"phase 3bt: train path in bf16, PDGNTrainer.train at full width, "
+        f"B={TRAIN_B}, --compute_dtype bfloat16")
+    train_bf16 = train_path_bf16(root, smi)
+    train_bf16["kinks_2bt"] = bt_kinks
     phase("phase 3d: data path, the hdf5 reader, the pinned loader and the "
         "CLI's shapenet15k train, msgpack resume and test at full width")
     data = data_path(root, smi, dev)
@@ -3013,6 +3505,9 @@ def main(argv=None) -> int:
     phase("phase 4b: bf16 instance times and checks at the main path's B=128 "
         "shapes")
     times.update(time_bf16_kernels(dev, gen))
+    phase(f"phase 4bt: bf16 backward instance times and checks at "
+        f"B={TRAIN_B}")
+    times.update(time_bf16_train_kernels(dev, gen))
 
     phase("the kernels line")
     kernels = []
@@ -3024,7 +3519,8 @@ def main(argv=None) -> int:
                    "data": data["launches"].get(name, 0),
                    "point_ops": point_ops["launches"].get(name, 0),
                    "sample_bf16": path_bf16["launches"].get(name, 0),
-                   "test_bf16": test_bf16["launches"].get(name, 0)}
+                   "test_bf16": test_bf16["launches"].get(name, 0),
+                   "train_bf16": train_bf16["launches"].get(name, 0)}
         require(sum(by_path.values()) > 0, f"{name} never launched")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -3034,7 +3530,8 @@ def main(argv=None) -> int:
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-        for extra in ("cdist_topk_ms", "sub_yardstick", "largest_call"):
+        for extra in ("cdist_topk_ms", "sub_yardstick", "largest_call",
+                      "kink_share"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
         log(f"  {name} ({t['shape']}): {t['ms']:.3f} ms, plain "
@@ -3052,7 +3549,8 @@ def main(argv=None) -> int:
                        "wide": wide,
                        "train": train, "test": test, "data": data,
                        "point_ops": point_ops, "path_bf16": path_bf16,
-                       "test_bf16": test_bf16}, f, indent=1)
+                       "test_bf16": test_bf16, "train_bf16": train_bf16,
+                       "bwd_bits": bwd_bits}, f, indent=1)
     print(json.dumps({"card": smi,
                       "clouds_per_s_b128": path["clouds_per_s"],
                       "train_steps_per_s_b35": train["steps_per_s"],
@@ -3068,6 +3566,8 @@ def main(argv=None) -> int:
                       "bf16_clouds_per_s_b128": path_bf16["clouds_per_s"],
                       "bf16_test_phase_s_64": test_bf16["seconds"],
                       "bf16_chamfer_share": path_bf16["chamfer_share"],
+                      "bf16_train_steps_per_s_b35":
+                          train_bf16["steps_per_s"],
                       "smoke_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,10 +24,12 @@ writes a ``torch.profiler`` trace of global steps 2..4 there. Without
 visible. The port builds only exact kNN graphs: ``--exact_knn 0`` (the
 fast bf16 graphs of the JAX package) is refused (exit 2).
 ``--compute_dtype bfloat16`` runs the generator in the JAX package's bf16
-policy for ``--phase sample`` and ``--phase test``; ``--phase train`` with
-it, and ``--d_compute_dtype bfloat16`` in any phase, are refused (exit 2):
-the kernels have no bf16 backward yet and the discriminators compute in
-fp32.
+policy in every phase (train, test, sample): bf16 activations and product
+operands through the kernels' bf16 instances, forward and backward, with
+fp32 parameters, BN statistics, optimizer state and clouds.
+``--d_compute_dtype bfloat16`` computes the discriminators' conv stacks in
+bf16 too; they stay fp32 by default, as in the JAX package, whose bf16
+discriminators collapsed LSGAN training on the TPU.
 """
 
 from __future__ import annotations
@@ -96,11 +98,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help='write a torch.profiler trace of steps 2..4')
     parser.add_argument('--compute_dtype', type=str, default=None,
                         choices=[None, 'float32', 'bfloat16'],
-                        help='generator compute dtype; bfloat16 for the '
-                             'sample and test phases (not train)')
+                        help='generator compute dtype for the large '
+                             'activations (parameters, BN statistics and '
+                             'the coordinate heads stay fp32); default fp32')
     parser.add_argument('--d_compute_dtype', type=str, default=None,
                         choices=[None, 'float32', 'bfloat16'],
-                        help='discriminator dtype: only float32 is ported')
+                        help='discriminator conv-stack dtype. Stays fp32 '
+                             'even under --compute_dtype bfloat16: bf16 '
+                             'discriminators collapsed LSGAN training in '
+                             'the JAX package on the TPU')
     parser.add_argument('--exact_knn', type=str, default=None,
                         choices=[None, '0', '1'],
                         help='fp32-exact kNN graphs: the port builds only '
@@ -124,15 +130,6 @@ def check_args(args: argparse.Namespace) -> argparse.Namespace:
     if args.exact_knn == '0':
         print(" [!] --exact_knn 0 (fast bf16 kNN graphs) is not ported to "
               "pdgn_tpu_torch: it builds exact graphs only")
-        sys.exit(2)
-    if args.d_compute_dtype == 'bfloat16':
-        print(" [!] --d_compute_dtype bfloat16 is not ported to "
-              "pdgn_tpu_torch: its discriminators compute in float32 only")
-        sys.exit(2)
-    if args.compute_dtype == 'bfloat16' and args.phase == 'train':
-        print(" [!] --compute_dtype bfloat16 is not ported to pdgn_tpu_torch "
-              "for --phase train: the kernels' bf16 backward is missing; it "
-              "runs --phase sample and --phase test")
         sys.exit(2)
     return args
 

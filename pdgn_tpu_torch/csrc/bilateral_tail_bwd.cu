@@ -32,6 +32,22 @@
 //   3. d_h = dv w2k^T, d_w2k = h^T dv, d_wi = g^T dy; the weight gradients
 //      reduce over 4096-row splits added in a fixed order.
 // Nothing uses float atomics: the gradients are deterministic.
+//
+// The bf16 instance (pdgn_bilateral_tail_bwd_bf16: bf16 inte, h, w2k, wi
+// and dy, the backward of --compute_dtype bfloat16) keeps the design with
+// every product on the core's bf16 instance and the TPU kernels' rounding
+// points (_gated_bwd_kernel, _plain_bwd_kernel), which are not the
+// forward's: dg = dy wi^T accumulates in fp32 and stays fp32; the gate is
+// recomputed from bf16 h and w2k (exact in TF32, one pass) and its slot
+// weight w stays fp32; the d_wi operand is (gi * w) rounded once (plain:
+// gi rounded); the slot logit's cotangent dpre is rounded to bf16 (dv)
+// before d_h = dv w2k^T and d_w2k = h^T dv; d_inte and d_h are stored in
+// bf16, the weight gradients and the sums in fp32. Every LeakyReLU branch
+// is taken as the TPU kernel takes it (input >= 0), the slot logit's from
+// the fp32 conv_all2 output as the plain version takes it (no double
+// recomputation), and the elementwise products are rounded one operation
+// at a time (no contraction), as the plain version evaluates them. dg is
+// staged in fp32 beside the bf16 h and inte.
 #include "tail_gate.cuh"
 #include "tf32x3_gemm.cuh"
 
@@ -39,9 +55,29 @@ namespace {
 
 constexpr int kSums = 7;  // isc j0 | isc j1 | ish j0 | ish j1 | s2 | t2 | w2b
 
+// a bf16 (rows, ld) matrix read one element at a time as fp32
+struct PlainBf16 {
+  const __nv_bfloat16* a;
+  int ld;
+  __device__ __forceinline__ float load(long long row, int kk) const {
+    return __bfloat162float(a[(size_t)row * ld + kk]);
+  }
+};
+
 // LeakyReLU's derivative times d, as PyTorch takes it (0.01 at pre == 0)
 __device__ __forceinline__ float leaky_grad(float pre, float d) {
   return pre > 0.f ? d : 0.01f * d;
+}
+// as the TPU kernels take it (1 at pre == 0): the bf16 instance
+__device__ __forceinline__ float leaky_grad_ge(float pre, float d) {
+  return pre >= 0.f ? d : __fmul_rn(0.01f, d);
+}
+// the bf16 instance's folds, a product and a sum each rounded
+__device__ __forceinline__ float gate_pre_rn(float x, float a, float b) {
+  return __fadd_rn(__fmul_rn(x, a), b);
+}
+__device__ __forceinline__ float slot_pre_rn(float v, float sc, float sh) {
+  return __fadd_rn(__fmul_rn(v, sc), sh);
 }
 
 // The gradient jumps at LeakyReLU's kink, so its branch is taken by the
@@ -79,36 +115,74 @@ __device__ __noinline__ bool exact_pre_positive(const float* hrow,
 // logits recomputed each pass: pass 1 the online m and z (the forward's
 // weights are expf(U_s - m) / z), pass 2 walk A, pass 3 walk B.
 // dv's pad columns [2Fin, ldv) are written as zeros (d_h's depth).
-template <int KR>
+//
+// T = bf16 (the bf16 instance): h, inte, g, d_inte and dv in bf16, dg fp32
+// staged in its own array (rows of hd = kc*64 + 4 floats); the branches,
+// the weights and the roundings of the module comment; kink unused.
+template <int KR, class T>
 __global__ void __launch_bounds__(32 * kGateWarps, 1)
-gate_bwd_tc_kernel(const float* __restrict__ inte,
-                   const float* __restrict__ h, const float* __restrict__ dg,
+gate_bwd_tc_kernel(const T* __restrict__ inte,
+                   const T* __restrict__ h, const float* __restrict__ dg,
                    const float* __restrict__ isc,
                    const float* __restrict__ ish,
-                   const float* __restrict__ w2k,
+                   const T* __restrict__ w2k,
                    const float* __restrict__ w2b,
                    const float* __restrict__ s2,
                    const float* __restrict__ t2,
                    const float* __restrict__ kink, int rows, int k,
                    int two_fin, int ldg, int ldv, int softmax,
-                   float* __restrict__ g_out, float* __restrict__ d_inte,
-                   float* __restrict__ dv, float* __restrict__ scratch) {
+                   T* __restrict__ g_out, T* __restrict__ d_inte,
+                   T* __restrict__ dv, float* __restrict__ scratch) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int kc = k < kGateChunk ? k : kGateChunk;
-  const int hl = kc * kHidden + 4;
+  const int hl = kc * kHidden + kGran<T>;
+  const int hd = kc * kHidden + 4;  // the bf16 instance's fp32 dg rows
   const int c0 = blockIdx.x * kGateC;
   const int cl = warp * 8 + 2 * t;
   const int c = c0 + cl;
   const size_t K = (size_t)k * two_fin;  // inte's row: k/2 * 4Fin
-  GateThread th;
+  GateThreadT<T> th;
   th.load(isc, ish, w2k, w2b, s2, t2, c, c0 + warp * 8 + g, t, two_fin);
-  float* sh = smem;
-  float* si = sh + kGateP * hl;
-  float* sd = si + kGateP * hl;
-  const float kq[2] = {th.live[0] ? kink[c] : -1.f,
-                       th.live[1] ? kink[c + 1] : -1.f};
+  T* sh = reinterpret_cast<T*>(smem);
+  T* si = sh + kGateP * hl;
+  // fp32: dg beside h and inte (stage_tile); bf16: its own fp32 array
+  float* sd = kBf16 ? reinterpret_cast<float*>(si + kGateP * hl)
+                    : reinterpret_cast<float*>(si) + kGateP * hl;
+  const int sdl = kBf16 ? hd : hl;
+  float kq[2] = {-1.f, -1.f};
+  if constexpr (!kBf16) {
+    kq[0] = th.live[0] ? kink[c] : -1.f;
+    kq[1] = th.live[1] ? kink[c + 1] : -1.f;
+  }
+  // the bf16 instance stages dg of slots [s0, s0 + ns) of the tile's
+  // points (fp32 granules, in the same cp.async group as stage_tile's)
+  auto stage_dg = [&](int p0, int s0, int ns) {
+    if constexpr (kBf16) {
+      const int gran = ns * (kHidden / 4);
+      for (int e = threadIdx.x; e < kGateP * gran; e += blockDim.x) {
+        const int r = e / gran, q = e - r * gran;
+        const bool ok = p0 + r < rows;
+        const int cc = c0 + 4 * (q % (kHidden / 4));
+        const size_t col = (size_t)(s0 + q / (kHidden / 4)) * two_fin + cc;
+        stage_channels(sd + r * hd + 4 * q, dg + (size_t)(p0 + r) * ldg + col,
+                       dg, ok, cc, two_fin);
+      }
+    }
+  };
+  // the staging of a tile: fp32 dg in stage_tile's group, bf16 dg apart
+  auto stage = [&](int p0, int s0, int ns, bool with_inte) {
+    if constexpr (kBf16) {
+      if (with_inte) stage_dg(p0, s0, ns);
+      stage_tile(sh, with_inte ? si : nullptr, nullptr, hl, h, inte,
+                 nullptr, 0, rows, k, two_fin, c0, p0, s0, ns);
+    } else {
+      stage_tile(sh, with_inte ? si : nullptr, with_inte ? sd : nullptr, hl,
+                 h, inte, dg, ldg, rows, k, two_fin, c0, p0, s0, ns);
+    }
+  };
 
   // sums[m][q]: the thread's share of the seven channel sums of c + q
   float sums[kSums][2];
@@ -133,24 +207,39 @@ gate_bwd_tc_kernel(const float* __restrict__ inte,
 #pragma unroll
       for (int qq = 0; qq < 2; ++qq) {
         const int q = 2 * half + qq;
-        const float w = weight(slot_logit(v[q], th.sc[qq], th.shf[qq]), q);
-        const float x = si[r * hl + sl * kHidden + cl + qq];
-        const float dgv = sd[r * hl + sl * kHidden + cl + qq];
+        const float x = to_f32(si[r * hl + sl * kHidden + cl + qq]);
+        const float dgv = sd[r * sdl + sl * kHidden + cl + qq];
         const float a = th.isc(s, qq);
-        const float gpre = gate_pre(x, a, th.ish(s, qq));
-        const float lg = leaky(gpre);
-        const float dgpre = leaky_grad(gpre, dgv * w);
-        if (s & 1) {
-          sums[1][qq] += dgpre * x;
-          sums[3][qq] += dgpre;
+        if constexpr (kBf16) {
+          const float w =
+              weight(leaky(slot_pre_rn(v[q], th.sc[qq], th.shf[qq])), q);
+          const float gpre = gate_pre_rn(x, a, th.ish(s, qq));
+          const float lg = leaky(gpre);
+          const float dgpre = leaky_grad_ge(gpre, __fmul_rn(dgv, w));
+          sums[(s & 1)][qq] += __fmul_rn(dgpre, x);
+          sums[2 + (s & 1)][qq] += dgpre;
+          dot[q] += __fmul_rn(__fmul_rn(dgv, lg), w);
+          if (row && th.live[qq]) {
+            store_as(g_out + og + qq, __fmul_rn(lg, w));
+            store_as(d_inte + o + qq, __fmul_rn(dgpre, a));
+          }
         } else {
-          sums[0][qq] += dgpre * x;
-          sums[2][qq] += dgpre;
-        }
-        dot[q] += w * (dgv * lg);
-        if (row && th.live[qq]) {
-          g_out[og + qq] = lg * w;
-          d_inte[o + qq] = dgpre * a;
+          const float w = weight(slot_logit(v[q], th.sc[qq], th.shf[qq]), q);
+          const float gpre = gate_pre(x, a, th.ish(s, qq));
+          const float lg = leaky(gpre);
+          const float dgpre = leaky_grad(gpre, dgv * w);
+          if (s & 1) {
+            sums[1][qq] += dgpre * x;
+            sums[3][qq] += dgpre;
+          } else {
+            sums[0][qq] += dgpre * x;
+            sums[2][qq] += dgpre;
+          }
+          dot[q] += w * (dgv * lg);
+          if (row && th.live[qq]) {
+            g_out[og + qq] = lg * w;
+            d_inte[o + qq] = dgpre * a;
+          }
         }
       }
     }
@@ -165,29 +254,43 @@ gate_bwd_tc_kernel(const float* __restrict__ inte,
 #pragma unroll
       for (int qq = 0; qq < 2; ++qq) {
         const int q = 2 * half + qq;
-        const float upre = slot_pre(v[q], th.sc[qq], th.shf[qq]);
-        const float w = weight(leaky(upre), q);
-        const float x = si[r * hl + sl * kHidden + cl + qq];
-        const float dgv = sd[r * hl + sl * kHidden + cl + qq];
-        const float gpre = gate_pre(x, th.isc(s, qq), th.ish(s, qq));
-        const float du = dgv * leaky(gpre);
-        const float da = softmax ? w * (du - dot[q]) : du;
-        bool up = upre > 0.f;
-        if (fabsf(upre) <= kq[qq])
-          up = exact_pre_positive(sh + r * hl + sl * kHidden, w2k, two_fin,
-                                  c + qq, th.bias[qq], th.sc[qq],
-                                  th.shf[qq]);
-        const float dpre = up ? da : 0.01f * da;
-        sums[4][qq] += dpre * v[q];
-        sums[5][qq] += dpre;
-        out[qq] = dpre * th.sc[qq];
-        sums[6][qq] += out[qq];
+        const float x = to_f32(si[r * hl + sl * kHidden + cl + qq]);
+        const float dgv = sd[r * sdl + sl * kHidden + cl + qq];
+        if constexpr (kBf16) {
+          const float upre = slot_pre_rn(v[q], th.sc[qq], th.shf[qq]);
+          const float w = weight(leaky(upre), q);
+          const float gpre = gate_pre_rn(x, th.isc(s, qq), th.ish(s, qq));
+          const float du = __fmul_rn(dgv, leaky(gpre));
+          const float da = softmax ? __fmul_rn(w, du - dot[q]) : du;
+          const float dpre = leaky_grad_ge(upre, da);
+          sums[4][qq] += __fmul_rn(dpre, v[q]);
+          sums[5][qq] += dpre;
+          out[qq] = __fmul_rn(dpre, th.sc[qq]);
+          sums[6][qq] += out[qq];
+        } else {
+          const float upre = slot_pre(v[q], th.sc[qq], th.shf[qq]);
+          const float w = weight(leaky(upre), q);
+          const float gpre = gate_pre(x, th.isc(s, qq), th.ish(s, qq));
+          const float du = dgv * leaky(gpre);
+          const float da = softmax ? w * (du - dot[q]) : du;
+          bool up = upre > 0.f;
+          if (fabsf(upre) <= kq[qq])
+            up = exact_pre_positive(
+                reinterpret_cast<const float*>(sh) + r * hl + sl * kHidden,
+                reinterpret_cast<const float*>(w2k), two_fin, c + qq,
+                th.bias[qq], th.sc[qq], th.shf[qq]);
+          const float dpre = up ? da : 0.01f * da;
+          sums[4][qq] += dpre * v[q];
+          sums[5][qq] += dpre;
+          out[qq] = dpre * th.sc[qq];
+          sums[6][qq] += out[qq];
+        }
       }
       if (p0 + r < rows && c < ldv) {
-        // c even, ldv a multiple of 4: the pair fits, 8-byte aligned
-        *reinterpret_cast<float2*>(dv + ((size_t)(p0 + r) * k + s) * ldv +
-                                   c) =
-            make_float2(th.live[0] ? out[0] : 0.f, th.live[1] ? out[1] : 0.f);
+        // c even, ldv a multiple of 4: the pair fits, aligned
+        T* o = dv + ((size_t)(p0 + r) * k + s) * ldv + c;
+        store_as(o, th.live[0] ? out[0] : 0.f);
+        store_as(o + 1, th.live[1] ? out[1] : 0.f);
       }
     }
   };
@@ -199,8 +302,7 @@ gate_bwd_tc_kernel(const float* __restrict__ inte,
     for (int q = 0; q < 4; ++q) dot[q] = 0.f;
     if constexpr (KR > 0) {
       __syncthreads();  // the previous tile's rows are read
-      stage_tile(sh, si, sd, hl, h, inte, dg, ldg, rows, k, two_fin, c0, p0,
-                 0, k);
+      stage(p0, 0, k, true);
       cp_async_wait<0>();
       __syncthreads();
       float v[KR][4];
@@ -215,14 +317,18 @@ gate_bwd_tc_kernel(const float* __restrict__ inte,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float sc = th.sc[q & 1], sf = th.shf[q & 1];
-          float mx = slot_logit(v[0][q], sc, sf);
+          auto logit = [&](float vv) {
+            if constexpr (kBf16) return leaky(slot_pre_rn(vv, sc, sf));
+            return slot_logit(vv, sc, sf);
+          };
+          float mx = logit(v[0][q]);
 #pragma unroll
           for (int s = 1; s < KR; ++s)
-            if (s < k) mx = fmaxf(mx, slot_logit(v[s][q], sc, sf));
+            if (s < k) mx = fmaxf(mx, logit(v[s][q]));
           float z = 0.f;
 #pragma unroll
           for (int s = 0; s < KR; ++s)
-            if (s < k) z += expf(slot_logit(v[s][q], sc, sf) - mx);
+            if (s < k) z += expf(logit(v[s][q]) - mx);
           m[q] = mx;
           nz[q] = 1.f / z;
         }
@@ -242,13 +348,19 @@ gate_bwd_tc_kernel(const float* __restrict__ inte,
       for (int s0 = 0; s0 < k && softmax; s0 += kGateChunk) {
         const int ns = k - s0 < kGateChunk ? k - s0 : kGateChunk;
         __syncthreads();
-        stage_tile(sh, nullptr, nullptr, hl, h, inte, dg, ldg, rows, k,
-                   two_fin, c0, p0, s0, ns);
+        stage(p0, s0, ns, false);
         cp_async_wait<0>();
         __syncthreads();
         for (int s = 0; s < ns; ++s) {
           float u[4];
-          th.logits(sh + s * kHidden, hl, g, t, u);
+          if constexpr (kBf16) {
+            slot_conv(sh + s * kHidden, hl, g, t, th.bhi, th.blo, th.bias, u);
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              u[q] = leaky(slot_pre_rn(u[q], th.sc[q & 1], th.shf[q & 1]));
+          } else {
+            th.logits(sh + s * kHidden, hl, g, t, u);
+          }
 #pragma unroll
           for (int q = 0; q < 4; ++q) online_softmax(m[q], nz[q], u[q]);
         }
@@ -257,8 +369,7 @@ gate_bwd_tc_kernel(const float* __restrict__ inte,
         for (int s0 = 0; s0 < k; s0 += kGateChunk) {
           const int ns = k - s0 < kGateChunk ? k - s0 : kGateChunk;
           __syncthreads();
-          stage_tile(sh, si, sd, hl, h, inte, dg, ldg, rows, k, two_fin, c0,
-                     p0, s0, ns);
+          stage(p0, s0, ns, true);
           cp_async_wait<0>();
           __syncthreads();
           for (int s = 0; s < ns; ++s) {
@@ -296,27 +407,53 @@ inline int gate_bwd_blocks(int rows) {
   return tiles < 65535 ? tiles : 65535;
 }
 
-template <int KR>
-cudaError_t launch_gate_bwd_tc(int k, const float* inte, const float* h,
+template <int KR, class T>
+cudaError_t launch_gate_bwd_tc(int k, const T* inte, const T* h,
                                const float* dg, const float* isc,
-                               const float* ish, const float* w2k,
+                               const float* ish, const T* w2k,
                                const float* w2b, const float* s2,
                                const float* t2, const float* kink, int rows,
                                int two_fin,
-                               int ldg, int ldv, int softmax, float* g,
-                               float* d_inte, float* dv, float* scratch,
+                               int ldg, int ldv, int softmax, T* g,
+                               T* d_inte, T* dv, float* scratch,
                                cudaStream_t stream) {
   const int kc = k < kGateChunk ? k : kGateChunk;
-  const int smem = 3 * kGateP * (kc * kHidden + 4) * (int)sizeof(float);
+  // h and inte in T, dg in fp32
+  const int smem =
+      2 * kGateP * (kc * kHidden + kGran<T>) * (int)sizeof(T) +
+      kGateP * (kc * kHidden + 4) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      gate_bwd_tc_kernel<KR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gate_bwd_tc_kernel<KR, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   dim3 grid((two_fin + kGateC - 1) / kGateC, gate_bwd_blocks(rows));
-  gate_bwd_tc_kernel<KR><<<grid, 32 * kGateWarps, smem, stream>>>(
+  gate_bwd_tc_kernel<KR, T><<<grid, 32 * kGateWarps, smem, stream>>>(
       inte, h, dg, isc, ish, w2k, w2b, s2, t2, kink, rows, k, two_fin, ldg,
       ldv, softmax, g, d_inte, dv, scratch);
   return cudaGetLastError();
+}
+
+// the gate pass at k's register width
+template <class T>
+cudaError_t launch_gate_bwd(int k, const T* inte, const T* h,
+                            const float* dg, const float* isc,
+                            const float* ish, const T* w2k, const float* w2b,
+                            const float* s2, const float* t2,
+                            const float* kink, int rows, int two_fin,
+                            int ldg, int ldv, int softmax, T* g, T* d_inte,
+                            T* dv, float* scratch, cudaStream_t stream) {
+  if (k <= 10)
+    return launch_gate_bwd_tc<10>(k, inte, h, dg, isc, ish, w2k, w2b, s2, t2,
+                                  kink, rows, two_fin, ldg, ldv, softmax, g,
+                                  d_inte, dv, scratch, stream);
+  if (k <= kGateChunk)
+    return launch_gate_bwd_tc<kGateChunk>(k, inte, h, dg, isc, ish, w2k, w2b,
+                                          s2, t2, kink, rows, two_fin, ldg,
+                                          ldv, softmax, g, d_inte, dv,
+                                          scratch, stream);
+  return launch_gate_bwd_tc<0>(k, inte, h, dg, isc, ish, w2k, w2b, s2, t2,
+                               kink, rows, two_fin, ldg, ldv, softmax, g,
+                               d_inte, dv, scratch, stream);
 }
 
 constexpr int kPlainRows = 64;  // rows (point, window) per plain-stage block
@@ -324,14 +461,16 @@ constexpr int kPlainRows = 64;  // rows (point, window) per plain-stage block
 // plain stage: g = LeakyReLU(inte*isc + ish) (the forward's) and d_inte =
 // LeakyReLU'(inte*isc + ish) * dg * isc, one thread per (row chunk,
 // channel), the chunk's sums of d_isc and d_ish to scratch. Row r is
-// (point r / hk, window r % hk); g and dg have ldg columns.
-__global__ void plain_gate_bwd_kernel(const float* __restrict__ inte,
+// (point r / hk, window r % hk); g and dg have ldg columns. T = bf16: inte,
+// g and d_inte in bf16, the branch and the roundings of the module comment.
+template <class T>
+__global__ void plain_gate_bwd_kernel(const T* __restrict__ inte,
                                       const float* __restrict__ isc,
                                       const float* __restrict__ ish,
                                       const float* __restrict__ dg,
                                       long long rows, int hk, int four_fin,
-                                      int ldg, float* __restrict__ g,
-                                      float* __restrict__ d_inte,
+                                      int ldg, T* __restrict__ g,
+                                      T* __restrict__ d_inte,
                                       float* __restrict__ scratch) {
   const int ch = blockIdx.x * blockDim.x + threadIdx.x;
   if (ch >= four_fin) return;
@@ -344,13 +483,22 @@ __global__ void plain_gate_bwd_kernel(const float* __restrict__ inte,
     const size_t o = (size_t)r * four_fin + ch;
     const long long p = r / hk;
     const size_t og = (size_t)p * ldg + (size_t)(r - p * hk) * four_fin + ch;
-    const float in = inte[o];
-    const float gpre = gate_pre(in, a, b);
-    const float dgpre = leaky_grad(gpre, dg[og]);
-    g[og] = leaky(gpre);
-    d_inte[o] = dgpre * a;
-    s_isc += dgpre * in;
-    s_ish += dgpre;
+    const float in = to_f32(inte[o]);
+    if constexpr (sizeof(T) == 2) {
+      const float gpre = gate_pre_rn(in, a, b);
+      const float dgpre = leaky_grad_ge(gpre, dg[og]);
+      store_as(g + og, leaky(gpre));
+      store_as(d_inte + o, __fmul_rn(dgpre, a));
+      s_isc += __fmul_rn(dgpre, in);
+      s_ish += dgpre;
+    } else {
+      const float gpre = gate_pre(in, a, b);
+      const float dgpre = leaky_grad(gpre, dg[og]);
+      g[og] = leaky(gpre);
+      d_inte[o] = dgpre * a;
+      s_isc += dgpre * in;
+      s_ish += dgpre;
+    }
   }
   float* out = scratch + (size_t)blockIdx.y * 2 * four_fin;
   out[ch] = s_isc;
@@ -404,20 +552,9 @@ int pdgn_bilateral_tail_bwd(
 
   // 2. the gate pass: g, d_inte, dv and the sums
   if (h != nullptr) {
-    if (k <= 10)
-      err = launch_gate_bwd_tc<10>(k, inte, h, dg, isc, ish, w2k, w2b, s2,
-                                   t2, kink, rows, two_fin, ldg, ldv,
-                                   softmax, g, d_inte, dv, sum_scratch,
-                                   stream);
-    else if (k <= kGateChunk)
-      err = launch_gate_bwd_tc<kGateChunk>(k, inte, h, dg, isc, ish, w2k,
-                                           w2b, s2, t2, kink, rows, two_fin,
-                                           ldg, ldv, softmax, g, d_inte, dv,
-                                           sum_scratch, stream);
-    else
-      err = launch_gate_bwd_tc<0>(k, inte, h, dg, isc, ish, w2k, w2b, s2, t2,
-                                  kink, rows, two_fin, ldg, ldv, softmax, g,
-                                  d_inte, dv, sum_scratch, stream);
+    err = launch_gate_bwd(k, inte, h, dg, isc, ish, w2k, w2b, s2, t2, kink,
+                          rows, two_fin, ldg, ldv, softmax, g, d_inte, dv,
+                          sum_scratch, stream);
     if (err != cudaSuccess) return (int)err;
     column_reduce(sum_scratch, gate_bwd_blocks(rows), kSums * two_fin, sums,
                   stream);
@@ -435,7 +572,7 @@ int pdgn_bilateral_tail_bwd(
     const long long prow = (long long)rows * hk;
     const int nblk = (int)((prow + kPlainRows - 1) / kPlainRows);
     dim3 grid((four_fin + 127) / 128, nblk);
-    plain_gate_bwd_kernel<<<grid, 128, 0, stream>>>(
+    plain_gate_bwd_kernel<float><<<grid, 128, 0, stream>>>(
         inte, isc, ish, dg, prow, hk, four_fin, ldg, g, d_inte, sum_scratch);
     PDGN_CHECK_LAUNCH();
     column_reduce(sum_scratch, nblk, 2 * four_fin, sums, stream);
@@ -445,6 +582,77 @@ int pdgn_bilateral_tail_bwd(
   // 3. d_wi = g^T dy
   return (int)tc_gemm_tn(RowsA{g, ldg}, dy, t4, rows, ldg, two_f, tn_scratch,
                          d_wi, stream);
+}
+
+// The bf16 instance. As pdgn_bilateral_tail_bwd, with inte, h, w2k (64,
+// 2Fin), w2k_t (ldv, 64), wi_t (t8, ldg) and dy (rows, t8) in bf16 (dy
+// the tail's bf16 cotangent, zero-padded), ldg, t8 and ldv multiples of 8
+// (a bf16 granule); no kink. Outputs d_inte, d_h in bf16, the rest fp32 as
+// there. Scratch: g (rows, ldg) and dv (rows*k, ldv) in bf16, dg (rows,
+// ldg) fp32, tn_scratch, sum_scratch and colsum as there.
+int pdgn_bilateral_tail_bwd_bf16(
+    const __nv_bfloat16* inte, const __nv_bfloat16* h, const float* isc,
+    const float* ish, const __nv_bfloat16* w2k, const __nv_bfloat16* w2k_t,
+    const float* w2b, const float* s2, const float* t2,
+    const __nv_bfloat16* wi_t, const __nv_bfloat16* dy, int rows, int k,
+    int two_fin, int two_f, int ldg, int t8, int ldv, int softmax,
+    __nv_bfloat16* d_inte, __nv_bfloat16* d_h, float* d_w2k, float* d_wi,
+    float* d_bias, float* sums, __nv_bfloat16* g, float* dg,
+    __nv_bfloat16* dv, float* tn_scratch, float* sum_scratch, float* colsum,
+    cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const int hk = k / 2;
+  const int four_fin = 2 * two_fin;
+  const int K = k * two_fin;
+  if (k < 2 || k % 2 || ldg < K || ldg % 8 || t8 < two_f || t8 % 8 ||
+      (h != nullptr && (ldv < two_fin || ldv % 8 || k > kGateMaxK)))
+    return (int)cudaErrorInvalidValue;
+
+  // 1. dg = dy wi^T (fp32), and d_bias from dy's fp32 upcast
+  cudaError_t err = tc_gemm<false, kGFold>(RowsBf16{dy, t8}, wi_t, ldg, rows,
+                                           K, t8, t8, StorePairs{dg, ldg},
+                                           stream);
+  if (err != cudaSuccess) return (int)err;
+  const int nchunk = (rows + 255) / 256;
+  chunk_colsum(PlainBf16{dy, t8}, (long long)rows, two_f, 256, colsum,
+               stream);
+  column_reduce(colsum, nchunk, two_f, d_bias, stream);
+  PDGN_CHECK_LAUNCH();
+
+  // 2. the gate pass: g, d_inte, dv and the sums
+  if (h != nullptr) {
+    err = launch_gate_bwd(k, inte, h, dg, isc, ish, w2k, w2b, s2, t2,
+                          (const float*)nullptr, rows, two_fin, ldg, ldv,
+                          softmax, g, d_inte, dv, sum_scratch, stream);
+    if (err != cudaSuccess) return (int)err;
+    column_reduce(sum_scratch, gate_bwd_blocks(rows), kSums * two_fin, sums,
+                  stream);
+    PDGN_CHECK_LAUNCH();
+    // conv_all2's backward on bf16 dv
+    const int hrows = rows * k;
+    err = tc_gemm<false, kGFold>(RowsBf16{dv, ldv}, w2k_t, kHidden, hrows,
+                                 kHidden, ldv, ldv,
+                                 AddStoreTo<bf16>{d_h, nullptr, nullptr,
+                                                  kHidden, kHidden},
+                                 stream);
+    if (err != cudaSuccess) return (int)err;
+    err = tc_gemm_tn(RowsBf16{h, kHidden}, dv, ldv, hrows, kHidden, two_fin,
+                     tn_scratch, d_w2k, stream);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    const long long prow = (long long)rows * hk;
+    const int nblk = (int)((prow + kPlainRows - 1) / kPlainRows);
+    dim3 grid((four_fin + 127) / 128, nblk);
+    plain_gate_bwd_kernel<bf16><<<grid, 128, 0, stream>>>(
+        inte, isc, ish, dg, prow, hk, four_fin, ldg, g, d_inte, sum_scratch);
+    PDGN_CHECK_LAUNCH();
+    column_reduce(sum_scratch, nblk, 2 * four_fin, sums, stream);
+    PDGN_CHECK_LAUNCH();
+  }
+
+  // 3. d_wi = g^T dy
+  return (int)tc_gemm_tn(RowsBf16{g, ldg}, dy, t8, rows, ldg, two_f,
+                         tn_scratch, d_wi, stream);
 }
 
 }  // extern "C"

@@ -50,6 +50,25 @@
 //   6. Per-batch bias gradients are column sums in a fixed order; the
 //      weight-net gradients gather over the same reverse adjacency.
 // No float atomics anywhere: the gradients are deterministic.
+//
+// The bf16 instance (pdgn_edge_head_bwd_bf16: bf16 x, inte, pcat, ppoint
+// and their cotangents, the backward of --compute_dtype bfloat16) keeps
+// the design and takes every product on the core's bf16 instance, at the
+// TPU kernel's rounding points (_head_bwd_kernel's _bf): the weights, x,
+// the gathered rows and d_partial are bf16 operands; each window's dy
+// (formed in fp32 from the upcasts, the stats cotangent folded in) is
+// rounded to bf16 before it is summed into A_t, and S (the TPU kernel's
+// d_point, the fp32 sum of the unrounded dy) is rounded once for its
+// product and kept in fp32 for the bias gradient. A_t, the fp32 sum over a
+// row's entries, is no rounding point of the TPU kernel, so it goes to the
+// products as two bf16 parts, A_t = hi + lo to 2^-16 of |A_t|: Gc =
+// [A_hi | S | A_lo] against W_conv = [Wn^T; conv_a^T; Wn^T], and d_wn =
+// x^T A_hi + x^T A_lo (the caller adds the two blocks), 13 products of C
+// x 4Fin a point each way at k = 10 instead of 7. The one rounding the
+// gathered design moves is the TPU kernel's per-entry dnbr, which does not
+// exist here. d_wrow is summed onto d_pcat after its bf16 rounding. d_x,
+// d_pcat and d_ppoint are stored in bf16; the weight and bias gradients
+// in fp32.
 #include "tf32x3_gemm.cuh"
 
 namespace {
@@ -141,21 +160,146 @@ __global__ void cot_gather_kernel(const float* __restrict__ inte,
   }
 }
 
+// bf16 dy of W adjacent columns: dy = d_inte + ds0 + 2 * inte * ds1 in
+// fp32 from the upcasts, each operation rounded on its own (no
+// contraction), as the plain version evaluates it
+__device__ __forceinline__ float dy_rn(float di, float in, float s0,
+                                       float s1) {
+  return __fadd_rn(__fadd_rn(di, s0), __fmul_rn(__fmul_rn(2.f, in), s1));
+}
+template <int W>
+__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float v[W]) {
+  if constexpr (W == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+    v[0] = __low2float(a);
+    v[1] = __high2float(a);
+    v[2] = __low2float(b);
+    v[3] = __high2float(b);
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) v[i] = __bfloat162float(p[i]);
+  }
+}
+template <int W>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* p,
+                                           const float v[W]) {
+  if constexpr (W == 4) {
+    uint2 u;
+    *reinterpret_cast<__nv_bfloat162*>(&u.x) =
+        __floats2bfloat162_rn(v[0], v[1]);
+    *reinterpret_cast<__nv_bfloat162*>(&u.y) =
+        __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p) = u;
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) p[i] = __float2bfloat16_rn(v[i]);
+  }
+}
+
+// The bf16 instance's gather: Gc[q] = [hi(A_0) | .. | hi(A_{window-1}) |
+// S | lo(A_0) | .. | lo(A_{window-1})] in bf16, blocks of ldf columns
+// (pads 0), A_t the fp32 sum over the row's entries of the bf16-rounded dy
+// (hi its rounding, lo the rounding of the rest), S the fp32 sum of the
+// unrounded dy over the row's own windows, rounded once (and written in
+// fp32 to sf, rows of 4Fin); dxm as cot_gather_kernel's. W = 4 columns a
+// thread when four_fin % 4 == 0 (8-byte rows), else 1.
+template <int W>
+__global__ void cot_gather_bf16_kernel(
+    const __nv_bfloat16* __restrict__ inte,
+    const __nv_bfloat16* __restrict__ d_inte, const float* __restrict__ ds,
+    const float* __restrict__ dm, const int* __restrict__ offsets,
+    const int* __restrict__ entries, int k, int four_fin, int ldf, int c4,
+    __nv_bfloat16* __restrict__ gc, float* __restrict__ sf,
+    float* __restrict__ dxm) {
+  const long long q = blockIdx.x;
+  const int hk = k / 2, window = hk + 1;
+  const int a = offsets[q], z = offsets[q + 1];
+  const int U = four_fin / W, UL = ldf / W;
+  __nv_bfloat16* out = gc + (size_t)q * (2 * window + 1) * ldf;
+  for (int u = threadIdx.x; u < UL; u += blockDim.x) {
+    const int c0 = u * W;
+    float acc[W];
+    if (u >= U) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) acc[i] = 0.f;
+      for (int t = 0; t <= 2 * window; ++t)
+        store_bf16<W>(out + t * ldf + c0, acc);
+      continue;
+    }
+    float s0[W], s1[W], di[W], in[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      s0[i] = ds[c0 + i];
+      s1[i] = ds[four_fin + c0 + i];
+      acc[i] = 0.f;
+    }
+    for (int wp = 0; wp < hk; ++wp) {
+      const size_t o = ((size_t)q * hk + wp) * four_fin + c0;
+      load_bf16<W>(d_inte + o, di);
+      load_bf16<W>(inte + o, in);
+#pragma unroll
+      for (int i = 0; i < W; ++i) acc[i] += dy_rn(di[i], in[i], s0[i], s1[i]);
+    }
+    store_bf16<W>(out + window * ldf + c0, acc);
+#pragma unroll
+    for (int i = 0; i < W; ++i) sf[(size_t)q * four_fin + c0 + i] = acc[i];
+    for (int t = 0; t < window; ++t) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) acc[i] = 0.f;
+      for (int e = a; e < z; ++e) {
+        const int ent = entries[e];
+        const int p = ent / k;  // global row b*N + n
+        const int j = ent - p * k;
+        if (j >= t && j < t + hk) {
+          const size_t op = ((size_t)p * hk + (j - t)) * four_fin + c0;
+          load_bf16<W>(d_inte + op, di);
+          load_bf16<W>(inte + op, in);
+#pragma unroll
+          for (int i = 0; i < W; ++i)
+            acc[i] += round_as<__nv_bfloat16>(
+                dy_rn(di[i], in[i], s0[i], s1[i]));
+        }
+      }
+      store_bf16<W>(out + t * ldf + c0, acc);
+#pragma unroll
+      for (int i = 0; i < W; ++i)
+        acc[i] -= round_as<__nv_bfloat16>(acc[i]);
+      store_bf16<W>(out + (window + 1 + t) * ldf + c0, acc);
+    }
+  }
+  const size_t mc = (size_t)(k + 1) * c4;
+  for (int c = threadIdx.x; c < c4; c += blockDim.x) {
+    float v = dm[(size_t)q * mc + (size_t)k * c4 + c];
+    for (int e = a; e < z; ++e) {
+      const int ent = entries[e];
+      const int p = ent / k;
+      const int j = ent - p * k;
+      v += dm[(size_t)p * mc + (size_t)j * c4 + c];
+    }
+    dxm[(size_t)q * c4 + c] = v;
+  }
+}
+
 // The merge's A rows, reduction-major: row p, column i = j*c4 + c reads
 // x[nbr[p, j]] for j < k (nbr: the graph's global rows b*N + idx), x[p]
-// itself for j = k
-struct GatherX {
-  const float* x;
+// itself for j = k; x fp32 or bf16 (then c4 % 8 == 0, so that a granule
+// of 8 columns lies in one block j)
+template <class T>
+struct GatherXOf {
+  const T* x;
   const int* nbr;
   int c4, k;
   __device__ __forceinline__ int src_row(int p, int i) const {
     const int j = i / c4;
     return j < k ? nbr[(size_t)p * k + j] : p;
   }
-  __device__ __forceinline__ const float* ptr(int src, int i) const {
+  __device__ __forceinline__ const T* ptr(int src, int i) const {
     return x + (size_t)src * c4 + i % c4;
   }
 };
+using GatherX = GatherXOf<float>;
 
 // S's column c of row r: Gc[r, window*ldf + c]
 struct GcS {
@@ -167,27 +311,40 @@ struct GcS {
 };
 
 // slot s of the weight-net rows reads extraction index j(s) = (s%2)*hk + s/2;
-// the inverse is s(j) = j < hk ? 2j : 2(j - hk) + 1
-__device__ __forceinline__ float dwrow_at(const float* dwfea, const float* dwxyz,
-                                          const float* dws, const float* pcat,
-                                          const float* ppoint, long long p,
+// the inverse is s(j) = j < hk ? 2j : 2(j - hk) + 1. T: the storage type
+// of the weight-net rows' cotangents, pcat and ppoint (read as fp32; the
+// bf16 instance forms dwrow in fp32 from the upcasts, unrounded wrow)
+template <class T>
+__device__ __forceinline__ float dwrow_at(const T* dwfea, const T* dwxyz,
+                                          const float* dws, const T* pcat,
+                                          const T* ppoint, long long p,
                                           long long q, int s, int ch, int k) {
   const int col = s * 32 + ch;
-  float base = ch < 16 ? dwfea[(size_t)p * k * 16 + s * 16 + ch]
-                       : dwxyz[(size_t)p * k * 16 + s * 16 + ch - 16];
-  float wrow = pcat[(size_t)q * 32 + ch] + ppoint[(size_t)p * 32 + ch];
-  return base + dws[col] + 2.f * wrow * dws[k * 32 + col];
+  float base = ch < 16 ? to_f32(dwfea[(size_t)p * k * 16 + s * 16 + ch])
+                       : to_f32(dwxyz[(size_t)p * k * 16 + s * 16 + ch - 16]);
+  if constexpr (sizeof(T) == 2) {
+    const float wrow = __fadd_rn(to_f32(pcat[(size_t)q * 32 + ch]),
+                                 to_f32(ppoint[(size_t)p * 32 + ch]));
+    return __fadd_rn(__fadd_rn(base, dws[col]),
+                     __fmul_rn(__fmul_rn(2.f, wrow), dws[k * 32 + col]));
+  } else {
+    float wrow = pcat[(size_t)q * 32 + ch] + ppoint[(size_t)p * 32 + ch];
+    return base + dws[col] + 2.f * wrow * dws[k * 32 + col];
+  }
 }
 
 // d_pcat[q, ch] = sum over the entries (p, j) naming q of dwrow[p, s(j), ch]
-__global__ void dpcat_gather_kernel(const float* __restrict__ dwfea,
-                                    const float* __restrict__ dwxyz,
+// (bf16: of dwrow rounded to bf16, the TPU kernel's scatter operand; the
+// sum stored rounded)
+template <class T>
+__global__ void dpcat_gather_kernel(const T* __restrict__ dwfea,
+                                    const T* __restrict__ dwxyz,
                                     const float* __restrict__ dws,
-                                    const float* __restrict__ pcat,
-                                    const float* __restrict__ ppoint,
+                                    const T* __restrict__ pcat,
+                                    const T* __restrict__ ppoint,
                                     const int* __restrict__ offsets,
                                     const int* __restrict__ entries, int rows,
-                                    int k, float* __restrict__ dpcat) {
+                                    int k, T* __restrict__ dpcat) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)rows * 32) return;
   const long long q = t / 32;
@@ -199,19 +356,21 @@ __global__ void dpcat_gather_kernel(const float* __restrict__ dwfea,
     const long long p = ent / k;
     const int j = (int)(ent - p * k);
     const int s = j < hk ? 2 * j : 2 * (j - hk) + 1;
-    v += dwrow_at(dwfea, dwxyz, dws, pcat, ppoint, p, q, s, ch, k);
+    v += round_as<T>(dwrow_at(dwfea, dwxyz, dws, pcat, ppoint, p, q, s, ch,
+                              k));
   }
-  dpcat[(size_t)q * 32 + ch] = v;
+  store_as(dpcat + (size_t)q * 32 + ch, v);
 }
 
-// d_ppoint[p, ch] = sum over slots of dwrow[p, s, ch]
-__global__ void dppoint_kernel(const float* __restrict__ dwfea,
-                               const float* __restrict__ dwxyz,
+// d_ppoint[p, ch] = sum over slots of dwrow[p, s, ch] (stored as T)
+template <class T>
+__global__ void dppoint_kernel(const T* __restrict__ dwfea,
+                               const T* __restrict__ dwxyz,
                                const float* __restrict__ dws,
-                               const float* __restrict__ pcat,
-                               const float* __restrict__ ppoint,
+                               const T* __restrict__ pcat,
+                               const T* __restrict__ ppoint,
                                const int* __restrict__ idx, int rows, int N,
-                               int k, float* __restrict__ dppoint) {
+                               int k, T* __restrict__ dppoint) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)rows * 32) return;
   const long long p = t / 32;
@@ -224,7 +383,23 @@ __global__ void dppoint_kernel(const float* __restrict__ dwfea,
     const long long q = b * N + idx[(size_t)p * k + j];
     v += dwrow_at(dwfea, dwxyz, dws, pcat, ppoint, p, q, s, ch, k);
   }
-  dppoint[(size_t)p * 32 + ch] = v;
+  store_as(dppoint + (size_t)p * 32 + ch, v);
+}
+
+// the weight-net cotangents' two gathers (gated stages)
+template <class T>
+void launch_dwrow(const T* d_wfea, const T* d_wxyz, const float* d_wstats,
+                  const T* pcat, const T* ppoint, const int* idx,
+                  const int* offsets, const int* entries, int rows, int N,
+                  int k, T* d_pcat, T* d_ppoint, cudaStream_t stream) {
+  const long long total = (long long)rows * 32;
+  const unsigned blocks = (unsigned)((total + 255) / 256);
+  dpcat_gather_kernel<T><<<blocks, 256, 0, stream>>>(
+      d_wfea, d_wxyz, d_wstats, pcat, ppoint, offsets, entries, rows, k,
+      d_pcat);
+  dppoint_kernel<T><<<blocks, 256, 0, stream>>>(d_wfea, d_wxyz, d_wstats,
+                                                pcat, ppoint, idx, rows, N, k,
+                                                d_ppoint);
 }
 
 }  // namespace
@@ -312,15 +487,97 @@ int pdgn_edge_head_bwd(
   PDGN_CHECK_LAUNCH();
 
   if (pcat != nullptr) {
-    const long long total = (long long)rows * 32;
-    const unsigned blocks = (unsigned)((total + 255) / 256);
-    dpcat_gather_kernel<<<blocks, 256, 0, stream>>>(
-        d_wfea, d_wxyz, d_wstats, pcat, ppoint, offsets, entries, rows, k,
-        d_pcat);
+    launch_dwrow(d_wfea, d_wxyz, d_wstats, pcat, ppoint, idx, offsets,
+                 entries, rows, N, k, d_pcat, d_ppoint, stream);
     PDGN_CHECK_LAUNCH();
-    dppoint_kernel<<<blocks, 256, 0, stream>>>(d_wfea, d_wxyz, d_wstats, pcat,
-                                               ppoint, idx, rows, N, k,
-                                               d_ppoint);
+  }
+  return (int)cudaSuccess;
+}
+
+// The bf16 instance. As pdgn_edge_head_bwd, with bf16 x (B,N,c8), inte,
+// w_conv ((2*window+1)*ldf, c8) = [Wn_0^T; ..; Wn_{window-1}^T; conv_a^T;
+// Wn_0^T; ..; Wn_{window-1}^T], w_merge (t8, (k+1)*c8), d_inte, pcat,
+// ppoint, d_wfea, d_wxyz; c8, ldf and t8: C, 4Fin and 2F rounded up to 8
+// (a bf16 granule); d_partial (B,N,2F) fp32 unpadded (its bias sums) and
+// dpart_b (B,N,t8) its bf16 rounding, zero-padded (the product operand).
+// Outputs d_x (B,N,c8), d_pcat, d_ppoint bf16; d_wconv (c8,
+// (2*window+1)*ldf) = x^T [A_hi | S | A_lo] (d_wn the sum of its hi and lo
+// blocks), d_wmerge ((k+1)*c8, t8), d_pb_point, d_pb_merge fp32. Scratch:
+// gc (B*N, (2*window+1)*ldf) bf16, sf (B*N, 4Fin) fp32, dm, dxm,
+// tn_scratch, count, cursor, offsets, entries as there.
+int pdgn_edge_head_bwd_bf16(
+    const __nv_bfloat16* x, const int* idx, const int* nbr,
+    const __nv_bfloat16* inte, int B, int N, int c8, int k, int four_fin,
+    int two_f, int ldf, int t8, const __nv_bfloat16* w_conv,
+    const __nv_bfloat16* w_merge, const __nv_bfloat16* d_inte,
+    const float* d_partial, const __nv_bfloat16* dpart_b,
+    const float* d_stats, const __nv_bfloat16* pcat,
+    const __nv_bfloat16* ppoint, const __nv_bfloat16* d_wfea,
+    const __nv_bfloat16* d_wxyz, const float* d_wstats, __nv_bfloat16* d_x,
+    float* d_wconv, float* d_wmerge, float* d_pb_point, float* d_pb_merge,
+    __nv_bfloat16* d_pcat, __nv_bfloat16* d_ppoint, __nv_bfloat16* gc,
+    float* sf, float* dm, float* dxm, float* tn_scratch, int* count,
+    int* cursor, int* offsets, int* entries, cudaStream_t stream) {
+  if (c8 % 8 || ldf % 8 || t8 % 8 || ldf < four_fin || t8 < two_f ||
+      k < 2 || k % 2)
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  const int rows = B * N;
+  const int hk = k / 2;
+  const int window = hk + 1;
+  const int gw = (2 * window + 1) * ldf;
+  const int mc = (k + 1) * c8;
+
+  // 1. the reverse adjacency of the graph
+  cudaError_t err = reverse_adjacency(idx, B, N, k, N, count, cursor, offsets,
+                                      entries, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  // 2. the merge's cotangents of every neighbour block
+  err = tc_gemm<false, kGFold>(RowsBf16{dpart_b, t8}, w_merge, mc, rows, mc,
+                               t8, t8, StorePairs{dm, mc}, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  // 3. the cotangents gathered onto their rows
+  const int vec = four_fin % 4 ? 1 : 4;
+  int threads = (ldf / vec > c8 ? ldf / vec : c8) + 31;
+  threads = threads / 32 * 32;
+  if (threads > 256) threads = 256;
+  if (vec == 4)
+    cot_gather_bf16_kernel<4><<<rows, threads, 0, stream>>>(
+        inte, d_inte, d_stats, dm, offsets, entries, k, four_fin, ldf, c8, gc,
+        sf, dxm);
+  else
+    cot_gather_bf16_kernel<1><<<rows, threads, 0, stream>>>(
+        inte, d_inte, d_stats, dm, offsets, entries, k, four_fin, ldf, c8, gc,
+        sf, dxm);
+  PDGN_CHECK_LAUNCH();
+
+  // 4. the input gradient, rounded to bf16 at the store
+  err = tc_gemm<false, kGFold>(RowsBf16{gc, gw}, w_conv, c8, rows, c8, gw, gw,
+                               AddStoreTo<bf16>{d_x, dxm, nullptr, c8, c8},
+                               stream);
+  if (err != cudaSuccess) return (int)err;
+
+  // 5. the weight gradients on the transposed bf16 products
+  err = tc_gemm_tn(RowsBf16{x, c8}, gc, gw, rows, c8, gw, tn_scratch, d_wconv,
+                   stream);
+  if (err != cudaSuccess) return (int)err;
+  err = tc_gemm_tn(GatherXOf<bf16>{x, nbr, c8, k}, dpart_b, t8, rows, mc, t8,
+                   tn_scratch, d_wmerge, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  // 6. per-batch bias gradients from the fp32 S and d_partial
+  chunk_colsum(PlainA{sf, four_fin}, (long long)rows, four_fin, N, d_pb_point,
+               stream);
+  PDGN_CHECK_LAUNCH();
+  chunk_colsum(PlainA{d_partial, two_f}, (long long)rows, two_f, N,
+               d_pb_merge, stream);
+  PDGN_CHECK_LAUNCH();
+
+  if (pcat != nullptr) {
+    launch_dwrow(d_wfea, d_wxyz, d_wstats, pcat, ppoint, idx, offsets,
+                 entries, rows, N, k, d_pcat, d_ppoint, stream);
     PDGN_CHECK_LAUNCH();
   }
   return (int)cudaSuccess;

@@ -23,9 +23,11 @@
 // slot_logit, online_softmax), so the g it writes is this kernel's bit for
 // bit. plain_gate_kernel is the plain stage's elementwise gate.
 //
-// Both gates are templates over the storage type T of inte, h and g: the
-// bf16 instances (the tails of --compute_dtype bfloat16, forward only) keep
-// the TPU kernels' rounding points (bilateral_tail.py:104-111, :123-130):
+// Both gates are templates over the storage type T of inte, h and g: their
+// bf16 instances (the forward tails of --compute_dtype bfloat16; the
+// backward's bf16 gate pass shares the tile and logit code at its own
+// rounding points) keep the TPU kernels' (bilateral_tail.py:104-111,
+// :123-130):
 // the slot logits from bf16 h and w2k (exact in TF32: one pass a product,
 // fp32 accumulation), BN fold, LeakyReLU and softmax in fp32, then the
 // weight w, the gate's first factor gi and their product each rounded to

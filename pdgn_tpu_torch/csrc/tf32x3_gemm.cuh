@@ -32,14 +32,22 @@
 // not fold and keeps two.
 //
 // The operand type T (float or __nv_bfloat16) is a template parameter of
-// the same tile loop: the bf16 instances (the bf16 head's P = x W_all and
-// the bf16 tails' merge, forward only) stage 8-element granules through
-// the same ring, take m16n8k16 bf16 products with fp32 accumulation
-// (mma_bf16, two k16 steps a stage), keep the fold and the epilogues. Two
+// the same tile loop: the bf16 instances (the bf16 head's P = x W_all, the
+// bf16 tails' merge and every product of the bf16 backwards) stage
+// 8-element granules through the same ring, take m16n8k16 bf16 products
+// with fp32 accumulation (mma_bf16, two k16 steps a stage), keep the fold,
+// the split partials and the epilogues. Two
 // bf16 share a 32-bit word, so their rows are padded for 16-bit elements:
 // A [m][k + 8] (20 words a row: g*20 mod 32 = 0, 20, 8, ..., 12, and t
 // adds 0..3, 32 banks), B [k][n + 8] (68 words: rows 2t at 8t, g/2 adds
-// 0..3). A bf16 product takes row-major A only.
+// 0..3).
+//
+// A transposed bf16 product (the bf16 backwards' weight gradients) stages
+// its reduction-major A as [k][m + 8], the B tile's layout, and packs each
+// A fragment register from two rows (adjacent k of one m) as the B
+// fragments are packed: rows 2t at 8t banks, g/2 adds 0..3, the two g of a
+// word broadcast. Its granules run along m, so M % 8 == 0; a gathering
+// loader gives the source row of 8 adjacent columns.
 #pragma once
 
 #include "common.cuh"
@@ -66,6 +74,7 @@ template <class T>
 struct GemmOp {
   static constexpr int kVec = 16 / (int)sizeof(T);
   static constexpr int kALd = kGK + kVec;  // A row-major tile [m][k]
+  static constexpr int kATLd = kGM + 8;    // A reduction-major tile [k][m]
   static constexpr int kBLd = kGN + 8;     // B tile [k][n]
   static constexpr int kAStage = kGM * kALd;
   static constexpr int kBStage = kGK * kBLd;
@@ -76,6 +85,9 @@ static_assert(GemmOp<float>::kAStage == kGAStage &&
                   GemmOp<float>::kBStage == kGBStage &&
                   GemmOp<float>::kSmemBytes == kGSmemBytes,
               "the fp32 instance's tiles");
+static_assert(kGK * GemmOp<__nv_bfloat16>::kATLd <=
+                  GemmOp<__nv_bfloat16>::kAStage,
+              "bf16 reduction-major A tile too large");
 // rows a split of a transposed product's reduction
 constexpr int kSplitRows = 4096;
 
@@ -155,7 +167,6 @@ tc_gemm_kernel(ALoad A, const T* __restrict__ B, int ldb, int M, int N,
                int K, int k_split, Epi epi) {
   using Op = GemmOp<T>;
   constexpr bool kBf16 = sizeof(T) == 2;
-  static_assert(!(kBf16 && kTrans), "bf16 products take row-major A");
   extern __shared__ __align__(16) float smem[];
   T* As = reinterpret_cast<T*>(smem);       // [stage][Op::kAStage]
   T* Bs = As + kGStages * Op::kAStage;      // [stage][kGK][Op::kBLd]
@@ -172,14 +183,15 @@ tc_gemm_kernel(ALoad A, const T* __restrict__ B, int ldb, int M, int N,
   // reduction-major A: the source rows of the next stage's granules (-1:
   // zero-filled), read a stage ahead, so that a gathering loader's index
   // reads overlap the products
-  constexpr int kAGran = kGK * kGM / 4 / kGThreads;
+  constexpr int kAV = Op::kVec;
+  constexpr int kAGran = kGK * kGM / kAV / kGThreads;
   int a_row[kAGran];
   auto a_rows = [&](int kt) {
 #pragma unroll
     for (int i = 0; i < kAGran; ++i) {
       const unsigned e = tid + i * kGThreads;
-      const int gk = kb + kt * kGK + e / (kGM / 4);
-      const int gm = m0 + 4 * (e % (kGM / 4));
+      const int gk = kb + kt * kGK + e / (kGM / kAV);
+      const int gm = m0 + kAV * (e % (kGM / kAV));
       a_row[i] = gk < ke && gm < M ? A.src_row(gk, gm) : -1;
     }
   };
@@ -192,10 +204,10 @@ tc_gemm_kernel(ALoad A, const T* __restrict__ B, int ldb, int M, int N,
 #pragma unroll
       for (int i = 0; i < kAGran; ++i) {
         const unsigned e = tid + i * kGThreads;
-        const int r = e / (kGM / 4), q = e % (kGM / 4);
+        const int r = e / (kGM / kAV), q = e % (kGM / kAV);
         const bool ok = a_row[i] >= 0;
-        cp_async16(as + r * kGATLd + 4 * q,
-                   ok ? A.ptr(a_row[i], m0 + 4 * q) : B, ok ? 16 : 0);
+        cp_async16(as + r * Op::kATLd + kAV * q,
+                   ok ? A.ptr(a_row[i], m0 + kAV * q) : B, ok ? 16 : 0);
       }
     } else {
       constexpr int V = Op::kVec;
@@ -256,6 +268,8 @@ tc_gemm_kernel(ALoad A, const T* __restrict__ B, int ldb, int M, int N,
       // column wn + nt*8 + g, rows 2t (+ 1, + 8, + 9)
       const T* as = As + (kt % kGStages) * Op::kAStage +
                     (wm + g) * Op::kALd + 2 * t;
+      // the reduction-major tile's column wm + g
+      const T* At = As + (kt % kGStages) * Op::kAStage + wm + g;
       const T* bs =
           Bs + (kt % kGStages) * Op::kBStage + 2 * t * Op::kBLd + wn + g;
 #pragma unroll
@@ -269,12 +283,22 @@ tc_gemm_kernel(ALoad A, const T* __restrict__ B, int ldb, int M, int N,
         }
 #pragma unroll
         for (int mt = 0; mt < kGMT; ++mt) {
-          const T* a = as + mt * 16 * Op::kALd + kk;
-          const uint32_t af[4] = {
-              *reinterpret_cast<const uint32_t*>(a),
-              *reinterpret_cast<const uint32_t*>(a + 8 * Op::kALd),
-              *reinterpret_cast<const uint32_t*>(a + 8),
-              *reinterpret_cast<const uint32_t*>(a + 8 * Op::kALd + 8)};
+          uint32_t af[4];
+          if constexpr (kTrans) {
+            // A[m][k] = tile[k][m]: rows 2t (+ 1, + 8, + 9), columns g (+ 8)
+            constexpr int L = Op::kATLd;
+            const T* a = At + (kk + 2 * t) * L + mt * 16;
+            af[0] = pack_bf16(a[0], a[L]);
+            af[1] = pack_bf16(a[8], a[L + 8]);
+            af[2] = pack_bf16(a[8 * L], a[9 * L]);
+            af[3] = pack_bf16(a[8 * L + 8], a[9 * L + 8]);
+          } else {
+            const T* a = as + mt * 16 * Op::kALd + kk;
+            af[0] = *reinterpret_cast<const uint32_t*>(a);
+            af[1] = *reinterpret_cast<const uint32_t*>(a + 8 * Op::kALd);
+            af[2] = *reinterpret_cast<const uint32_t*>(a + 8);
+            af[3] = *reinterpret_cast<const uint32_t*>(a + 8 * Op::kALd + 8);
+          }
 #pragma unroll
           for (int nt = 0; nt < kGNT; ++nt) mma_bf16(acc[mt][nt], af, bf[nt]);
         }
@@ -347,9 +371,9 @@ tc_gemm_kernel(ALoad A, const T* __restrict__ B, int ldb, int M, int N,
 
 // out = A B (kTrans false) or A^T B (true) over depth K, a transposed one
 // in splits of k_split (a plain one ignores it). Row-major A needs K a
-// multiple of a granule (4 fp32, 8 bf16), a reduction-major one M % 4 ==
-// 0, and their rows and B's 16-byte aligned; B's ldb >= N rounded up to a
-// granule.
+// multiple of a granule (4 fp32, 8 bf16), a reduction-major one M a
+// multiple of a granule, and their rows and B's 16-byte aligned; B's ldb
+// >= N rounded up to a granule.
 template <bool kTrans, int kFold, class ALoad, class Epi, class T>
 inline cudaError_t tc_gemm(ALoad A, const T* B, int ldb, int M, int N,
                            int K, int k_split, Epi epi, cudaStream_t stream) {
@@ -367,9 +391,9 @@ inline cudaError_t tc_gemm(ALoad A, const T* B, int ldb, int M, int N,
 
 // out (M, N) = sum over the R rows of A(r, :)^T B(r, :), folded, in splits
 // of kSplitRows whose partials (scratch: tn_splits(R) * M * N floats) are
-// added in a fixed order
-template <class ALoad>
-inline cudaError_t tc_gemm_tn(ALoad A, const float* B, int ldb, int R, int M,
+// added in a fixed order; A and B both fp32 or both bf16, out fp32
+template <class ALoad, class T>
+inline cudaError_t tc_gemm_tn(ALoad A, const T* B, int ldb, int R, int M,
                               int N, float* scratch, float* out,
                               cudaStream_t stream) {
   cudaError_t err = tc_gemm<true, kGFold>(A, B, ldb, M, N, R, kSplitRows,

@@ -12,6 +12,15 @@ logit. Module names and layouts are the reference's, so a reference
   D3: 3-64-128-256-512    head 512-256-64-1
   D4: 3-64-128-256-1024   head 1024-512-256-64-1
 
+``dtype=torch.bfloat16`` (``--d_compute_dtype bfloat16``) is the JAX
+module's ``dtype``: the per-point conv stack computes in bf16 (operands,
+products rounded, activations stored in bf16), while the BN statistics, the
+pooled vector and the head stay fp32, with the JAX blocks' statistics
+(``layers.dense_br``, ``layers.dense_br_pool``). The JAX trainer keeps its
+discriminators in fp32 even under ``--compute_dtype bfloat16``: bf16
+discriminators collapsed LSGAN training on the TPU
+(pdgn_tpu/train/trainer.py:152-158).
+
 Padded-batch masks and the paired real|fake mode of the JAX module are not
 ported: the train step runs D(real) and D(fake) as two calls, the same math.
 """
@@ -31,13 +40,15 @@ class PointDiscriminator(nn.Module):
     """``(B, N, 3)`` clouds -> ``(B, 1)`` logits."""
 
     def __init__(self, conv_features: Sequence[int],
-                 head_features: Sequence[int], in_features: int = 3):
+                 head_features: Sequence[int], in_features: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         layers = []
         fin = in_features
         for f in conv_features:
-            layers += [TorchDense(fin, f, (1,)), BatchNorm(f),
-                       nn.LeakyReLU(0.01)]
+            layers += [TorchDense(fin, f, (1,), dtype),
+                       BatchNorm(f, dtype=dtype), nn.LeakyReLU(0.01)]
             fin = f
         self.fc1 = nn.Sequential(*layers)
         self.mlp = MLP(fin, head_features, trailing=())
@@ -56,27 +67,29 @@ class PointDiscriminator(nn.Module):
         return self.mlp(dense_br_pool(*blocks[-1], x))
 
 
-def PointDiscriminator1() -> PointDiscriminator:
+def PointDiscriminator1(dtype=None) -> PointDiscriminator:
     """256-point discriminator."""
-    return PointDiscriminator((64, 128, 256), (128, 64, 1))
+    return PointDiscriminator((64, 128, 256), (128, 64, 1), dtype=dtype)
 
 
-def PointDiscriminator2() -> PointDiscriminator:
+def PointDiscriminator2(dtype=None) -> PointDiscriminator:
     """512-point discriminator."""
-    return PointDiscriminator((64, 128, 256, 512), (256, 64, 1))
+    return PointDiscriminator((64, 128, 256, 512), (256, 64, 1), dtype=dtype)
 
 
-def PointDiscriminator3() -> PointDiscriminator:
+def PointDiscriminator3(dtype=None) -> PointDiscriminator:
     """1024-point discriminator."""
-    return PointDiscriminator((64, 128, 256, 512), (256, 64, 1))
+    return PointDiscriminator((64, 128, 256, 512), (256, 64, 1), dtype=dtype)
 
 
-def PointDiscriminator4() -> PointDiscriminator:
+def PointDiscriminator4(dtype=None) -> PointDiscriminator:
     """2048-point discriminator."""
-    return PointDiscriminator((64, 128, 256, 1024), (512, 256, 64, 1))
+    return PointDiscriminator((64, 128, 256, 1024), (512, 256, 64, 1),
+                              dtype=dtype)
 
 
-def discriminators():
-    """The four discriminators, coarsest first."""
-    return (PointDiscriminator1(), PointDiscriminator2(),
-            PointDiscriminator3(), PointDiscriminator4())
+def discriminators(dtype=None):
+    """The four discriminators, coarsest first; ``dtype`` None (fp32) or
+    ``torch.bfloat16`` for their conv stacks."""
+    return (PointDiscriminator1(dtype), PointDiscriminator2(dtype),
+            PointDiscriminator3(dtype), PointDiscriminator4(dtype))

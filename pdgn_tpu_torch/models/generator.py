@@ -21,8 +21,9 @@ activation is stored in bf16 (GEMM outputs, gathers, batch-norm outputs,
 the stage boundaries), every GEMM takes bf16 operands and accumulates in
 fp32, the three kernels run their bf16 instances; parameters, batch-norm
 statistics, the head's ``partial`` and ``fc1`` stay fp32, and the clouds
-come out fp32. It serves the sample and test phases: the kernels have no
-bf16 backward yet.
+come out fp32. It serves every phase: the kernels' bf16 instances have
+backward instances too (the head's and both tails'), and slot stats'
+backward runs on the fp32 upcast.
 
 Left out against the JAX module: the padded-batch mask branches and sync
 BN (``axis_name``). v2 always applies softmax.

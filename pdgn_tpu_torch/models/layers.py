@@ -51,17 +51,46 @@ def upcast(t: torch.Tensor) -> torch.Tensor:
     return t.float() if t.dtype == torch.bfloat16 else t
 
 
+class _MatmulF32(torch.autograd.Function):
+    """One bf16 product with an fp32 result on the card, differentiable as
+    the CPU path's product of the upcasts is: each operand's gradient the
+    fp32 product of the fp32 cotangent and the other operand's upcast,
+    rounded to the operand's bf16."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b,
+                       out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1])
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = (g @ b.float().T).to(a.dtype).reshape(a.shape)
+        if ctx.needs_input_grad[1]:
+            db = (a.reshape(-1, a.shape[-1]).float().T @ g).to(b.dtype)
+        return da, db
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` of bf16 operands accumulated and returned in fp32 (XLA's
     ``preferred_element_type=float32``; bf16 products are exact in fp32):
     on the card one bf16 product with an fp32 result (cuBLAS, fp32
-    accumulation), on the CPU the product of the fp32 upcasts. fp32 and
-    float64 operands as they are."""
+    accumulation), on the CPU the product of the fp32 upcasts; both
+    differentiable alike. fp32 and float64 operands as they are."""
     if a.dtype == b.dtype == torch.bfloat16 and a.is_cuda and b.dim() == 2:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b,
-                       out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
+        return _MatmulF32.apply(a, b)
     return torch.matmul(upcast(a), upcast(b))
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and back in fp32: a product operand's rounding
+    in the plain versions of the bf16 backward kernels."""
+    return t.to(torch.bfloat16).float()
 
 
 def cast(dtype: Optional[torch.dtype], t: torch.Tensor) -> torch.Tensor:
@@ -236,12 +265,46 @@ class MLP(nn.Sequential):
         return dense[-1](x)
 
 
+def linear_bn_stats(x: torch.Tensor, kernel: torch.Tensor,
+                    bias: torch.Tensor):
+    """Batch mean and (biased) variance of ``y = x @ kernel + bias`` from
+    the fp32 moments of ``x`` (port of ``linear_bn_stats``, pdgn_tpu/models/
+    layers.py:304): ``E[y] = m.W + b``, ``E[y^2] = W^T S W + 2b(m.W) +
+    b^2`` with ``S = E[x x^T]``. These are the statistics of the unrounded
+    product, whatever dtype ``y`` is stored in."""
+    xf = upcast(x).reshape(-1, x.shape[-1])
+    rows = float(xf.shape[0])
+    m_x = xf.sum(dim=0) / rows
+    s_mat = torch.matmul(xf.T, xf) / rows
+    mk = torch.matmul(m_x, kernel)
+    mean = mk + bias
+    ex2 = ((kernel * torch.matmul(s_mat, kernel)).sum(dim=0)
+           + 2.0 * bias * mk + bias * bias)
+    return mean, torch.clamp(ex2 - mean * mean, min=0.0)
+
+
+# DenseBR's widest input whose statistics come from linear_bn_stats
+# (pdgn_tpu/models/layers.py:461); wider inputs take them from y
+LINEAR_STATS_MAX_IN = 128
+
+
 def dense_br(dense: TorchDense, bn: BatchNorm, x: torch.Tensor,
              negative_slope: float = 0.01) -> torch.Tensor:
     """Dense + BN + LeakyReLU (port of ``DenseBR``, the reference
-    ``conv1dbr``): the JAX block's linear second-moment statistics are the
-    same batch statistics, taken here over ``y`` itself."""
-    return leaky_relu(bn(dense(x)), negative_slope)
+    ``conv1dbr``). fp32: the JAX block's linear second-moment statistics
+    are the same batch statistics, taken here over ``y`` itself. A bf16
+    ``dense`` stores ``y`` in bf16, where the two definitions differ by
+    ``y``'s rounding: the statistics are then the JAX block's, from
+    :func:`linear_bn_stats` for inputs at most ``LINEAR_STATS_MAX_IN``
+    wide, else from the upcast of ``y`` (its ``BatchNorm``)."""
+    if dense.dtype is None or x.shape[-1] > LINEAR_STATS_MAX_IN:
+        return leaky_relu(bn(dense(x)), negative_slope)
+    y = dense(x)
+    mean, var = linear_bn_stats(x, dense.kernel, dense.bias)
+    bn.update_running(mean.detach(), var.detach())
+    s = bn.weight * torch.rsqrt(var + bn.eps)
+    y = cast(dense.dtype, upcast(y) * s + (bn.bias - mean * s))
+    return leaky_relu(y, negative_slope)
 
 
 def dense_br_pool(dense: TorchDense, bn: BatchNorm, x: torch.Tensor,
@@ -249,5 +312,22 @@ def dense_br_pool(dense: TorchDense, bn: BatchNorm, x: torch.Tensor,
     """:func:`dense_br` + max over the point axis: ``(B, N, C) -> (B, F)``
     (port of ``DenseBRPool``, which reduces the GEMM output before the
     monotone BN affine and LeakyReLU: the same function, the same winning
-    element)."""
-    return torch.amax(dense_br(dense, bn, x, negative_slope), dim=-2)
+    element). A bf16 ``dense`` takes the JAX block's order: the statistics
+    of the upcast bf16 ``y``, then per channel its maximum (its minimum
+    where the BN scale is negative), the affine and the LeakyReLU in fp32;
+    the output is fp32 either way."""
+    if dense.dtype is None:
+        return torch.amax(dense_br(dense, bn, x, negative_slope), dim=-2)
+    yf = upcast(dense(x))
+    axes = tuple(range(yf.dim() - 1))
+    n = 1
+    for a in axes:
+        n *= yf.shape[a]
+    mean = yf.sum(dim=axes) / n
+    var = torch.clamp((yf * yf).sum(dim=axes) / n - mean * mean, min=0.0)
+    bn.update_running(mean.detach(), var.detach())
+    s = bn.weight * torch.rsqrt(var + bn.eps)
+    t = bn.bias - mean * s
+    pooled = torch.where(s > 0, torch.amax(yf, dim=-2),
+                         torch.amin(yf, dim=-2))
+    return leaky_relu(pooled * s + t, negative_slope)

@@ -50,7 +50,10 @@ _SIGNATURES = {
     "pdgn_bilateral_tail_bf16": [_P] * 10 + [_I, _P] + [_I] * 6 + [_P] * 3,
     "pdgn_edge_head_bwd": [_P] * 4 + [_I] * 8 + [_P] * 10 + [_P] * 15
                           + [_P],
+    "pdgn_edge_head_bwd_bf16": [_P] * 4 + [_I] * 8 + [_P] * 11
+                               + [_P] * 16 + [_P],
     "pdgn_bilateral_tail_bwd": [_P] * 12 + [_I] * 8 + [_P] * 12 + [_P],
+    "pdgn_bilateral_tail_bwd_bf16": [_P] * 11 + [_I] * 8 + [_P] * 12 + [_P],
     "pdgn_local_stats_fwd": [_P, _P, _I, _I, _I, _I] + [_P] * 5 + [_P],
     "pdgn_local_stats_bwd": [_P] * 7 + [_I] * 4 + [_P, _P],
     "pdgn_emd_cd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,

@@ -11,9 +11,13 @@ for CPU tensors they run the plain PyTorch versions (:func:`tail_reference`
 and autograd's VJP of it, :func:`tail_bwd_plain`).
 
 bf16 ``inte`` (the generator's ``--compute_dtype bfloat16``) takes the
-kernels' bf16 instances, with ``h``, ``w2k`` and ``wi`` in bf16 and the
-folds, ``partial`` and the bias in fp32; ``y`` is bf16. They have no
-backward yet: a bf16 tail raises in ``backward``.
+kernels' bf16 instances, with ``h`` in bf16, ``w2k`` and ``wi`` in fp32
+(rounded to bf16 inside the function, so that their gradients stay fp32)
+and the folds, ``partial`` and the bias in fp32; ``y`` is bf16.
+Its backward is ``csrc/bilateral_tail_bwd.cu``'s bf16 instance on a CUDA
+tensor and :func:`tail_bwd_plain_bf16`, written at the same rounding
+points, on a CPU tensor: the TPU kernels' (``_gated_bwd_kernel``,
+``_plain_bwd_kernel``), not those of autograd through the bf16 forward.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from typing import Optional
 
 import torch
 
-from pdgn_tpu_torch.models.layers import cast, matmul_f32, upcast
+from pdgn_tpu_torch.models.layers import (cast, matmul_f32, round_bf16,
+                                          upcast)
 from pdgn_tpu_torch.ops.kernels import _lib
 
 # the gated gate kernel's widest k (csrc/tail_gate.cuh, kGateMaxK): k + 1 <=
@@ -35,8 +40,30 @@ MAX_K = 126
 KINK_BOUND = 2.0 ** -17
 
 
+# the bf16 instance's slot logits: bf16 products are exact in fp32, and two
+# fp32 sums of the 64 of them (the tensor cores truncating, a plain product
+# rounding) lie within 64 units of 2^-23 of sum |h w| of each other; 2^-16
+# leaves a factor 2. Within it of 0, the bf16 backward and its plain
+# version may take LeakyReLU's other branch (kink_mask)
+KINK_BOUND_BF16 = 2.0 ** -16
+
+
 def _leaky(x):
     return torch.where(x >= 0, x, 0.01 * x)
+
+
+def kink_mask(h_flat, w2k, w2b, s2, t2, k: int):
+    """The slot-logit entries ``(B*N, k, 2Fin)`` of a bf16 tail whose
+    bn_all2 input ``(h @ w2k + w2b) * s2 + t2`` lies within
+    ``KINK_BOUND_BF16`` of ``|s2| (|h| @ |w2k| + |w2b|)`` of 0: where the
+    bf16 backward instance and its plain version, each deciding the
+    LeakyReLU branch from its own fp32 sum, may differ (the checks count
+    these entries apart)."""
+    h = upcast(h_flat).reshape(-1, k, h_flat.shape[-1] // k)
+    w = upcast(w2k.to(torch.bfloat16))
+    hat = (h @ w + w2b) * s2 + t2
+    bnd = s2.abs() * (h.abs() @ w.abs() + w2b.abs()) * KINK_BOUND_BF16
+    return hat.abs() <= bnd
 
 
 def gate_reference(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, k: int,
@@ -122,7 +149,12 @@ def tail_bwd_kernel(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi, dy,
     granules: ``dy`` and ``wi^T`` are zero-padded to ``t4`` rows or
     columns, ``wi^T`` and ``g`` to ``ldg`` columns, ``dv`` has ``ldv``
     columns (the kernel zeroes the pad) and ``w2k^T`` zero rows past 2Fin,
-    all multiples of 4; the padded rows of ``d_wi`` are cut here."""
+    all multiples of 4; the padded rows of ``d_wi`` are cut here. bf16
+    ``inte`` launches the bf16 instance (:func:`tail_bwd_kernel_bf16`)."""
+    if inte_flat.dtype == torch.bfloat16:
+        return tail_bwd_kernel_bf16(inte_flat, h_flat, isc, ish, w2k, w2b, s2,
+                                    t2, wi, dy, k, softmax, keep_g)
+    _lib.instance(inte_flat)
     rows = dy.shape[0] * dy.shape[1]
     two_f = dy.shape[-1]
     hk = k // 2
@@ -191,6 +223,165 @@ def tail_bwd_kernel(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi, dy,
     return out + (g[:, :K],) if keep_g else out
 
 
+def tail_bwd_kernel_bf16(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
+                         dy, k: int, softmax: bool, keep_g: bool = False,
+                         keep_dv: bool = False):
+    """Launch ``pdgn_bilateral_tail_bwd_bf16``: bf16 ``inte``, ``h`` and
+    ``dy`` (the bf16 tail's cotangent); ``w2k`` and ``wi`` (fp32 or bf16)
+    rounded to bf16 here. Same returns as :func:`tail_bwd_kernel`:
+    ``d_partial`` the fp32 upcast of ``dy``, ``d_inte`` and ``d_h`` in bf16,
+    the rest fp32; ``keep_g`` appends the bf16 ``g`` of the d_wi product
+    and ``keep_dv`` (gated) the bf16 ``dv (B*N, k, 2Fin)`` of the d_h and
+    d_w2k products. Operands padded to 8 bf16 (16 bytes)."""
+    bf = torch.bfloat16
+    if dy.dtype != bf:
+        raise TypeError(f"tail bwd bf16: dy must be bfloat16, got {dy.dtype}")
+    rows = dy.shape[0] * dy.shape[1]
+    two_f = dy.shape[-1]
+    hk = k // 2
+    four_fin = inte_flat.shape[-1] // hk
+    two_fin = four_fin // 2
+    K = hk * four_fin
+    ldg, t8, ldv = _lib.up8(K), _lib.up8(two_f), _lib.up8(two_fin)
+    dev = dy.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    gated = h_flat is not None
+    pad = torch.nn.functional.pad
+    _lib.check_rows(rows * (k if gated else 1), 128, "bilateral_tail_bwd")
+    inte_flat = _lib.aligned(inte_flat)
+    h_flat = None if h_flat is None else _lib.aligned(h_flat)
+    dy_p = _lib.aligned(pad(dy.reshape(rows, two_f), (0, t8 - two_f))
+                        .contiguous())
+    wi_t = _lib.aligned(pad(wi.T.to(bf), (0, ldg - K, 0, t8 - two_f))
+                        .contiguous())
+    d_inte = torch.empty_like(inte_flat)
+    d_wi = torch.empty(ldg, two_f, **f32)
+    d_bias = torch.empty(two_f, **f32)
+    g = torch.empty(rows, ldg, device=dev, dtype=bf)
+    dg = torch.empty(rows, ldg, **f32)
+    colsum = torch.empty(-(-rows // 256), two_f, **f32)
+    split = _lib.TN_SPLIT_ROWS
+    tn = -(-rows // split) * ldg * two_f
+    if gated:
+        w2k_b = w2k.to(bf).contiguous()
+        w2k_t = _lib.aligned(pad(w2k_b.T, (0, 0, 0, ldv - two_fin))
+                             .contiguous())
+        d_h = torch.empty_like(h_flat)
+        d_w2k = torch.empty(w2k.shape, **f32)
+        dv = torch.empty(rows * k, ldv, device=dev, dtype=bf)
+        tn = max(tn, -(-rows * k // split) * 64 * two_fin)
+        sums = torch.empty(7 * two_fin, **f32)
+        blocks = min(-(-rows // 16), _lib.MAX_GRID_Y)
+        sum_scratch = torch.empty(blocks, 7 * two_fin, **f32)
+    else:
+        w2k_b = w2k_t = d_h = d_w2k = dv = None
+        sums = torch.empty(2 * four_fin, **f32)
+        sum_scratch = torch.empty(-(-rows * hk // 64), 2 * four_fin, **f32)
+    tn_scratch = torch.empty(tn, **f32)
+    p = _lib.ptr
+    _lib.check(_lib.library().pdgn_bilateral_tail_bwd_bf16(
+        p(inte_flat), p(h_flat), p(isc), p(ish), p(w2k_b), p(w2k_t), p(w2b),
+        p(s2), p(t2), p(wi_t), p(dy_p), rows, k, two_fin, two_f, ldg, t8,
+        ldv, int(softmax), p(d_inte), p(d_h), p(d_w2k), p(d_wi), p(d_bias),
+        p(sums), p(g), p(dg), p(dv), p(tn_scratch), p(sum_scratch),
+        p(colsum), _lib.stream_handle(dev)), "pdgn_bilateral_tail_bwd_bf16")
+    _lib.LAUNCHES["bilateral_tail_gated_bwd_bf16" if gated
+                  else "bilateral_tail_plain_bwd_bf16"] += 1
+    d_wi = d_wi[:K]
+    d_isc, d_ish = sums[:four_fin], sums[four_fin:2 * four_fin]
+    d_partial = dy.float()
+    if not gated:
+        out = (d_partial, d_inte, None, d_isc, d_ish, None, None, None, None,
+               d_wi, d_bias)
+    else:
+        d_s2, d_t2, d_w2b = sums[2 * four_fin:].reshape(3, two_fin)
+        out = (d_partial, d_inte, d_h, d_isc, d_ish, d_w2k, d_w2b, d_s2, d_t2,
+               d_wi, d_bias)
+    if keep_g:
+        out += (g[:, :K],)
+    if keep_dv and gated:
+        out += (dv.reshape(rows, k, ldv)[..., :two_fin],)
+    return out
+
+
+def _lrelu_ge(x):
+    """LeakyReLU and its slope as the TPU kernels take them (1 at 0)"""
+    pos = x >= 0
+    return torch.where(pos, x, 0.01 * x), torch.where(pos, 1.0, 0.01)
+
+
+def tail_bwd_plain_bf16(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
+                        dy, k: int, softmax: bool, keep_g: bool = False,
+                        keep_dv: bool = False):
+    """The bf16 backward's plain version, at the TPU kernels' rounding
+    points (``_gated_bwd_kernel``, ``_plain_bwd_kernel``): ``dg = dy_b @
+    wi_b^T`` in fp32; the gate recomputed from bf16 ``h`` and ``w2k`` with
+    fp32 folds, LeakyReLUs (slope 1 at 0) and softmax (max, the sum of the
+    exponentials, one reciprocal), its weight ``w`` unrounded; ``g = (gi *
+    w)`` rounded once for ``d_wi = g^T dy_b`` (plain stage: ``gi``
+    rounded); ``dpre`` of the slot logits rounded for ``d_h`` and
+    ``d_w2k``; ``d_inte`` and ``d_h`` bf16, the rest fp32. Same inputs and
+    returns as :func:`tail_bwd_kernel_bf16`, ``keep_g`` and ``keep_dv``
+    included."""
+    if dy.dtype != torch.bfloat16:
+        raise TypeError(f"tail bwd bf16: dy must be bfloat16, got {dy.dtype}")
+    B, N, two_f = dy.shape
+    rows = B * N
+    hk = k // 2
+    four_fin = inte_flat.shape[-1] // hk
+    two_fin = four_fin // 2
+    dyf = dy.float().reshape(rows, two_f)
+    d_bias = dyf.sum(dim=0)
+    dg = (dyf @ round_bf16(wi.float()).T).reshape(rows, hk, four_fin)
+    iw = inte_flat.float().reshape(rows, hk, four_fin)
+    gi, mi = _lrelu_ge(iw * isc + ish)
+    out_h = out_w2 = dpre_b = None
+    if h_flat is not None:
+        h = h_flat.float().reshape(rows, k, -1)
+        pre = h @ round_bf16(w2k.float()) + w2b      # (rows, k, 2Fin)
+        hat = pre * s2 + t2
+        u, m2 = _lrelu_ge(hat)
+        if softmax:
+            e = torch.exp(u - u.amax(dim=1, keepdim=True))
+            w = e * (1.0 / e.sum(dim=1, keepdim=True))
+        else:
+            w = u
+        wblk = w.reshape(rows, hk, four_fin)
+        g = (gi * wblk).to(torch.bfloat16)
+        dpre_i = (dg * wblk) * mi
+        dws = (dg * gi).reshape(rows, k, two_fin)
+        dus = w * (dws - (dws * w).sum(dim=1, keepdim=True)) if softmax \
+            else dws
+        dhat = dus * m2
+        dpre = dhat * s2
+        dpre_b = round_bf16(dpre)
+        d_h = (dpre_b @ round_bf16(w2k.float()).T).to(torch.bfloat16)
+        d_w2k = torch.einsum("rsh,rsc->hc", h, dpre_b)
+        out_h = d_h.reshape(h_flat.shape)
+        out_w2 = (d_w2k, dpre.sum(dim=(0, 1)), (dhat * pre).sum(dim=(0, 1)),
+                  dhat.sum(dim=(0, 1)))
+    else:
+        g = gi.to(torch.bfloat16)
+        dpre_i = dg * mi
+    d_inte = (dpre_i * isc).to(torch.bfloat16).reshape(inte_flat.shape)
+    d_isc = (dpre_i * iw).sum(dim=(0, 1))
+    d_ish = dpre_i.sum(dim=(0, 1))
+    g = g.reshape(rows, hk * four_fin)
+    d_wi = g.float().T @ dyf
+    if out_w2 is None:
+        out = (dyf.reshape(B, N, two_f), d_inte, None, d_isc, d_ish, None,
+               None, None, None, d_wi, d_bias)
+    else:
+        d_w2k, d_w2b, d_s2, d_t2 = out_w2
+        out = (dyf.reshape(B, N, two_f), d_inte, out_h, d_isc, d_ish, d_w2k,
+               d_w2b, d_s2, d_t2, d_wi, d_bias)
+    if keep_g:
+        out += (g,)
+    if keep_dv and dpre_b is not None:
+        out += (dpre_b.to(torch.bfloat16),)
+    return out
+
+
 def tail_bwd_plain(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2,
                    wi, bias, dy, k: int, softmax: bool):
     """The plain backward: autograd's VJP of :func:`tail_reference`; same
@@ -213,7 +404,11 @@ class _Tail(torch.autograd.Function):
     @staticmethod
     def forward(ctx, k, softmax, partial, inte_flat, h_flat, isc, ish, w2k,
                 w2b, s2, t2, wi, bias):
-        args = (partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
+        # fp32 weights of a bf16 tail are rounded here (as _pallas_tail casts
+        # them), so that autograd hands their gradients back in fp32
+        dt = inte_flat.dtype
+        args = (partial, inte_flat, h_flat, isc, ish,
+                None if w2k is None else w2k.to(dt), w2b, s2, t2, wi.to(dt),
                 bias, k, softmax)
         ctx.k, ctx.softmax = k, softmax
         ctx.save_for_backward(partial, inte_flat, h_flat, isc, ish, w2k, w2b,
@@ -226,13 +421,12 @@ class _Tail(torch.autograd.Function):
     def backward(ctx, dy):
         (partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
          bias) = ctx.saved_tensors
-        if inte_flat.dtype != torch.float32:
-            raise TypeError("tail: no backward for "
-                            f"{inte_flat.dtype} (bf16 training is not "
-                            "ported)")
         if dy.device.type == "cuda":
             g = tail_bwd_kernel(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2,
                                 wi, dy, ctx.k, ctx.softmax)
+        elif inte_flat.dtype == torch.bfloat16:
+            g = tail_bwd_plain_bf16(inte_flat, h_flat, isc, ish, w2k, w2b, s2,
+                                    t2, wi, dy, ctx.k, ctx.softmax)
         else:
             g = tail_bwd_plain(partial, inte_flat, h_flat, isc, ish, w2k, w2b,
                                s2, t2, wi, bias, dy, ctx.k, ctx.softmax)
@@ -244,8 +438,9 @@ def tail(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi, bias,
     """The tail on prepared operands, differentiable; ``h_flat=None`` is
     the plain stage (``w2k``..``t2`` are then ignored and may be ``None``).
     CUDA tensors launch the kernels, CPU tensors run the plain versions.
-    ``inte`` float32 or bfloat16: ``h``, ``w2k`` and ``wi`` in its dtype,
-    the rest float32."""
+    ``inte`` float32 or bfloat16: ``h`` in its dtype, the rest float32 (a
+    bf16 tail rounds ``w2k`` and ``wi`` inside and returns their gradients
+    in float32)."""
     B, N, two_f = partial.shape
     hk = k // 2
     four_fin = inte_flat.shape[-1] // max(hk, 1)
@@ -257,12 +452,12 @@ def tail(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi, bias,
     checks = [("partial", partial, (B, N, two_f), f32),
               ("inte", inte_flat, (B, N, hk * four_fin), dt),
               ("isc", isc, (four_fin,), f32), ("ish", ish, (four_fin,), f32),
-              ("wi", wi, (hk * four_fin, two_f), dt),
+              ("wi", wi, (hk * four_fin, two_f), f32),
               ("bias", bias, (two_f,), f32)]
     if h_flat is not None:
         hidden = h_flat.shape[-1] // k
         checks += [("h", h_flat, (B, N, k * hidden), dt),
-                   ("w2k", w2k, (hidden, two_fin), dt),
+                   ("w2k", w2k, (hidden, two_fin), f32),
                    ("w2b", w2b, (two_fin,), f32),
                    ("s2", s2, (two_fin,), f32), ("t2", t2, (two_fin,), f32)]
     for name, t, shape, dtype in checks:
@@ -298,8 +493,9 @@ def edge_conv_tail(partial, inte_raw, h: Optional[torch.Tensor], inte_stats,
     ``inte_stats``/``w2_stats`` are ``(mean, var, scale, bias)`` in block
     channel order; ``merge_kernel (2k*2Fin, 2F)`` is the reference slot
     layout. Returns ``y (B, N, 2F)`` in ``inte_raw``'s dtype (a bf16
-    ``inte`` takes the merge weight and conv_all2's kernel in bf16, as the
-    JAX entry casts them).
+    ``inte`` takes the merge weight and conv_all2's kernel in bf16, cast
+    inside :func:`tail` as the JAX entry casts them inside its kernel's
+    function, so that their gradients stay fp32).
     """
     B, N, _ = partial.shape
     hk = k // 2
@@ -309,8 +505,7 @@ def edge_conv_tail(partial, inte_raw, h: Optional[torch.Tensor], inte_stats,
     kr = merge_kernel.reshape(2 * k, two_fin, two_f)
     # inte half -> block conv layout: wi_blk[wp, j*2Fin+c] = wi[j*hk+wp, c]
     wi = kr[k:].reshape(2, hk, two_fin, two_f).transpose(0, 1)
-    dt = torch.bfloat16 if inte_raw.dtype == torch.bfloat16 else None
-    wi = cast(dt, wi.reshape(hk * four_fin, two_f)).contiguous()
+    wi = wi.reshape(hk * four_fin, two_f).contiguous()
 
     i_mean, i_var, i_scale, i_bias = inte_stats
     isc = i_scale * torch.rsqrt(i_var + epsilon)
@@ -320,7 +515,7 @@ def edge_conv_tail(partial, inte_raw, h: Optional[torch.Tensor], inte_stats,
         if h.dim() == 4:
             h = h.reshape(B, N, k * h.shape[-1])
         w2k, w2b = w2_params
-        w2k, w2b = cast(dt, w2k).contiguous(), w2b.contiguous()
+        w2k, w2b = w2k.contiguous(), w2b.contiguous()
         m2, v2, sc2, b2 = w2_stats
         s2 = sc2 * torch.rsqrt(v2 + epsilon)
         t2 = b2 - m2 * s2

@@ -12,12 +12,15 @@ tensors they run the plain PyTorch versions (:func:`head_plain`: exact kNN +
 that body for the same graph).
 
 bf16 ``x`` (the generator's ``--compute_dtype bfloat16``) takes the
-kernel's bf16 instance: ``x_knn``, ``pcat``, ``ppoint`` and the weights in
-bf16, ``pb_point``/``pb_merge`` in fp32; the graph of the bf16 values
-(fp32 norms of the upcast), products accumulated in fp32, ``inte``,
-``wfea`` and ``wxyz`` rounded to bf16, ``partial`` and the sums (of the
-rounded values) fp32. It has no backward yet: a bf16 head raises in
-``backward``.
+kernels' bf16 instances: ``x_knn``, ``pcat`` and ``ppoint`` in bf16, the
+weights in fp32 (rounded to bf16 inside the function, so that their
+gradients stay fp32), ``pb_point``/``pb_merge`` in fp32; the graph of the
+bf16 values (fp32 norms of the upcast), products accumulated in fp32,
+``inte``, ``wfea`` and ``wxyz`` rounded to bf16, ``partial`` and the sums
+(of the rounded values) fp32. Its backward is ``csrc/edge_head_bwd.cu``'s
+bf16 instance on a CUDA tensor and :func:`head_bwd_plain_bf16`, written at
+the same rounding points, on a CPU tensor: the TPU kernel's
+(``_head_bwd_kernel``), not those of autograd through the bf16 forward.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from typing import Optional
 
 import torch
 
-from pdgn_tpu_torch.models.layers import cast, matmul_f32, upcast
+from pdgn_tpu_torch.models.layers import (cast, matmul_f32, round_bf16,
+                                          upcast)
 from pdgn_tpu_torch.ops.grouping import grouping
 from pdgn_tpu_torch.ops.kernels import _lib
 from pdgn_tpu_torch.ops.knn import knn_exclude_first
@@ -176,16 +180,17 @@ def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
 
 
 def pack_head_bwd_weights(wn_flat, conv_a, a_merge, wen, k: int,
-                          window: int):
+                          window: int, up=_lib.up4):
     """The backward's product operands, blocks zero-padded to 16-byte rows
-    (``c4``, ``ldf``, ``t4``: C, 4Fin, 2F rounded up to 4): ``W_conv =
-    [Wn_0^T; ..; Wn_{window-1}^T; conv_a^T]`` of shape ``((window+1)*ldf,
-    c4)``, so that ``Gc @ W_conv`` with ``Gc = [A_0 | .. | S]`` is the
-    window conv's input gradient, and ``W_merge = [wen_0; ..; wen_{k-1};
-    a_merge]^T`` of shape ``(t4, (k+1)*c4)``."""
+    (``c4``, ``ldf``, ``t4``: C, 4Fin, 2F rounded up by ``up``, to 4 fp32
+    or, ``up8``, to 8 bf16): ``W_conv = [Wn_0^T; ..; Wn_{window-1}^T;
+    conv_a^T]`` of shape ``((window+1)*ldf, c4)``, so that ``Gc @ W_conv``
+    with ``Gc = [A_0 | .. | S]`` is the window conv's input gradient, and
+    ``W_merge = [wen_0; ..; wen_{k-1}; a_merge]^T`` of shape ``(t4,
+    (k+1)*c4)``."""
     C, four_fin = conv_a.shape
     two_f = a_merge.shape[-1]
-    c4, ldf, t4 = _lib.up4(C), _lib.up4(four_fin), _lib.up4(two_f)
+    c4, ldf, t4 = up(C), up(four_fin), up(two_f)
     pad = torch.nn.functional.pad
     w_conv = torch.cat([wn_flat.reshape(window, C, four_fin), conv_a[None]])
     w_conv = pad(w_conv, (0, ldf - four_fin, 0, c4 - C)).transpose(1, 2)
@@ -196,10 +201,10 @@ def pack_head_bwd_weights(wn_flat, conv_a, a_merge, wen, k: int,
 
 
 def unpack_head_bwd_grads(d_wconv, d_wmerge, C: int, four_fin: int,
-                          two_f: int, k: int, window: int):
+                          two_f: int, k: int, window: int, up=_lib.up4):
     """``d_wconv (c4, (window+1)*ldf) = x^T Gc`` and ``d_wmerge ((k+1)*c4,
     t4)`` cut back to ``d_wn_flat, d_conv_a, d_a_merge, d_wen``."""
-    c4, ldf, t4 = _lib.up4(C), _lib.up4(four_fin), _lib.up4(two_f)
+    c4, ldf, t4 = up(C), up(four_fin), up(two_f)
     d_wc = d_wconv.reshape(c4, window + 1, ldf)[:C, :, :four_fin]
     d_wc = d_wc.permute(1, 0, 2).reshape((window + 1) * C, four_fin)
     d_wm = d_wmerge.reshape(k + 1, c4, t4)[:, :C, :two_f]
@@ -216,7 +221,12 @@ def head_bwd_kernel(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
 
     The products' operands go by 16-byte ``cp.async`` granules: x,
     ``d_partial`` and the weight blocks are zero-padded to ``c4``, ``t4``
-    and ``ldf`` columns, and the padded gradients are cut back here."""
+    and ``ldf`` columns, and the padded gradients are cut back here. bf16
+    ``x`` launches the bf16 instance (:func:`head_bwd_kernel_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return head_bwd_kernel_bf16(x, idx, inte, wn_flat, conv_a, a_merge,
+                                    wen, pcat, ppoint, cts, k)
+    _lib.instance(x)
     B, N, C = x.shape
     hk = k // 2
     window = hk + 1
@@ -273,6 +283,174 @@ def head_bwd_kernel(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
             d_wen, d_pb_merge, d_pcat, d_ppoint)
 
 
+def head_bwd_kernel_bf16(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
+                         ppoint, cts, k: int):
+    """Launch ``pdgn_edge_head_bwd_bf16``: bf16 ``x``, ``inte``, ``pcat``,
+    ``ppoint`` and the cotangents of the bf16 outputs; the weights (fp32
+    or bf16) rounded to bf16 here, ``d_partial`` rounded to bf16 for its
+    products (the TPU kernel's ``_bf`` points) and kept fp32 for its sums.
+    Same returns as :func:`head_bwd_kernel`: ``d_x``, ``d_pcat``,
+    ``d_ppoint`` in bf16, the rest fp32. Operands padded to 8 bf16 (16
+    bytes)."""
+    B, N, C = x.shape
+    hk = k // 2
+    window = hk + 1
+    four_fin = conv_a.shape[-1]
+    two_f = a_merge.shape[-1]
+    dev = x.device
+    bf = torch.bfloat16
+    f32 = dict(device=dev, dtype=torch.float32)
+    i32 = dict(device=dev, dtype=torch.int32)
+    rows = B * N
+    _lib.check_rows(rows, 128, "edge_head_bwd")
+    up = _lib.up8
+    c8, ldf, t8 = up(C), up(four_fin), up(two_f)
+    pad = torch.nn.functional.pad
+    w_conv, w_merge = pack_head_bwd_weights(wn_flat, conv_a, a_merge, wen,
+                                            k, window, up)
+    # [Wn^T; conv_a^T; Wn^T]: the lo parts of A meet Wn once more
+    w_conv = torch.cat([w_conv, w_conv[:window * ldf]]).to(bf).contiguous()
+    w_merge = w_merge.to(bf).contiguous()
+    xp = _lib.aligned(pad(x, (0, c8 - C)).contiguous())
+    gated = pcat is not None
+    d_inte, d_partial, d_stats = (c.contiguous() for c in cts[:3])
+    for name, c, dt in (("d_inte", d_inte, bf), ("d_partial", d_partial,
+                                                  torch.float32),
+                        ("d_stats", d_stats, torch.float32)):
+        if c.dtype != dt:
+            raise TypeError(f"edge_head_bwd bf16: {name} must be {dt}, got "
+                            f"{c.dtype}")
+    d_inte = _lib.aligned(d_inte)
+    dpart_b = _lib.aligned(pad(d_partial.to(bf), (0, t8 - two_f)).contiguous())
+    inte = _lib.aligned(inte)
+    d_wfea = d_wxyz = d_wstats = None
+    if gated:
+        d_wfea, d_wxyz, d_wstats = (c.contiguous() for c in cts[3:6])
+        if d_wfea.dtype != bf or d_wxyz.dtype != bf:
+            raise TypeError("edge_head_bwd bf16: the weight-net rows' "
+                            "cotangents must be bfloat16")
+    gw, mc = (2 * window + 1) * ldf, (k + 1) * c8
+    d_x = torch.empty(rows, c8, device=dev, dtype=bf)
+    d_wconv = torch.empty(c8, gw, **f32)
+    d_wmerge = torch.empty(mc, t8, **f32)
+    d_pb_point = torch.empty(B, four_fin, **f32)
+    d_pb_merge = torch.empty(B, two_f, **f32)
+    d_pcat = torch.empty(B, N, PROJ, device=dev, dtype=bf) if gated else None
+    d_ppoint = torch.empty(B, N, PROJ, device=dev, dtype=bf) if gated else None
+    gc = torch.empty(rows, gw, device=dev, dtype=bf)
+    sf = torch.empty(rows, four_fin, **f32)
+    dm = torch.empty(rows, mc, **f32)
+    dxm = torch.empty(rows, c8, **f32)
+    splits = -(-rows // _lib.TN_SPLIT_ROWS)
+    tn_scratch = torch.empty(splits * max(c8 * gw, mc * t8), **f32)
+    nbr = (idx + N * torch.arange(B, **i32)[:, None, None]).contiguous()
+    count = torch.empty(rows, **i32)
+    cursor = torch.empty(rows, **i32)
+    offsets = torch.empty(rows + 1, **i32)
+    entries = torch.empty(rows * k, **i32)
+    p = _lib.ptr
+    _lib.check(_lib.library().pdgn_edge_head_bwd_bf16(
+        p(xp), p(idx), p(nbr), p(inte), B, N, c8, k, four_fin, two_f, ldf, t8,
+        p(w_conv), p(w_merge), p(d_inte), p(d_partial), p(dpart_b),
+        p(d_stats), p(pcat), p(ppoint), p(d_wfea), p(d_wxyz), p(d_wstats),
+        p(d_x), p(d_wconv), p(d_wmerge), p(d_pb_point), p(d_pb_merge),
+        p(d_pcat), p(d_ppoint), p(gc), p(sf), p(dm), p(dxm), p(tn_scratch),
+        p(count), p(cursor), p(offsets), p(entries), _lib.stream_handle(dev)),
+        "pdgn_edge_head_bwd_bf16")
+    _lib.LAUNCHES["edge_head_bwd_bf16"] += 1
+    # x^T A = x^T A_hi + x^T A_lo
+    n_a = window * ldf
+    d_wconv = torch.cat([d_wconv[:, :n_a] + d_wconv[:, n_a + ldf:],
+                         d_wconv[:, n_a:n_a + ldf]], dim=1)
+    d_wn, d_ca, d_am, d_wen = unpack_head_bwd_grads(
+        d_wconv, d_wmerge, C, four_fin, two_f, k, window, up)
+    return (d_x[:, :C].reshape(B, N, C), d_wn, d_ca, d_pb_point, d_am,
+            d_wen, d_pb_merge, d_pcat, d_ppoint)
+
+
+def head_bwd_plain_bf16(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
+                        ppoint, cts, k: int, window: int):
+    """The bf16 backward's plain version, at the bf16 instance's rounding
+    points (the TPU kernel's ``_bf`` points on the gathered design of
+    ``csrc/edge_head_bwd.cu``): per window ``dy = d_inte + ds0 +
+    2*inte*ds1`` in fp32, ``S`` its sum over the windows (fp32, the bias
+    gradient's; rounded for the product), ``A_t`` the sum over the entries
+    naming a row of the bf16-rounded ``dy`` (split into two bf16 parts for
+    the products, ``A = A_hi + A_lo``); ``d_x = dxm + [A_hi | S | A_lo] @
+    [Wn; conv_a; Wn]^T`` rounded to bf16, ``dxm`` the merge's fp32
+    cotangents ``d_partial_b @ W_merge_b`` gathered; the weight gradients
+    ``x^T [A_hi + A_lo | S]`` and ``[x[idx] | x]^T d_partial_b`` in fp32;
+    ``d_pcat`` the sum of the bf16-rounded ``d_wrow`` over the entries,
+    ``d_ppoint`` their fp32 sum over the slots, both stored in bf16. Same
+    inputs and returns as :func:`head_bwd_kernel`."""
+    B, N, C = x.shape
+    hk = k // 2
+    four_fin = conv_a.shape[-1]
+    two_f = a_merge.shape[-1]
+    rows = B * N
+    xf = x.float().reshape(rows, C)
+    d_inte, d_partial, d_stats = cts[0].float(), cts[1].float(), cts[2]
+    inte4 = inte.float().reshape(rows, hk, four_fin)
+    dy = ((d_inte.reshape(rows, hk, four_fin) + d_stats[0])
+          + (2.0 * inte4) * d_stats[1])
+    S = dy[:, 0]
+    for wp in range(1, hk):
+        S = S + dy[:, wp]
+    dyb = round_bf16(dy).reshape(-1, four_fin)
+    gidx = (idx.long() + N * torch.arange(B, device=x.device)[:, None, None]
+            ).reshape(rows, k)
+    gc = []
+    for t in range(window):
+        a = torch.zeros(rows, four_fin, dtype=torch.float32, device=x.device)
+        gc.append(a.index_add_(0, gidx[:, t:t + hk].reshape(-1), dyb))
+    a = torch.stack(gc, dim=1)                           # (rows, w, 4Fin)
+    a_hi = round_bf16(a)
+    # [A_hi | S_b | A_lo]: A split in two bf16 parts, S rounded once
+    gcb = torch.cat([a_hi, round_bf16(S)[:, None], round_bf16(a - a_hi)],
+                    dim=1)
+    wn_b = round_bf16(wn_flat.float()).reshape(window, C, four_fin)
+    ca_b = round_bf16(conv_a.float())
+    w_conv = torch.cat([wn_b, ca_b[None], wn_b])         # (2w+1, C, 4Fin)
+    dpart_b = round_bf16(d_partial.reshape(rows, two_f))
+    w_merge = torch.cat([round_bf16(wen.float()), round_bf16(a_merge.float())]
+                        ).reshape(k + 1, C, two_f)
+    dm = torch.einsum("rf,jcf->rjc", dpart_b, w_merge)   # (rows, k+1, C)
+    dxm = dm[:, k].index_add(0, gidx.reshape(-1),
+                             dm[:, :k].reshape(-1, C))
+    acc = torch.einsum("rtf,tcf->rc", gcb, w_conv)
+    d_x = (dxm + acc).to(torch.bfloat16).reshape(B, N, C)
+    d_wc = torch.einsum("rc,rtf->tcf", xf, gcb)          # (2w+1, C, 4Fin)
+    nbr = xf[gidx]                                        # (rows, k, C)
+    d_wen = torch.einsum("rjc,rf->jcf", nbr, dpart_b).reshape(k * C, two_f)
+    d_am = xf.T @ dpart_b
+    d_pb = S.reshape(B, N, four_fin).sum(dim=1)
+    d_pbm = d_partial.reshape(B, N, two_f).sum(dim=1)
+    d_wn = d_wc[:window] + d_wc[window + 1:]
+    out = (d_x, d_wn.reshape(window * C, four_fin), d_wc[window], d_pb, d_am,
+           d_wen, d_pbm)
+    if pcat is None:
+        return out + (None, None)
+    d_wfea, d_wxyz, d_wstats = cts[3:6]
+    half = PROJ // 2
+    # slot s reads extraction index (s%2)*hk + s//2
+    order = torch.tensor([(s % 2) * hk + s // 2 for s in range(k)],
+                         device=x.device)
+    q = gidx[:, order]                                    # (rows, k)
+    wrow = pcat.float().reshape(rows, PROJ)[q] + ppoint.float().reshape(
+        rows, 1, PROJ)
+    base = torch.cat([d_wfea.float().reshape(rows, k, half),
+                      d_wxyz.float().reshape(rows, k, half)], dim=-1)
+    ws = d_wstats.reshape(2, k, PROJ)
+    dwrow = (base + ws[0]) + (2.0 * wrow) * ws[1]         # (rows, k, 32)
+    d_pp = dwrow[:, 0]
+    for s_ in range(1, k):
+        d_pp = d_pp + dwrow[:, s_]
+    d_pc = torch.zeros(rows, PROJ, dtype=torch.float32, device=x.device)
+    d_pc.index_add_(0, q.reshape(-1), round_bf16(dwrow).reshape(-1, PROJ))
+    return out + (d_pc.to(torch.bfloat16).reshape(B, N, PROJ),
+                  d_pp.to(torch.bfloat16).reshape(B, N, PROJ))
+
+
 def head_bwd_plain(x, idx, wn_flat, conv_a, pb_point, a_merge, wen,
                    pb_merge, pcat, ppoint, cts, k: int, window: int):
     """The plain backward: autograd's VJP of :func:`head_reference_given_idx`
@@ -302,7 +480,10 @@ class _Head(torch.autograd.Function):
     @staticmethod
     def forward(ctx, k, window, x, x_knn, wn_flat, conv_a, pb_point, a_merge,
                 wen, pb_merge, pcat, ppoint):
-        args = (x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
+        # fp32 weights of a bf16 head are rounded here (as _head_pallas casts
+        # them), so that autograd hands their gradients back in fp32
+        w = [t.to(x.dtype) for t in (wn_flat, conv_a, a_merge, wen)]
+        args = (x, x_knn, w[0], w[1], pb_point, w[2], w[3], pb_merge,
                 pcat, ppoint, k, window)
         if x.device.type == "cuda":
             out = head_kernel(*args)
@@ -319,13 +500,14 @@ class _Head(torch.autograd.Function):
     def backward(ctx, *grads):
         (x, idx, inte, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
          pcat, ppoint) = ctx.saved_tensors
-        if x.dtype != torch.float32:
-            raise TypeError(f"edge_head: no backward for {x.dtype} (bf16 "
-                            "training is not ported)")
         cts = grads[1:]                                   # idx has none
         if x.device.type == "cuda":
             g = head_bwd_kernel(x, idx, inte, wn_flat, conv_a, a_merge, wen,
                                 pcat, ppoint, cts, ctx.k)
+        elif x.dtype == torch.bfloat16:
+            g = head_bwd_plain_bf16(x, idx, inte, wn_flat, conv_a, a_merge,
+                                    wen, pcat, ppoint, cts, ctx.k,
+                                    ctx.window)
         else:
             g = head_bwd_plain(x, idx, wn_flat, conv_a, pb_point, a_merge,
                                wen, pb_merge, pcat, ppoint, cts, ctx.k,
@@ -353,7 +535,9 @@ def edge_head(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
 
     Returns ``idx, inte, partial, stats, wfea, wxyz, wstats`` (the last
     three ``None`` for the plain stage). ``x`` float32 or bfloat16: ``x_knn``,
-    the weights, ``pcat`` and ``ppoint`` in its dtype, ``pb_*`` float32.
+    ``pcat`` and ``ppoint`` in its dtype, the weights and ``pb_*`` float32
+    (a bf16 head rounds its weights inside and returns their gradients in
+    float32).
     """
     B, N, C = x.shape
     cf = x_knn.shape[-1]
@@ -363,11 +547,11 @@ def edge_head(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x: expected float32 or bfloat16, got {dt}")
     checks = [("x", x, (B, N, C), dt), ("x_knn", x_knn, (B, N, cf), dt),
-              ("wn_flat", wn_flat, (window * C, four_fin), dt),
-              ("conv_a", conv_a, (C, four_fin), dt),
+              ("wn_flat", wn_flat, (window * C, four_fin), f32),
+              ("conv_a", conv_a, (C, four_fin), f32),
               ("pb_point", pb_point, (B, four_fin), f32),
-              ("a_merge", a_merge, (C, two_f), dt),
-              ("wen", wen, (k * C, two_f), dt),
+              ("a_merge", a_merge, (C, two_f), f32),
+              ("wen", wen, (k * C, two_f), f32),
               ("pb_merge", pb_merge, (B, two_f), f32)]
     if pcat is not None:
         checks += [("pcat", pcat, (B, N, PROJ), dt),
@@ -398,8 +582,9 @@ def head_operands(x, conv_kernel, conv_bias, merge_kernel, k: int,
     With ``xs`` every contraction of the per-batch half collapses to a
     per-batch bias; the graph is still built from the full concat
     ``[xs broadcast | x]``, as the JAX package's exact path does. With bf16
-    ``x`` the weights are cast to bf16 (as ``_head_pallas`` casts them) and
-    ``pb_*`` stay fp32, from the upcast ``xs``.
+    ``x``, ``x_knn`` is bf16 and the weights and ``pb_*`` stay fp32 (``pb_*``
+    from the upcast ``xs``): :func:`edge_head` rounds the weights to bf16,
+    as ``_head_pallas`` casts them.
     """
     B, N, C = x.shape
     window = conv_kernel.shape[1]
@@ -434,12 +619,9 @@ def head_operands(x, conv_kernel, conv_bias, merge_kernel, k: int,
         m_merge = a_merge_full[:cx] + torch.sum(wen_full[:, :cx, :], dim=0)
         pb_merge = torch.matmul(upcast(xs), m_merge)
     dt = torch.bfloat16 if x.dtype == torch.bfloat16 else None
-
-    def c(t):
-        return torch.Tensor.contiguous(cast(dt, t))
-
-    return (c(x_knn), c(wn_flat), c(conv_a), pb_point.contiguous(),
-            c(a_merge), c(wen), pb_merge.contiguous(), window)
+    return (cast(dt, x_knn).contiguous(), wn_flat.contiguous(),
+            conv_a.contiguous(), pb_point.contiguous(), a_merge.contiguous(),
+            wen.contiguous(), pb_merge.contiguous(), window)
 
 
 def edge_conv_head(x, conv_kernel, conv_bias, merge_kernel, k: int,

@@ -8,7 +8,8 @@ generator's width; its fp32 or its bf16 instance, by ``h``'s dtype); CPU
 tensors run :func:`stats_plain`. ``s`` and ``S`` are fp32 either way (bf16
 products are exact in fp32). The backward is one product on either device,
 ``dh = h (dS + dS^T) + ds`` per (row, slot), as the JAX package computes it
-outside its kernel (slot_stats.py:120-127); it takes fp32 ``h`` only.
+outside its kernel (slot_stats.py:120-127): on the fp32 upcast of a bf16
+``h``, ``dh`` rounded to ``h``'s dtype.
 """
 
 from __future__ import annotations
@@ -49,9 +50,11 @@ def stats_kernel(h_flat: torch.Tensor, k: int):
 
 
 def stats_bwd(h_flat: torch.Tensor, ds: torch.Tensor, dS: torch.Tensor):
-    """``dh`` of ``(s, S)``: a ``(rows, H) @ (H, H)`` product plus ``ds``."""
-    hf = h_flat.reshape(-1, ds.shape[0])
-    return (torch.matmul(hf, dS + dS.T) + ds).reshape(h_flat.shape)
+    """``dh`` of ``(s, S)``: a ``(rows, H) @ (H, H)`` product plus ``ds``,
+    in fp32 (of the upcast of a bf16 ``h``), returned in ``h``'s dtype."""
+    hf = upcast(h_flat).reshape(-1, ds.shape[0])
+    dh = (torch.matmul(hf, dS + dS.T) + ds).reshape(h_flat.shape)
+    return dh.to(h_flat.dtype)
 
 
 class _SlotStats(torch.autograd.Function):
@@ -66,9 +69,6 @@ class _SlotStats(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ds, dS):
         (h_flat,) = ctx.saved_tensors
-        if h_flat.dtype != torch.float32:
-            raise TypeError("slot_moment_stats: no backward for "
-                            f"{h_flat.dtype} (bf16 training is not ported)")
         return stats_bwd(h_flat, ds, dS), None
 
 

@@ -11,9 +11,12 @@ end; ``--pretrain_model_G/_D`` resume from ``.pth`` or the JAX package's
 and the test phase: sampling with sigma=1 noise, renormalisation, the
 metric suite against the dataset's test split and the npy dumps.
 ``compute_dtype="bfloat16"`` builds the generator in the JAX package's bf16
-policy (as pdgn_tpu/train/trainer.py:148-151) for the test phase; the train
-phase refuses it (the kernels have no bf16 backward yet), and the
-discriminators stay fp32 (``d_compute_dtype`` "bfloat16" is refused).
+policy (as pdgn_tpu/train/trainer.py:148-151) for the train and test
+phases: bf16 activations and product operands through the kernels' bf16
+instances, forward and backward, with fp32 parameters, BN statistics, Adam
+moments and clouds. The discriminators stay fp32 unless ``d_compute_dtype``
+is "bfloat16" (their conv stacks then compute in bf16; the JAX trainer's
+warning: bf16 discriminators collapsed LSGAN training on the TPU).
 Randomness follows the JAX trainer: the initial weights and the training
 noise come from seeds drawn from numpy's global stream
 (``np.random.randint``), which the CLI seeds per run, as do the loader's
@@ -74,7 +77,7 @@ class ExperimentConfig:
     device: str = "cuda"
     profile_dir: Optional[str] = None   # torch.profiler trace of steps 2..4
     compute_dtype: Optional[str] = None    # None/"float32" or "bfloat16"
-    d_compute_dtype: Optional[str] = None  # None/"float32" only
+    d_compute_dtype: Optional[str] = None  # None/"float32" or "bfloat16"
 
     @property
     def category(self) -> str:
@@ -82,8 +85,9 @@ class ExperimentConfig:
 
 
 def generator_dtype(compute_dtype: Optional[str]) -> Optional[torch.dtype]:
-    """The generator's ``dtype`` for a ``--compute_dtype`` value: None (fp32)
-    for None or "float32", ``torch.bfloat16`` for "bfloat16"."""
+    """A model's ``dtype`` for a ``--compute_dtype`` (or
+    ``--d_compute_dtype``) value: None (fp32) for None or "float32",
+    ``torch.bfloat16`` for "bfloat16"."""
     if compute_dtype in (None, "float32"):
         return None
     if compute_dtype == "bfloat16":
@@ -182,16 +186,15 @@ class PDGNTrainer:
         seed = seed if seed is not None else int(np.random.randint(0, 2 ** 31))
         gen = torch.Generator().manual_seed(seed)
         softmax = cfg.softmax if cfg.network == "PDGNet" else True
-        if cfg.d_compute_dtype not in (None, "float32"):
-            raise NotImplementedError(
-                f"d_compute_dtype {cfg.d_compute_dtype}: the port's "
-                "discriminators compute in float32 only")
         g = PointGenerator(cfg.num_point, cfg.num_k, softmax=softmax,
                            base_points=cfg.base_points,
                            noise_dim=cfg.noise_dim,
                            dtype=generator_dtype(cfg.compute_dtype))
         g.reset_parameters(gen)
-        ds = discriminators()
+        # fp32 discriminators unless asked for: the JAX trainer keeps them
+        # fp32 under --compute_dtype bfloat16 (bf16 ones collapsed LSGAN
+        # training on the TPU)
+        ds = discriminators(generator_dtype(cfg.d_compute_dtype))
         for d in ds:
             d.reset_parameters(gen)
         self.state = init_state(g.to(self.device),
@@ -224,12 +227,6 @@ class PDGNTrainer:
         """The train loop; ``seed`` seeds the noise generator (default:
         drawn from numpy, as the JAX trainer draws its key)."""
         cfg = self.cfg
-        if generator_dtype(cfg.compute_dtype) is not None:
-            raise NotImplementedError(
-                f"training with compute_dtype {cfg.compute_dtype} is not "
-                "ported: the edge head's, the tails' and slot stats' "
-                "backward kernels have no bf16 instances yet (bf16 runs the "
-                "sample and test phases only)")
         os.makedirs(os.path.join(cfg.checkpoint_dir, cfg.model_dir),
                     exist_ok=True)
         self._log_fout = open(os.path.join(cfg.checkpoint_dir, cfg.model_dir,

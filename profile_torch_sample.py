@@ -10,8 +10,11 @@ on ``--clouds`` synthetic clouds, sampled in batches of ``--batch``), or
 with ``--local-stats`` the backward of each of the shape loss's 9
 ``local_mean_cov`` calls of a train step alone (``torch.autograd.grad``
 through the public entry, so any checkout's kernels), after one warm-up
-iteration. ``--compute_dtype bfloat16`` builds the sampler's generator in
-bf16 (the bf16 instances of the forward kernels). Prints, per CUDA kernel
+iteration. ``--compute_dtype bfloat16`` builds the generator in bf16: the
+sampler's (the bf16 instances of the forward kernels) or, with
+``--train``, the trainer's (``compute_dtype="bfloat16"``: the bf16
+instances forward and backward, fp32 discriminators). Prints, per CUDA
+kernel
 name, its device time per
 iteration and share, plus the iteration's wall time and the share of it in
 which the device ran no kernel (negative if the kernel events overlap or are
@@ -24,6 +27,7 @@ card; run from the root of the repository::
     python3 profile_torch_sample.py --batch 128 --out breakdown.json
     python3 profile_torch_sample.py --batch 128 --compute_dtype bfloat16
     python3 profile_torch_sample.py --train --batch 35
+    python3 profile_torch_sample.py --train --batch 35 --compute_dtype bfloat16
     python3 profile_torch_sample.py --train --batch 35 --reps 30 --wall
     python3 profile_torch_sample.py --test --batch 35 --clouds 64 --reps 2
     python3 profile_torch_sample.py --local-stats --batch 35 --reps 20
@@ -51,15 +55,17 @@ def sample_iteration(batch: int, seed: int, dev, dtype=None):
     return lambda: sample(batch, rng)
 
 
-def train_iteration(batch: int, seed: int, dev):
-    """One GAN train step at full width on fixed random real clouds."""
+def train_iteration(batch: int, seed: int, dev, compute_dtype=None):
+    """One GAN train step at full width on fixed random real clouds
+    (``compute_dtype``: the trainer's, None for fp32 or "bfloat16")."""
     import torch
 
     from pdgn_tpu_torch.train.train_step import train_step
     from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
 
     trainer = PDGNTrainer(ExperimentConfig(batch_size=batch,
-                                           device=dev.type))
+                                           device=dev.type,
+                                           compute_dtype=compute_dtype))
     trainer.build_model(seed)
     rng = torch.Generator(device=dev).manual_seed(seed)
     reals = [torch.randn(batch, n, 3, generator=rng, device=dev)
@@ -141,7 +147,8 @@ def profile(batch: int, reps: int, seed: int, train: bool = False,
     if test:
         iteration = test_iteration(batch, seed, dev, clouds, out_dir.name)
     elif train:
-        iteration = train_iteration(batch, seed, dev)
+        iteration = train_iteration(batch, seed, dev,
+                                    "bfloat16" if bf16 else None)
     else:
         iteration = sample_iteration(batch, seed, dev,
                                      torch.bfloat16 if bf16 else None)
@@ -233,12 +240,14 @@ def main(argv=None) -> None:
                          "9 local_mean_cov calls alone")
     ap.add_argument("--compute_dtype", default="float32",
                     choices=["float32", "bfloat16"],
-                    help="the sampler's generator dtype (forwards only)")
+                    help="the generator's dtype (the sampler's, or "
+                         "with --train the trainer's)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     bf16 = args.compute_dtype == "bfloat16"
-    if bf16 and (args.train or args.test or args.local_stats):
-        ap.error("--compute_dtype bfloat16 profiles sampler forwards only")
+    if bf16 and (args.test or args.local_stats):
+        ap.error("--compute_dtype bfloat16 profiles sampler forwards and "
+                 "train steps only")
     if args.local_stats:
         res = profile_local_stats(args.batch, args.reps, args.seed)
     else:

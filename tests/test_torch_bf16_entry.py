@@ -1,6 +1,6 @@
 """The entry points of ``--compute_dtype bfloat16`` on the CPU: the test
-phase through ``PDGNTrainer.test`` at a tiny size, the CLI's flag checks
-(no phase run), and the train phase's refusal."""
+phase through ``PDGNTrainer.test`` at a tiny size and the CLI's flag checks
+(no phase run). The train phase in bf16 is tests/test_torch_bf16_train_*.py's."""
 
 import numpy as np
 import pytest
@@ -46,24 +46,33 @@ def test_cli_accepts_bf16_for_sample_and_test(tmp_path, phase):
 
 @pytest.mark.parametrize("phase", ["sample", "test", "train"])
 def test_cli_refuses_bf16_discriminators(tmp_path, phase, capsys):
+    """``--d_compute_dtype bfloat16`` is ported: accepted in every phase; a
+    dtype with no kernel instance (float16) is refused (exit 2). The name
+    is kept from when the port refused bf16 discriminators."""
+    args = cli.parse_args(_cli_args(tmp_path, "--phase", phase,
+                                    "--d_compute_dtype", "bfloat16"))
+    assert args.d_compute_dtype == "bfloat16"
     with pytest.raises(SystemExit) as exc:
         cli.parse_args(_cli_args(tmp_path, "--phase", phase,
-                                 "--d_compute_dtype", "bfloat16"))
+                                 "--d_compute_dtype", "float16"))
     assert exc.value.code == 2
-    assert "not ported" in capsys.readouterr().out
 
 
 def test_bf16_training_is_refused_by_name(tmp_path, capsys):
-    """``--phase train --compute_dtype bfloat16`` exits 2 naming the missing
-    backward; the trainer refuses it too rather than train in fp32."""
-    with pytest.raises(SystemExit) as exc:
-        cli.parse_args(_cli_args(tmp_path, "--phase", "train",
-                                 "--compute_dtype", "bfloat16"))
-    assert exc.value.code == 2
-    assert "backward" in capsys.readouterr().out
+    """bf16 training is ported: ``--phase train --compute_dtype bfloat16``
+    passes the checks, and the trainer builds a bf16 generator with fp32
+    discriminators (bf16 ones only with ``d_compute_dtype``) rather than
+    refuse or train in fp32. The name is kept from when the port refused
+    bf16 training."""
+    args = cli.parse_args(_cli_args(tmp_path, "--phase", "train",
+                                    "--compute_dtype", "bfloat16"))
+    assert args.compute_dtype == "bfloat16" and args.d_compute_dtype is None
     trainer = PDGNTrainer(_config(tmp_path, compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="backward"):
-        trainer.train(seed=1)
-    with pytest.raises(NotImplementedError, match="float32"):
-        PDGNTrainer(_config(tmp_path, d_compute_dtype="bfloat16")
-                    ).build_model(seed=1)
+    trainer.build_model(seed=1)
+    assert trainer.state.generator.dtype == torch.bfloat16
+    assert all(d.dtype is None for d in trainer.state.discriminators)
+    trainer = PDGNTrainer(_config(tmp_path, d_compute_dtype="bfloat16"))
+    trainer.build_model(seed=1)
+    assert trainer.state.generator.dtype is None
+    assert all(d.dtype == torch.bfloat16
+               for d in trainer.state.discriminators)

@@ -152,27 +152,32 @@ def test_bf16_tails_match_jax(gated):
 
 
 def test_bf16_wrappers_take_the_plain_path_and_have_no_backward():
-    """bf16 CPU tensors run the plain versions (no launch); a bf16 head,
-    tail or slot-stats call refuses its backward, and an unported dtype
-    refuses the call."""
+    """bf16 CPU tensors run the plain versions (no launch), forward and,
+    since bf16 training is ported, backward: a bf16 head, tail or
+    slot-stats call differentiates through its plain bf16 backward
+    (tests/test_torch_bf16_train_kernels.py holds those to the TPU
+    kernels); an unported dtype refuses the call. The name is kept from
+    when the bf16 wrappers had no backward."""
     _lib.LAUNCHES.clear()
     a, (x_t, _), (xs_t, _), pc = _head_case(5, 16, True)
     w = [t(a[n]).requires_grad_(True)
          for n in ("conv_kernel", "conv_bias", "merge_kernel")]
     out = edge_conv_head(x_t, *w, a["k"], pc[0][0], pc[1][0], xs=xs_t)
-    with pytest.raises(TypeError, match="bf16 training"):
-        out[2].sum().backward()
+    out[2].sum().backward()
+    assert all(v.grad is not None and v.grad.dtype == torch.float32
+               for v in w)
     h = torch.randn(2, 8, 6 * 64).bfloat16().requires_grad_(True)
-    with pytest.raises(TypeError, match="bf16 training"):
-        slot_moment_stats(h, 6)[1].sum().backward()
+    slot_moment_stats(h, 6)[1].sum().backward()
+    assert h.grad.dtype == torch.bfloat16
     b = _tail_inputs(4)
     stats = tuple(t(v).requires_grad_(True) for v in b["inte_stats"])
     y = edge_conv_tail(t(b["partial"]), t(b["inte"]).bfloat16(), None, stats,
                        None, None, t(b["merge_kernel"]), t(b["merge_bias"]),
                        b["k"])
     assert y.dtype == torch.bfloat16
-    with pytest.raises(TypeError, match="bf16 training"):
-        y.float().sum().backward()
+    y.float().sum().backward()
+    assert all(v.grad is not None and torch.isfinite(v.grad).all()
+               for v in stats)
     assert sum(_lib.LAUNCHES.values()) == 0
     with pytest.raises(TypeError):
         slot_moment_stats(torch.zeros(2, 8, 6 * 64, dtype=torch.float16), 6)

@@ -10,7 +10,7 @@ larger magnitude, counted at no less than 1/256 of the largest
 y held to the float64 merge of their own g, as phase 2b holds it); fp32
 outputs rel <= 1e-4 (slot stats 1e-5); two launches bit-identical; each
 launch counted under the instance's ``_bf16`` name; a bf16 backward
-refused.
+launching the bf16 backward instances.
 
 Marked ``cuda``; each test skips unless a CUDA card is visible. Run on a
 machine with a card with::
@@ -36,6 +36,15 @@ from pdgn_tpu_torch.ops.kernels.slot_stats import (slot_moment_stats,
 pytestmark = pytest.mark.cuda
 
 BF = torch.bfloat16
+HEAD_WEIGHTS, TAIL_WEIGHTS = (2, 3, 5, 6), (5, 9)
+
+
+def _bf16_weights(args, at):
+    """The fp32 weights at ``at`` of ``edge_head``'s or ``tail``'s operands
+    rounded to bf16, as the wrappers hand them to the kernels and the
+    plain versions."""
+    return [a.to(BF) if i in at and a is not None else a
+            for i, a in enumerate(args)]
 
 
 @pytest.fixture
@@ -90,8 +99,9 @@ def test_bf16_head_matches_plain(dev, N, C, cx, k, gated, four_fin, two_f):
         assert a is None or torch.equal(a, b)
     x_knn = args[1].float()
     assert torch.equal(got[0], knn_topk(x_knn, x_knn, k + 1)[..., 1:])
-    want = head_reference_given_idx(args[0], *args[2:10], got[0], k,
-                                    args[11])
+    want = head_reference_given_idx(
+        args[0], *_bf16_weights(args, HEAD_WEIGHTS)[2:10], got[0], k,
+        args[11])
     for a, b in zip(got[1:], want):
         if b is None:
             assert a is None
@@ -127,11 +137,11 @@ def _tail_args(dev, gated, k, fin, N=37, four_fin=None, two_f=None):
     return [r(B, N, two_f), r(B, N, hk * four_fin).to(BF),
             (r(B, N, k * 64) * 0.5).to(BF) if gated else None,
             r(four_fin) * 0.2 + 1, r(four_fin) * 0.1,
-            (r(64, two_fin) * 0.1).to(BF) if gated else None,
+            r(64, two_fin) * 0.1 if gated else None,
             r(two_fin) * 0.1 if gated else None,
             r(two_fin) * 0.2 + 1 if gated else None,
             r(two_fin) * 0.1 if gated else None,
-            (r(hk * four_fin, two_f) * 0.05).to(BF), r(two_f) * 0.1, k, True]
+            r(hk * four_fin, two_f) * 0.05, r(two_f) * 0.1, k, True]
 
 
 @pytest.mark.parametrize("gated,k,fin,N,four_fin,two_f", [
@@ -147,27 +157,41 @@ def test_bf16_tail_matches_plain(dev, gated, k, fin, N, four_fin, two_f):
     args = _tail_args(dev, gated, k, fin, N, four_fin, two_f)
     name = "bilateral_tail_" + ("gated" if gated else "plain") + "_bf16"
     before = _lib.LAUNCHES[name]
-    y, g = tail_kernel(*args, keep_g=True)
+    kargs = _bf16_weights(args, TAIL_WEIGHTS)
+    y, g = tail_kernel(*kargs, keep_g=True)
     assert _lib.LAUNCHES[name] == before + 1
     assert y.dtype == g.dtype == BF
     assert torch.equal(y, tail(*args))
-    partial, wi, bias = args[0], args[9], args[10]
+    partial, wi, bias = kargs[0], kargs[9], kargs[10]
     B, N, two_f = partial.shape
-    g_p = gate_reference(*args[1:9], k, True).reshape(B * N, -1)
+    g_p = gate_reference(*kargs[1:9], k, True).reshape(B * N, -1)
     assert bf16_ulps(g, g_p) <= 2.0
     y64 = (partial.double().reshape(B * N, two_f) + g.double() @ wi.double()
            + bias.double()).to(BF).reshape(B, N, two_f)
     assert bf16_ulps(y, y64) <= 1.0
-    assert float((y != tail_reference(*args)).float().mean()) <= 1e-2
+    assert float((y != tail_reference(*kargs)).float().mean()) <= 1e-2
 
 
 def test_bf16_instances_refuse_a_backward(dev):
+    """bf16 training is ported: a bf16 head's and tail's backward launch
+    their bf16 instances (``_bwd_bf16``), never an fp32 one through a
+    cast; tests/test_torch_cuda_bf16_train.py holds them to their plain
+    versions. The name is kept from when a bf16 backward was refused."""
     args = _head_args(dev, 64, 16, 0, 6, True)
     x = args[0].clone().requires_grad_(True)
     out = edge_head(x, *args[1:])
-    with pytest.raises(TypeError, match="bf16 training"):
-        out[2].sum().backward()
+    before = dict(_lib.LAUNCHES)
+    out[2].sum().backward()
+    assert _lib.LAUNCHES["edge_head_bwd_bf16"] == before.get(
+        "edge_head_bwd_bf16", 0) + 1
+    assert _lib.LAUNCHES["edge_head_bwd"] == before.get("edge_head_bwd", 0)
+    assert x.grad.dtype == BF
     targs = _tail_args(dev, True, 10, 8)
     targs[0].requires_grad_(True)
-    with pytest.raises(TypeError, match="bf16 training"):
-        tail(*targs).float().sum().backward()
+    y = tail(*targs)
+    before = dict(_lib.LAUNCHES)
+    y.float().sum().backward()
+    name = "bilateral_tail_gated_bwd"
+    assert _lib.LAUNCHES[name + "_bf16"] == before.get(name + "_bf16", 0) + 1
+    assert _lib.LAUNCHES[name] == before.get(name, 0)
+    assert targs[0].grad.dtype == torch.float32

@@ -2,6 +2,7 @@
 through the JAX package and its PyTorch port."""
 
 import numpy as np
+import pytest
 import torch
 
 
@@ -108,3 +109,30 @@ def bf16_pair(a):
 
     tb = torch.from_numpy(np.ascontiguousarray(a, np.float32)).bfloat16()
     return tb, jnp.asarray(tb.float().numpy()).astype(jnp.bfloat16)
+
+
+def perturbed_state(model, seed):
+    """``model``'s weights drawn (torch default init) from ``seed``, with
+    random batch-norm parameters and running statistics, as a state dict
+    (identity init would hide channel-order mistakes)."""
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(seed)
+    sd = model.state_dict()
+    for key, v in sd.items():
+        if key.endswith((".weight", ".running_var")) and v.dim() == 1:
+            sd[key] = t((1.0 + 0.2 * rng.randn(v.numel())).astype(np.float32))
+        elif key.endswith((".bias", ".running_mean")) and v.dim() == 1:
+            sd[key] = t((0.2 * rng.randn(v.numel())).astype(np.float32))
+    return sd
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread for a module's tests (autouse where
+    imported): under the suite's parallel workers, torch's thread pools
+    oversubscribe the cores, and a CPU train step that takes a second alone
+    took 100 s."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -5,6 +5,7 @@ Run from the root of the repository with no arguments::
 
     python3 chip_smoke.py [--out results.json]
     python3 chip_smoke.py --train-alone     # phase 3t alone (below)
+    python3 chip_smoke.py --parallel-alone  # phase 3m alone (below)
 
 What it does, in order (any failure raises and the exit code is not 0):
 
@@ -240,14 +241,33 @@ bf16 instances of the head backward and both tail backwards), after 2b,
    1): its time, its bf16 plain version's and its bound (products at the
    bf16 tensor cores' 989 TFLOP/s), and the 2bt checks again.
 
+The data-parallel slice (``pdgn_tpu_torch.parallel``), after 3p:
+
+3m. (1) ``PDGNTrainer.train`` at full width, B=35, synthetic, 3 steps and
+   then ``PDGNTrainer.test``, once without a group and once as the one rank
+   of an NCCL group (``tcp://localhost``): each step's six metrics and the
+   test results equal bit for bit, the launches of each run equal
+   ``PER_STEP`` a step, and the collectives a step, their bytes and both
+   runs' step seconds are printed on a JSON line beside the card's name
+   and power limit; (2) two ranks on the one card over gloo (NCCL takes
+   one rank a card), spawned after the kernels are built: ``generate()``
+   of 70 clouds (a batch each) and the pairwise rows of 70 x 70 clouds in
+   tiles of 32 equal one process's exactly, and the first train step at
+   B=35 (18 + 17 rows) gives one process's d_loss1-4 and similar_loss
+   within rel 1e-3 and its g_loss within rel 1e-3 unless a generator
+   forward's kNN graphs (D noise or G noise) differ from one process's at
+   a near-tie, with ``PER_STEP`` launches on each rank.
+
 Last, it prints the ``{"kernels": [...]}`` line (``launches`` summed over
-the sample, train, test, data, point-ops, bf16 sample, bf16 test and bf16
-train runs, ``launches_by_path`` each), then the ``{"ok": ...}`` line.
+the sample, train, test, data, point-ops, bf16 sample, bf16 test, bf16
+train and data-parallel runs, ``launches_by_path`` each), then the
+``{"ok": ...}`` line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -3311,6 +3331,356 @@ def time_knn(inputs, dev) -> dict:
     return res
 
 
+# ------------------------------------------ the data-parallel slice: phase 3m
+PAR_STEPS = 3            # train steps of the world-size-1 group and its twin
+PAR_CLOUDS = 70          # generate() and the pairwise rows over two ranks
+PAR_TILE = 32            # 3 row tiles of 70 clouds: 2 on rank 0, 1 on rank 1
+PAR_TIMEOUT_S = 600      # the two ranks' deadline (and each collective's)
+# a graph that differs from one process's at a near-tie: at each slot
+# where a row differs, the two neighbours' squared distances within this
+# relative gap
+NEAR_TIE = 1e-4
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+class _Collectives:
+    """Counts ``torch.distributed.all_reduce`` and ``broadcast`` calls and
+    their bytes while active (the port calls them through the module)."""
+
+    NAMES = ("all_reduce", "broadcast")
+
+    def __enter__(self):
+        import collections
+
+        import torch.distributed as dist
+
+        self.dist, self.saved = dist, {n: getattr(dist, n) for n in self.NAMES}
+        self.calls, self.bytes = collections.Counter(), collections.Counter()
+        for name, fn in self.saved.items():
+            def counted(t, *args, _fn=fn, _name=name, **kwargs):
+                self.calls[_name] += 1
+                self.bytes[_name] += t.numel() * t.element_size()
+                return _fn(t, *args, **kwargs)
+            setattr(dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+
+def _trainer_run(root: str, tag: str, mesh) -> dict:
+    """``PDGNTrainer.train`` for PAR_STEPS steps at full width, B=35, then
+    ``PDGNTrainer.test``, on ``mesh`` (None: no group): each step's six
+    metrics, launches, collectives, step seconds and the test results."""
+    import numpy as np
+    import torch
+    import pdgn_tpu_torch.train.trainer as trainer_mod
+    from pdgn_tpu_torch.ops.kernels import _lib
+    from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
+
+    work = os.path.join(root, "pdgn_tpu_torch", "_build", f"smoke_m_{tag}")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = ExperimentConfig(batch_size=TRAIN_B, max_epoch=1,
+                           max_steps_per_epoch=PAR_STEPS,
+                           synthetic_size=TRAIN_B * PAR_STEPS,
+                           checkpoint_dir=work, model_dir="smoke",
+                           save_dir=work, device="cuda")
+    trainer = PDGNTrainer(cfg, mesh)
+    trainer.build_model(seed=SEED)
+    metrics, step_fn = [], trainer_mod.train_step
+
+    def recorded(*args, **kwargs):
+        m = step_fn(*args, **kwargs)
+        metrics.append(torch.stack(list(m.values())).cpu())
+        return m
+
+    np.random.seed(SEED)
+    _lib.LAUNCHES.clear()
+    trainer_mod.train_step = recorded
+    try:
+        with _Collectives() as col:
+            trainer.train(seed=SEED)
+    finally:
+        trainer_mod.train_step = step_fn
+    torch.cuda.synchronize()
+    launches = dict(_lib.LAUNCHES)
+    _lib.LAUNCHES.clear()
+    results = trainer.test(tile=TEST_TILE)
+    torch.cuda.synchronize()
+    test_launches = dict(_lib.LAUNCHES)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"metrics": torch.stack(metrics), "launches": launches,
+            "test_launches": test_launches, "results": results,
+            "step_seconds": list(trainer.step_seconds),
+            "calls": dict(col.calls), "bytes": dict(col.bytes)}
+
+
+def _two_rank_inputs():
+    """The global batch of phase 3m's two-rank step: 35 clouds per
+    resolution from numpy, the D and G noise from a seeded card
+    generator (CPU tensors, to hand to the ranks)."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(SEED)
+    reals = [torch.from_numpy((rs.randn(TRAIN_B, 2048 >> s, 3) * 0.5)
+                              .astype(np.float32)) for s in (3, 2, 1, 0)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    noise = [0.2 * torch.randn(TRAIN_B, 128, generator=gen, device="cuda")
+             for _ in range(2)]
+    return reals, [z.cpu() for z in noise]
+
+
+def _rank_work(mesh, reals, noise, device) -> dict:
+    """What phase 3m compares between two ranks and one process: the
+    generator's clouds, its graphs of both noises (and, for one process,
+    the features they are built on), the pairwise rows and one train step
+    (``mesh`` None: one process on the whole batch)."""
+    import torch
+    from pdgn_tpu_torch.eval.metrics import pairwise_cd_emd
+    from pdgn_tpu_torch.ops.kernels import _lib
+    from pdgn_tpu_torch.train.generate import generate
+    from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
+    from pdgn_tpu_torch.train.train_step import train_step
+
+    trainer = PDGNTrainer(ExperimentConfig(batch_size=TRAIN_B,
+                                           device="cuda"), mesh)
+    trainer.build_model(seed=SEED)
+    G = trainer.state.generator
+    clouds = generate(PAR_CLOUDS, TRAIN_B, SEED, device=device, model=G,
+                      mesh=mesh)
+    cd, emd = pairwise_cd_emd(clouds, clouds[::-1].copy(), tile=PAR_TILE,
+                              mesh=mesh, device=device)
+    rows = slice(0, TRAIN_B) if mesh is None else mesh.rows(TRAIN_B)
+    noise = [z.to(device) for z in noise]
+    G.eval()
+    graphs = []
+    with torch.no_grad(), _graph_inputs() as inputs:
+        for z in noise:
+            graphs.append([g.cpu() for g in G(z[rows], return_graphs=True,
+                                              batch=TRAIN_B)[1]])
+    G.train()
+    _lib.LAUNCHES.clear()
+    m = train_step(trainer.state, [r[rows].to(device) for r in reals],
+                   *noise, trainer.tcfg)
+    m = torch.stack(list(m.values())).cpu()
+    torch.cuda.synchronize()
+    return {"clouds": clouds, "cd": cd, "emd": emd, "metrics": m,
+            "graphs": graphs,
+            "graph_inputs": ([inputs[:4], inputs[4:]] if mesh is None
+                             else None),
+            "launches": dict(_lib.LAUNCHES)}
+
+
+@contextlib.contextmanager
+def _graph_inputs():
+    """The features each stage head builds its kNN graph on (``[xs | x]``,
+    as ``head_operands`` concatenates them), on the CPU, for the forwards
+    run inside."""
+    import torch
+    import pdgn_tpu_torch.models.generator as generator
+
+    found, head = [], generator.edge_conv_head
+
+    def recorded(x, *args, xs=None, **kwargs):
+        knn_in = x if xs is None else torch.cat(
+            [xs[:, None, :].expand(*x.shape[:2], xs.shape[-1]), x], dim=-1)
+        found.append(knn_in.float().cpu())
+        return head(x, *args, xs=xs, **kwargs)
+
+    generator.edge_conv_head = recorded
+    try:
+        yield found
+    finally:
+        generator.edge_conv_head = head
+
+
+def near_tie(graphs, want, inputs, rows_max: int = 4096):
+    """``(stage, rows, gap)`` at the first stage whose graph ``graphs``
+    differs from ``want``: the rows that differ and, over them (at most
+    ``rows_max``), the largest relative difference between the squared
+    distances of the two graphs' neighbours at a slot where they differ, in
+    float64 on ``want``'s own features ``inputs``: two neighbours swapped in
+    order, or one traded for another at the set's edge, differ by a
+    near-tie's gap. None when every stage agrees."""
+    import torch
+
+    for stage, (a, b) in enumerate(zip(graphs, want)):
+        differ = (a != b).any(dim=-1)
+        if differ.any():
+            break
+    else:
+        return None
+    bi, ni = differ.nonzero(as_tuple=True)
+    bi, ni = bi[:rows_max], ni[:rows_max]
+    x = inputs[stage].double()
+    q = x[bi, ni][:, None, :]
+
+    def sqdist(idx):
+        return ((x[bi[:, None], idx[bi, ni]] - q) ** 2).sum(-1)
+
+    da, db = sqdist(a), sqdist(b)
+    slots = a[bi, ni] != b[bi, ni]
+    gap = ((da - db).abs() / db)[slots].max()
+    return stage + 1, int(differ.sum()), float(gap)
+
+
+def _rank_main(rank: int, world: int, port: int, out_dir: str, reals,
+               noise) -> None:
+    """One of phase 3m's two ranks on the one card (gloo: NCCL takes one
+    rank a card)."""
+    import torch
+    import torch.distributed as dist
+    from pdgn_tpu_torch.parallel import initialize_distributed, make_mesh
+    from pdgn_tpu_torch.utils.misc import resolve_device
+
+    initialize_distributed(f"localhost:{port}", world, rank, device="cuda",
+                           backend="gloo", timeout_s=PAR_TIMEOUT_S)
+    try:
+        mesh = make_mesh("cuda:0")
+        out = _rank_work(mesh, reals, noise, resolve_device(mesh.device))
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_two(out_dir: str, reals, noise) -> list:
+    """Run :func:`_rank_main` on two processes; kill both and fail past
+    PAR_TIMEOUT_S."""
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.spawn(_rank_main, args=(2, _free_port(), out_dir, reals, noise),
+                   nprocs=2, join=False)
+    deadline = time.perf_counter() + PAR_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            require(time.perf_counter() < deadline,
+                    f"the two ranks did not end in {PAR_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(2)]
+
+
+def parallel_path(root: str, smi: str, dev) -> dict:
+    """Phase 3m: the data-parallel path. (1) an NCCL group of one rank
+    drives ``PDGNTrainer.train`` (3 steps, full width, B=35) and the test
+    phase, and must give the no-group run's bits and launches; (2) two
+    ranks on the one card (gloo) must give one process's ``generate()``
+    clouds and pairwise rows exactly and its first step's metrics within
+    rel 1e-3, g_loss's larger gap traced to a kNN near-tie of either
+    generator forward; (3) the collectives a step and the step times with
+    and without the group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pdgn_tpu_torch.parallel import (initialize_distributed, make_mesh,
+                                         shard_rows)
+    from pdgn_tpu_torch.train.train_step import METRICS
+
+    alone = _trainer_run(root, "alone", None)
+    initialize_distributed(f"localhost:{_free_port()}", 1, 0, device="cuda")
+    try:
+        require(dist.get_backend() == "nccl", "the card's group is not NCCL")
+        group = _trainer_run(root, "group", make_mesh("cuda:0"))
+    finally:
+        dist.destroy_process_group()
+    require(torch.equal(group["metrics"], alone["metrics"]),
+            f"the group's step metrics differ from the no-group run's: "
+            f"{group['metrics']} != {alone['metrics']}")
+    require(group["results"] == alone["results"],
+            f"test results {group['results']} != {alone['results']}")
+    want = {k: v * PAR_STEPS for k, v in PER_STEP.items()}
+    for run in (alone, group):
+        require(run["launches"] == want,
+                f"launches {run['launches']} != {want}")
+    require(group["test_launches"] == alone["test_launches"],
+            f"test launches {group['test_launches']} != "
+            f"{alone['test_launches']}")
+    require(not alone["calls"], f"collectives without a group: "
+            f"{alone['calls']}")
+    per_step = {k: v / PAR_STEPS for k, v in group["calls"].items()}
+    bytes_step = {k: v / PAR_STEPS for k, v in group["bytes"].items()}
+    step_s = {"group": group["step_seconds"], "alone": alone["step_seconds"]}
+    line = {"card": smi, "collectives_per_step": per_step,
+            "collective_bytes_per_step": bytes_step,
+            "step_seconds_w1_group": step_s["group"],
+            "step_seconds_no_group": step_s["alone"]}
+    log(f"  W=1 NCCL group: {PAR_STEPS} steps and the test phase equal the "
+        f"no-group run bit for bit; launches {group['launches']}")
+    print(json.dumps(line), flush=True)
+
+    reals, noise = _two_rank_inputs()
+    out_dir = os.path.join(root, "pdgn_tpu_torch", "_build", "smoke_ranks")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    try:
+        ranks = _spawn_two(out_dir, reals, noise)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    two_s = time.perf_counter() - t0
+    one = _rank_work(None, reals, noise, dev)
+    for r, out in enumerate(ranks):
+        require(out["launches"] == PER_STEP,
+                f"rank {r} launches {out['launches']} != {PER_STEP}")
+        require(np.array_equal(out["clouds"], one["clouds"]),
+                f"rank {r}: generate() clouds differ from one process's")
+        require(np.array_equal(out["cd"], one["cd"])
+                and np.array_equal(out["emd"], one["emd"]),
+                f"rank {r}: pairwise rows differ from one process's")
+    require(torch.equal(ranks[0]["metrics"], ranks[1]["metrics"]),
+            "the two ranks' metrics differ")
+    gaps = dict(zip(METRICS, ((ranks[0]["metrics"] - one["metrics"]).abs()
+                              / one["metrics"].abs()).tolist()))
+    gap = max(gaps.values())
+    flips, ties = [], []
+    for f in range(2):                  # the D noise, the G noise
+        two_graphs = [torch.cat([a, b]) for a, b in
+                      zip(ranks[0]["graphs"][f], ranks[1]["graphs"][f])]
+        flips.append(sum(int((a != c).sum()) for a, c in
+                         zip(two_graphs, one["graphs"][f])))
+        ties.append(near_tie(two_graphs, one["graphs"][f],
+                             one["graph_inputs"][f]))
+    shards = [len(range(TRAIN_B)[shard_rows(TRAIN_B, r, 2)]) for r in (0, 1)]
+    log(f"  two ranks ({shards[0]} + {shards[1]} rows, gloo, one card): "
+        f"generate() and "
+        f"{PAR_CLOUDS}x{PAR_CLOUDS} pairwise rows equal one process's; "
+        f"first-step metrics rel gaps "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + f"; graph entries that differ from one process's (D noise, G "
+        f"noise): {flips}; first differing stage, rows and the largest "
+        f"distance gap of a differing slot: {ties}; {two_s:.1f} s")
+    held = {k: v for k, v in gaps.items() if k != "g_loss"}
+    require(max(held.values()) <= 1e-3,
+            f"two-rank metrics off one process's beyond rel 1e-3: {held}")
+    tied = any(t is not None and t[2] <= NEAR_TIE for t in ties)
+    require(gaps["g_loss"] <= 1e-3 or tied,
+            f"two-rank g_loss {gaps['g_loss']:.3e} off one process's, "
+            f"graphs {ties}")
+    return {"launches": {k: group["launches"].get(k, 0)
+                         + group["test_launches"].get(k, 0)
+                         for k in set(group["launches"])
+                         | set(group["test_launches"])},
+            "w1": line, "two_rank_metric_gap": gap,
+            "two_rank_metric_gaps": gaps, "two_rank_flips": flips,
+            "two_rank_near_ties": ties,
+            "two_rank_metrics": ranks[0]["metrics"].tolist(),
+            "one_metrics": one["metrics"].tolist(), "two_rank_s": two_s}
+
+
 KERNELS = {
     "edge_head": ("pdgn_tpu_torch/csrc/edge_head.cu",
                   "pdgn_tpu/ops/pallas/edge_head.py:74"),
@@ -3367,6 +3737,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None,
                     help="also write the full results to this JSON file")
+    ap.add_argument("--parallel-alone", action="store_true",
+                    help="build the kernels and run phase 3m alone")
     ap.add_argument("--train-alone", action="store_true",
                     help="build the kernels, run phase 3t alone and print "
                     "its steps/s; copied into another checkout's root, it "
@@ -3400,6 +3772,11 @@ def main(argv=None) -> int:
     _lib.library()
     build_s = time.perf_counter() - t0
     log(f"kernels built and loaded in {build_s:.1f} s")
+    if args.parallel_alone:
+        par = parallel_path(root, smi, dev)
+        par.pop("launches")
+        print(json.dumps({"card": smi, "parallel": par}))
+        return 0
     if args.train_alone:
         ckpt_root = os.path.join(root, "pdgn_tpu_torch", "_build",
                                  "smoke_train_alone")
@@ -3487,6 +3864,9 @@ def main(argv=None) -> int:
         f"{PO_B} generated clouds")
     point_ops = point_ops_path(model, gen, dev)
     del model
+    phase("phase 3m: data-parallel path, an NCCL group of one rank through "
+          "PDGNTrainer.train and test, two ranks on the card over gloo")
+    par = parallel_path(root, smi, dev)
     po_inputs = point_ops.pop("inputs")
     for name, e in point_ops.pop("max_abs_err").items():
         errs[name] = max(errs[name], e)
@@ -3520,7 +3900,8 @@ def main(argv=None) -> int:
                    "point_ops": point_ops["launches"].get(name, 0),
                    "sample_bf16": path_bf16["launches"].get(name, 0),
                    "test_bf16": test_bf16["launches"].get(name, 0),
-                   "train_bf16": train_bf16["launches"].get(name, 0)}
+                   "train_bf16": train_bf16["launches"].get(name, 0),
+                   "parallel": par["launches"].get(name, 0)}
         require(sum(by_path.values()) > 0, f"{name} never launched")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -3550,7 +3931,7 @@ def main(argv=None) -> int:
                        "train": train, "test": test, "data": data,
                        "point_ops": point_ops, "path_bf16": path_bf16,
                        "test_bf16": test_bf16, "train_bf16": train_bf16,
-                       "bwd_bits": bwd_bits}, f, indent=1)
+                       "parallel": par, "bwd_bits": bwd_bits}, f, indent=1)
     print(json.dumps({"card": smi,
                       "clouds_per_s_b128": path["clouds_per_s"],
                       "train_steps_per_s_b35": train["steps_per_s"],
@@ -3568,6 +3949,9 @@ def main(argv=None) -> int:
                       "bf16_chamfer_share": path_bf16["chamfer_share"],
                       "bf16_train_steps_per_s_b35":
                           train_bf16["steps_per_s"],
+                      "w1_collectives_per_step":
+                          par["w1"]["collectives_per_step"],
+                      "two_rank_metric_gap": par["two_rank_metric_gap"],
                       "smoke_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

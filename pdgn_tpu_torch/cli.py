@@ -30,6 +30,19 @@ fp32 parameters, BN statistics, optimizer state and clouds.
 ``--d_compute_dtype bfloat16`` computes the discriminators' conv stacks in
 bf16 too; they stay fp32 by default, as in the JAX package, whose bf16
 discriminators collapsed LSGAN training on the TPU.
+
+Data parallelism, one process per device, as the JAX CLI's mesh over every
+device::
+
+    torchrun --nproc_per_node=W -m pdgn_tpu_torch --phase train ...
+
+``torchrun`` sets ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``; each rank
+joins the group (NCCL on the card, gloo with ``--device cpu``) and runs on
+``cuda:LOCAL_RANK``. ``--batch_size`` is the global batch, split over the
+ranks by rows (uneven shards allowed, at least one row a rank), with global
+batch-norm statistics; the test and sample phases hand whole batches to the
+ranks in turn; rank 0 writes the bundles, logs and outputs. A run that
+``torchrun`` did not start makes no group: the one-process run.
 """
 
 from __future__ import annotations
@@ -134,16 +147,30 @@ def check_args(args: argparse.Namespace) -> argparse.Namespace:
     return args
 
 
-def _trainer(args: argparse.Namespace):
+def _mesh(args: argparse.Namespace):
+    """The data axis when ``torchrun`` started this process, else None. A
+    failed initialisation raises."""
+    import torch.distributed as dist
+
+    from pdgn_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed(device=args.device)
+    return make_mesh(args.device) if dist.is_initialized() else None
+
+
+def _trainer(args: argparse.Namespace, mesh=None):
     """The trainer of the train and test phases, with the run's random
     seed drawn and set as the reference (main.py:79-82) and the JAX CLI
-    do; the trainer draws its weights' and noise's seeds from numpy's
-    stream, and the test phase re-seeds from ``--seed``."""
+    do (rank 0's on every rank of a group); the trainer draws its weights'
+    and noise's seeds from numpy's stream, and the test phase re-seeds from
+    ``--seed``."""
     import numpy as np
 
     from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
 
     manual_seed = random.randint(1, 10000)
+    if mesh is not None:
+        manual_seed = mesh.broadcast_int(manual_seed)
     print("Random Seed: ", manual_seed)
     random.seed(manual_seed)
     np.random.seed(manual_seed)
@@ -163,7 +190,7 @@ def _trainer(args: argparse.Namespace):
         seed=args.seed, save_dir=args.save_dir, device=args.device,
         profile_dir=args.profile_dir, compute_dtype=args.compute_dtype,
         d_compute_dtype=args.d_compute_dtype)
-    trainer = PDGNTrainer(cfg)
+    trainer = PDGNTrainer(cfg, mesh)
     trainer.build_model()
     return trainer
 
@@ -185,17 +212,32 @@ def _copy_sources(args: argparse.Namespace) -> None:
 
 def main(argv=None):
     """Runs one phase; returns the trainer of a train or test phase (its
-    step times and metrics), else None."""
+    step times and metrics), else None. A process group this call makes
+    (from ``torchrun``'s environment) is destroyed when it returns."""
+    import torch.distributed as dist
+
     args = parse_args(argv)
+    owned = not dist.is_initialized()
+    mesh = None
+    try:
+        mesh = _mesh(args)
+        return _run(args, mesh)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args: argparse.Namespace, mesh):
     print(f'****************network: {args.network}****************')
     if args.phase == 'train':
-        trainer = _trainer(args)
-        _copy_sources(args)
+        trainer = _trainer(args, mesh)
+        if mesh is None or mesh.rank == 0:
+            _copy_sources(args)
         trainer.train()
         print(" [*] Training finished!")
         return trainer
     if args.phase == 'test':
-        trainer = _trainer(args)
+        trainer = _trainer(args, mesh)
         trainer.test()
         print(" [*] Test finished!")
         return trainer
@@ -225,7 +267,7 @@ def main(argv=None):
                       num_point=args.num_point, num_k=args.num_k,
                       base_points=args.base_points, pretrain_model_G=ckpt,
                       softmax=softmax, noise_dim=args.noise_dim,
-                      dtype=generator_dtype(args.compute_dtype))
+                      dtype=generator_dtype(args.compute_dtype), mesh=mesh)
     print(f" [*] Wrote {clouds.shape} to {out}")
     print(" [*] Sampling finished!")
 

@@ -202,10 +202,16 @@ def _prefetch(iterator, size: int, device: torch.device):
 
 
 def train_loader(dataset, batch_size: int, seed: Optional[int] = None,
-                 device="cuda", prefetch: int = 2):
+                 device="cuda", prefetch: int = 2,
+                 rows: Optional[slice] = None):
     """One epoch of 4-resolution batches on ``device``, shuffled (by
     ``RandomState(seed)`` or numpy's global stream), the trailing partial
-    batch dropped."""
+    batch dropped. ``rows`` (a data-parallel rank's rows,
+    ``Mesh.rows(batch_size)``) keeps those rows of each global batch: the
+    whole batch is still drawn on the host, so every rank's shuffle and
+    draws follow the one-process run's, and only the rows are copied."""
     it = batch_iterator(dataset, batch_size, shuffle=True, drop_last=True,
                         seed=seed)
+    if rows is not None:
+        it = (tuple(x[rows] for x in batch) for batch in it)
     return prefetch_to_device(it, size=prefetch, device=device)

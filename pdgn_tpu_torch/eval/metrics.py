@@ -67,15 +67,17 @@ def pairwise_cd_emd(sample_pcs, ref_pcs, tile: int = 8,
     would only add pairs to cut away. ``symmetric=True`` (a set against
     itself) computes the upper triangle of tiles and mirrors it: CD is
     exactly symmetric, approxmatch EMD only to ~0.1%, so it is an opt-in
-    speed-up. EMD is zeros when ``with_emd=False``. ``mesh`` (the
-    multi-device path) is not ported and raises.
+    speed-up. EMD is zeros when ``with_emd=False``.
+
+    ``mesh`` (a :class:`~pdgn_tpu_torch.parallel.mesh.Mesh`, on every rank
+    of its group with the same clouds) distributes the rows of tiles: rank
+    r computes tile rows r, r + W, ... on ``mesh.device``, and one sum over
+    the ranks of the zero-filled matrices gives every rank all of them,
+    equal to one process's.
     """
-    if mesh is not None:
-        raise NotImplementedError("pairwise_cd_emd: multi-device evaluation "
-                                  "(mesh) is not ported to pdgn_tpu_torch")
     if tile < 1:
         raise ValueError(f"tile must be >= 1, got {tile}")
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
     sp = _as_device(sample_pcs, dev)
     rp = _as_device(ref_pcs, dev)
     Ns, N = sp.shape[0], sp.shape[1]
@@ -87,6 +89,8 @@ def pairwise_cd_emd(sample_pcs, ref_pcs, tile: int = 8,
     # queued, on the oldest of them (no synchronisation per tile)
     pending = collections.deque()
     for i in range(n_row):
+        if mesh is not None and i % mesh.world != mesh.rank:
+            continue
         srow = sp[i * tile:(i + 1) * tile]
         for j in range(n_col):
             if symmetric and j < i:
@@ -108,6 +112,8 @@ def pairwise_cd_emd(sample_pcs, ref_pcs, tile: int = 8,
                     pending.popleft().synchronize()
         if verbose:
             print(f"pairwise tile row {i + 1}/{n_row}", flush=True)
+    if mesh is not None:
+        cd, emd = mesh.sum_tensors([cd, emd])
     cd = cd.cpu().numpy()
     emd = emd.cpu().numpy()
     if symmetric:
@@ -203,6 +209,8 @@ def compute_all_metrics(sample_pcs, ref_pcs,
     ``fast_symmetric`` mirrors the within-set matrices from one triangle
     (perturbs 1-NNA by ~0.1%: EMD is not exactly symmetric).
     ``with_emd=False`` skips the EMD family; its CD is the plain path's.
+    ``mesh`` distributes each matrix's rows (:func:`pairwise_cd_emd`); the
+    reductions then run on every rank.
     """
     results: Dict[str, float] = {}
     kw = dict(tile=tile, verbose=verbose, with_emd=with_emd, mesh=mesh,

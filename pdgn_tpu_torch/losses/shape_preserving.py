@@ -6,7 +6,9 @@ For each pair of generated resolutions, both clouds' k-neighbourhoods around
 the coarser cloud's points are reduced to their mean and covariance
 (:func:`~pdgn_tpu_torch.ops.kernels.local_stats.local_mean_cov`, one CUDA
 kernel each way on the card), and the Chamfer distances between the two
-statistic sets, over the coarse point count, are the loss terms.
+statistic sets, over the coarse point count, are the loss terms. They
+sum over the clouds (no mean), so on a data-parallel rank the terms of its
+rows are its share of the global batch's, as they are.
 """
 
 from __future__ import annotations

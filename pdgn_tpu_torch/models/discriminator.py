@@ -21,8 +21,12 @@ discriminators in fp32 even under ``--compute_dtype bfloat16``: bf16
 discriminators collapsed LSGAN training on the TPU
 (pdgn_tpu/train/trainer.py:152-158).
 
-Padded-batch masks and the paired real|fake mode of the JAX module are not
-ported: the train step runs D(real) and D(fake) as two calls, the same math.
+``group`` (a ``torch.distributed`` process group) is the JAX module's
+``axis_name``: each conv layer's batch norm then takes the global batch's
+statistics over the ranks (both definitions of the bf16 stack's included),
+``None`` each rank's own. A rank holds only real rows, so the JAX module's
+padded-batch masks are not needed; its paired real|fake mode is not ported:
+the train step runs D(real) and D(fake) as two calls, the same math.
 """
 
 from __future__ import annotations
@@ -34,14 +38,16 @@ from torch import nn
 
 from pdgn_tpu_torch.models.layers import (MLP, BatchNorm, TorchDense,
                                           dense_br, dense_br_pool)
+from pdgn_tpu_torch.parallel.sync_bn import set_group
 
 
 class PointDiscriminator(nn.Module):
-    """``(B, N, 3)`` clouds -> ``(B, 1)`` logits."""
+    """``(B, N, 3)`` clouds -> ``(B, 1)`` logits; ``group`` as the module
+    docstring says."""
 
     def __init__(self, conv_features: Sequence[int],
                  head_features: Sequence[int], in_features: int = 3,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, group=None):
         super().__init__()
         self.dtype = dtype
         layers = []
@@ -52,6 +58,8 @@ class PointDiscriminator(nn.Module):
             fin = f
         self.fc1 = nn.Sequential(*layers)
         self.mlp = MLP(fin, head_features, trailing=())
+        self.axis = None
+        set_group(self, group)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Re-draw every parameter (torch default init) from ``generator``."""
@@ -59,7 +67,12 @@ class PointDiscriminator(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                batch: Optional[int] = None) -> torch.Tensor:
+        """Under a group ``x`` holds this rank's rows of a ``batch``-row
+        global batch."""
+        if self.axis is not None:
+            self.axis.begin(x.shape[0], batch)
         blocks = [(self.fc1[i], self.fc1[i + 1])
                   for i in range(0, len(self.fc1), 3)]
         for dense, bn in blocks[:-1]:
@@ -67,25 +80,28 @@ class PointDiscriminator(nn.Module):
         return self.mlp(dense_br_pool(*blocks[-1], x))
 
 
-def PointDiscriminator1(dtype=None) -> PointDiscriminator:
+def PointDiscriminator1(dtype=None, group=None) -> PointDiscriminator:
     """256-point discriminator."""
-    return PointDiscriminator((64, 128, 256), (128, 64, 1), dtype=dtype)
+    return PointDiscriminator((64, 128, 256), (128, 64, 1), dtype=dtype,
+                              group=group)
 
 
-def PointDiscriminator2(dtype=None) -> PointDiscriminator:
+def PointDiscriminator2(dtype=None, group=None) -> PointDiscriminator:
     """512-point discriminator."""
-    return PointDiscriminator((64, 128, 256, 512), (256, 64, 1), dtype=dtype)
+    return PointDiscriminator((64, 128, 256, 512), (256, 64, 1), dtype=dtype,
+                              group=group)
 
 
-def PointDiscriminator3(dtype=None) -> PointDiscriminator:
+def PointDiscriminator3(dtype=None, group=None) -> PointDiscriminator:
     """1024-point discriminator."""
-    return PointDiscriminator((64, 128, 256, 512), (256, 64, 1), dtype=dtype)
+    return PointDiscriminator((64, 128, 256, 512), (256, 64, 1), dtype=dtype,
+                              group=group)
 
 
-def PointDiscriminator4(dtype=None) -> PointDiscriminator:
+def PointDiscriminator4(dtype=None, group=None) -> PointDiscriminator:
     """2048-point discriminator."""
     return PointDiscriminator((64, 128, 256, 1024), (512, 256, 64, 1),
-                              dtype=dtype)
+                              dtype=dtype, group=group)
 
 
 def discriminators(dtype=None):

@@ -25,8 +25,14 @@ come out fp32. It serves every phase: the kernels' bf16 instances have
 backward instances too (the head's and both tails'), and slot stats'
 backward runs on the fp32 upcast.
 
-Left out against the JAX module: the padded-batch mask branches and sync
-BN (``axis_name``). v2 always applies softmax.
+``group`` (a ``torch.distributed`` process group) is the JAX module's
+``axis_name``: every batch norm then normalises with the statistics of the
+global batch whose rows the group's ranks hold, uneven shards included
+(``parallel.sync_bn``: the kernels' moment sums, ``bn_all1``'s and slot
+stats' sums and each ``BatchNorm``'s are summed over the ranks with their
+counts before they divide). ``group=None`` keeps each rank's own
+statistics. A rank holds only real rows, so the JAX module's padded-batch
+mask branches are not needed. v2 always applies softmax.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from pdgn_tpu_torch.ops.grouping import grouping
 from pdgn_tpu_torch.ops.kernels.bilateral_tail import edge_conv_tail
 from pdgn_tpu_torch.ops.kernels.edge_head import edge_conv_head
 from pdgn_tpu_torch.ops.kernels.slot_stats import slot_moment_stats
+from pdgn_tpu_torch.parallel.sync_bn import global_moments, set_group
 
 _EPS = 1e-5
 
@@ -144,13 +151,15 @@ class UpsampleEdgeConv(nn.Module):
         self.register_buffer(
             "perm", torch.tensor(_block_channel_perm(4 * fin)),
             persistent=False)
+        self.axis = None    # parallel.sync_bn.DataAxis: global statistics
 
     def forward(self, x: torch.Tensor):
         conv_kernel, conv_bias = _window_kernel(self.inte_conv_hk[0],
                                                 self.perm)
         merge_kernel = self.conv2.merge_kernel()
         idx, inte_raw, partial, (i_mean, i_var) = edge_conv_head(
-            x, conv_kernel, conv_bias, merge_kernel, self.k)[:4]
+            x, conv_kernel, conv_bias, merge_kernel, self.k,
+            axis=self.axis)[:4]
         i_stats = self.inte_conv_hk[1].fold(i_mean, i_var, self.perm)
         y = edge_conv_tail(partial, inte_raw, None, i_stats, None, None,
                            merge_kernel, self.conv2.conv.bias, self.k)
@@ -182,6 +191,7 @@ class BilateralUpsampleEdgeConv(nn.Module):
         self.register_buffer(
             "perm", torch.tensor(_block_channel_perm(4 * fin)),
             persistent=False)
+        self.axis = None    # parallel.sync_bn.DataAxis: global statistics
 
     def forward(self, x: torch.Tensor, pc: torch.Tensor,
                 xs: Optional[torch.Tensor] = None):
@@ -213,7 +223,7 @@ class BilateralUpsampleEdgeConv(nn.Module):
 
         (idx, inte_raw, partial, (i_mean, i_var), wfea, wxyz, fea_stats,
          xyz_stats) = edge_conv_head(x, conv_kernel, conv_bias, merge_kernel,
-                                     k, pcat, ppoint, xs=xs)
+                                     k, pcat, ppoint, xs=xs, axis=self.axis)
         i_stats = self.inte_conv_hk[1].fold(i_mean, i_var, self.perm)
 
         fm, fv = fea_stats
@@ -232,12 +242,14 @@ class BilateralUpsampleEdgeConv(nn.Module):
         h_pre = cast(dt, matmul_f32(w_flat.reshape(B, N, k, 16),
                                     cast(dt, c1.kernel))
                      + c1.bias).reshape(B, N, k * 64)
-        cnt = float(B * N * k)
         hf = upcast(h_pre)
         hs = hf.sum(dim=(0, 1)).reshape(k, 64)
         hq = (hf * hf).sum(dim=(0, 1)).reshape(k, 64)
-        m1 = hs.sum(dim=0) / cnt
-        v1 = hq.sum(dim=0) / cnt - m1 * m1
+        (hs, hq), cnt = global_moments(
+            self.axis, (hs.sum(dim=0), hq.sum(dim=0)), B * N * k)
+        cnt = float(cnt)
+        m1 = hs / cnt
+        v1 = hq / cnt - m1 * m1
         _, _, sc1, bi1 = self.conv_all[1].fold(m1, v1)
         s1 = sc1 * torch.rsqrt(v1 + _EPS)
         h = cast(dt, leaky_relu(hf * s1.repeat(k) + (bi1 - m1 * s1).repeat(k)))
@@ -246,8 +258,9 @@ class BilateralUpsampleEdgeConv(nn.Module):
         # linear identity: E[y] = m.W + b, E[y^2] = W^T S W + 2b(m.W) + b^2
         c2 = self.conv_all[3]
         kf, bf = c2.kernel, c2.bias
-        s_vec, s_mat = slot_moment_stats(h, k)
-        rows = float(B * N * k)
+        (s_vec, s_mat), rows = global_moments(
+            self.axis, slot_moment_stats(h, k), B * N * k)
+        rows = float(rows)
         m_x = s_vec / rows
         s_mat = s_mat / rows
         mk = torch.matmul(m_x, kf)
@@ -346,12 +359,13 @@ class PointGenerator(nn.Module):
     """128-d noise -> four point clouds (reference ``PointGenerator``,
     models/PDGNet_v2.py:820-877). ``base_points`` < 128 shrinks every stage
     proportionally (small test configurations); it must exceed
-    ``num_k // 2``. ``dtype``: ``None`` (fp32) or ``torch.bfloat16`` (see
-    the module docstring)."""
+    ``num_k // 2``. ``dtype``: ``None`` (fp32) or ``torch.bfloat16``;
+    ``group``: a process group for global batch statistics, or ``None``
+    (see the module docstring)."""
 
     def __init__(self, num_point: int = 2048, num_k: int = 20,
                  softmax: bool = True, base_points: int = 128,
-                 noise_dim: int = 128, dtype=None):
+                 noise_dim: int = 128, dtype=None, group=None):
         super().__init__()
         self.num_point = num_point
         self.base_points = base_points
@@ -368,6 +382,8 @@ class PointGenerator(nn.Module):
                                          softmax=softmax, **dt)
         for i, cin in enumerate((512 + 32, 512 + 64, 512 + 128, 256 + 256)):
             self.add_module(f"mlp{i + 1}", PairMLP(cin, (256, 64, 3), **dt))
+        self.axis = None
+        set_group(self, group)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Re-draw every parameter (torch default init) from ``generator``."""
@@ -375,10 +391,15 @@ class PointGenerator(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
-    def forward(self, z: torch.Tensor, return_graphs: bool = False):
+    def forward(self, z: torch.Tensor, return_graphs: bool = False,
+                batch: Optional[int] = None):
         """``z (B, noise_dim)`` -> the four clouds ``(B, 2^i * base, 3)``;
-        with ``return_graphs`` also the four stages' kNN graphs."""
+        with ``return_graphs`` also the four stages' kNN graphs. Under a
+        group, ``z`` holds this rank's rows of a ``batch``-row global
+        batch."""
         B = z.shape[0]
+        if self.axis is not None:
+            self.axis.begin(B, batch)
         x = leaky_relu(self.fc1[1](self.fc1[0](z)))
         # torch view(B, 32, base) is (channel, point): to (B, N, C); the
         # compute dtype applies from the first block on

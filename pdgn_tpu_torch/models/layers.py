@@ -18,6 +18,11 @@ compute dtype: ``TorchDense`` computes as flax's ``Dense(dtype=...)``
 (operands and bias cast, the product rounded, then the bias added in that
 dtype), ``BatchNorm`` takes its statistics from the fp32 upcast and casts
 its output. Parameters and statistics stay fp32.
+
+Every batch-norm site has an ``axis`` (``None``, or the model's
+:class:`~pdgn_tpu_torch.parallel.sync_bn.DataAxis`, given by
+``parallel.set_group``): with one, the moment sums and row counts are the
+global batch's over the ranks (the JAX package's sharded-batch statistics).
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from pdgn_tpu_torch.parallel.sync_bn import (cross_replica_moments,
+                                             global_moments)
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,6 +164,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
+        self.axis = None    # parallel.sync_bn.DataAxis: global statistics
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         with torch.no_grad():
@@ -187,15 +196,10 @@ class BatchNorm(nn.Module):
             self.num_batches_tracked += 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        axes = tuple(range(x.dim() - 1))
-        n = 1
-        for a in axes:
-            n *= x.shape[a]
         x = upcast(x)
-        mean = torch.sum(x, dim=axes) / n
-        mean2 = torch.sum(x * x, dim=axes) / n
+        mean, var = cross_replica_moments(x, self.axis)
         # clamp at 0: the E[x^2] - E[x]^2 form can go slightly negative
-        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        var = torch.clamp(var, min=0.0)
         self.update_running(mean.detach(), var.detach())
         s = self.weight * torch.rsqrt(var + self.eps)
         return cast(self.dtype, x * s + (self.bias - mean * s))
@@ -266,16 +270,19 @@ class MLP(nn.Sequential):
 
 
 def linear_bn_stats(x: torch.Tensor, kernel: torch.Tensor,
-                    bias: torch.Tensor):
+                    bias: torch.Tensor, axis=None):
     """Batch mean and (biased) variance of ``y = x @ kernel + bias`` from
     the fp32 moments of ``x`` (port of ``linear_bn_stats``, pdgn_tpu/models/
     layers.py:304): ``E[y] = m.W + b``, ``E[y^2] = W^T S W + 2b(m.W) +
     b^2`` with ``S = E[x x^T]``. These are the statistics of the unrounded
-    product, whatever dtype ``y`` is stored in."""
+    product, whatever dtype ``y`` is stored in. With an ``axis`` the sums
+    of ``x`` and ``x^T x`` are the global batch's."""
     xf = upcast(x).reshape(-1, x.shape[-1])
-    rows = float(xf.shape[0])
-    m_x = xf.sum(dim=0) / rows
-    s_mat = torch.matmul(xf.T, xf) / rows
+    (s_vec, s_mat), rows = global_moments(
+        axis, (xf.sum(dim=0), torch.matmul(xf.T, xf)), xf.shape[0])
+    rows = float(rows)
+    m_x = s_vec / rows
+    s_mat = s_mat / rows
     mk = torch.matmul(m_x, kernel)
     mean = mk + bias
     ex2 = ((kernel * torch.matmul(s_mat, kernel)).sum(dim=0)
@@ -300,7 +307,7 @@ def dense_br(dense: TorchDense, bn: BatchNorm, x: torch.Tensor,
     if dense.dtype is None or x.shape[-1] > LINEAR_STATS_MAX_IN:
         return leaky_relu(bn(dense(x)), negative_slope)
     y = dense(x)
-    mean, var = linear_bn_stats(x, dense.kernel, dense.bias)
+    mean, var = linear_bn_stats(x, dense.kernel, dense.bias, bn.axis)
     bn.update_running(mean.detach(), var.detach())
     s = bn.weight * torch.rsqrt(var + bn.eps)
     y = cast(dense.dtype, upcast(y) * s + (bn.bias - mean * s))
@@ -323,8 +330,10 @@ def dense_br_pool(dense: TorchDense, bn: BatchNorm, x: torch.Tensor,
     n = 1
     for a in axes:
         n *= yf.shape[a]
-    mean = yf.sum(dim=axes) / n
-    var = torch.clamp((yf * yf).sum(dim=axes) / n - mean * mean, min=0.0)
+    (s1, s2), n = global_moments(
+        bn.axis, (yf.sum(dim=axes), (yf * yf).sum(dim=axes)), n)
+    mean = s1 / n
+    var = torch.clamp(s2 / n - mean * mean, min=0.0)
     bn.update_running(mean.detach(), var.detach())
     s = bn.weight * torch.rsqrt(var + bn.eps)
     t = bn.bias - mean * s

@@ -440,26 +440,27 @@ def tail(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi, bias,
     CUDA tensors launch the kernels, CPU tensors run the plain versions.
     ``inte`` float32 or bfloat16: ``h`` in its dtype, the rest float32 (a
     bf16 tail rounds ``w2k`` and ``wi`` inside and returns their gradients
-    in float32)."""
+    in float32). CPU operands may also be float64 (an arbiter's dtype)."""
     B, N, two_f = partial.shape
     hk = k // 2
     four_fin = inte_flat.shape[-1] // max(hk, 1)
     two_fin = four_fin // 2
-    dt = inte_flat.dtype
-    if dt not in (torch.float32, torch.bfloat16):
+    dt, wdt = inte_flat.dtype, torch.float32
+    if dt == torch.float64 and partial.device.type == "cpu":
+        wdt = dt
+    elif dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"inte: expected float32 or bfloat16, got {dt}")
-    f32 = torch.float32
-    checks = [("partial", partial, (B, N, two_f), f32),
+    checks = [("partial", partial, (B, N, two_f), wdt),
               ("inte", inte_flat, (B, N, hk * four_fin), dt),
-              ("isc", isc, (four_fin,), f32), ("ish", ish, (four_fin,), f32),
-              ("wi", wi, (hk * four_fin, two_f), f32),
-              ("bias", bias, (two_f,), f32)]
+              ("isc", isc, (four_fin,), wdt), ("ish", ish, (four_fin,), wdt),
+              ("wi", wi, (hk * four_fin, two_f), wdt),
+              ("bias", bias, (two_f,), wdt)]
     if h_flat is not None:
         hidden = h_flat.shape[-1] // k
         checks += [("h", h_flat, (B, N, k * hidden), dt),
-                   ("w2k", w2k, (hidden, two_fin), f32),
-                   ("w2b", w2b, (two_fin,), f32),
-                   ("s2", s2, (two_fin,), f32), ("t2", t2, (two_fin,), f32)]
+                   ("w2k", w2k, (hidden, two_fin), wdt),
+                   ("w2b", w2b, (two_fin,), wdt),
+                   ("s2", s2, (two_fin,), wdt), ("t2", t2, (two_fin,), wdt)]
     for name, t, shape, dtype in checks:
         if t.dtype != dtype:
             raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")

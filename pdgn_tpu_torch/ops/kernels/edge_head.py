@@ -537,22 +537,25 @@ def edge_head(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     three ``None`` for the plain stage). ``x`` float32 or bfloat16: ``x_knn``,
     ``pcat`` and ``ppoint`` in its dtype, the weights and ``pb_*`` float32
     (a bf16 head rounds its weights inside and returns their gradients in
-    float32).
+    float32). A CPU ``x`` may also be float64 (an arbiter's dtype), the
+    weights then float64 too.
     """
     B, N, C = x.shape
     cf = x_knn.shape[-1]
     four_fin = conv_a.shape[-1]
     two_f = a_merge.shape[-1]
-    dt, f32 = x.dtype, torch.float32
-    if dt not in (torch.float32, torch.bfloat16):
+    dt, wdt = x.dtype, torch.float32
+    if dt == torch.float64 and x.device.type == "cpu":
+        wdt = dt
+    elif dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x: expected float32 or bfloat16, got {dt}")
     checks = [("x", x, (B, N, C), dt), ("x_knn", x_knn, (B, N, cf), dt),
-              ("wn_flat", wn_flat, (window * C, four_fin), f32),
-              ("conv_a", conv_a, (C, four_fin), f32),
-              ("pb_point", pb_point, (B, four_fin), f32),
-              ("a_merge", a_merge, (C, two_f), f32),
-              ("wen", wen, (k * C, two_f), f32),
-              ("pb_merge", pb_merge, (B, two_f), f32)]
+              ("wn_flat", wn_flat, (window * C, four_fin), wdt),
+              ("conv_a", conv_a, (C, four_fin), wdt),
+              ("pb_point", pb_point, (B, four_fin), wdt),
+              ("a_merge", a_merge, (C, two_f), wdt),
+              ("wen", wen, (k * C, two_f), wdt),
+              ("pb_merge", pb_merge, (B, two_f), wdt)]
     if pcat is not None:
         checks += [("pcat", pcat, (B, N, PROJ), dt),
                    ("ppoint", ppoint, (B, N, PROJ), dt)]
@@ -625,10 +628,13 @@ def head_operands(x, conv_kernel, conv_bias, merge_kernel, k: int,
 
 
 def edge_conv_head(x, conv_kernel, conv_bias, merge_kernel, k: int,
-                   pcat=None, ppoint=None, *, xs=None):
+                   pcat=None, ppoint=None, *, xs=None, axis=None):
     """Fused stage head with the JAX entry's interface and returns:
     ``idx, inte, partial, (mean, var)`` and, gated, ``wfea, wxyz,
-    fea_stats, xyz_stats`` (``None``s for the plain stage)."""
+    fea_stats, xyz_stats`` (``None``s for the plain stage). With an
+    ``axis`` (``parallel.sync_bn.DataAxis``) the kernel's fp32 moment sums
+    are summed over the ranks, and the counts scaled to the global batch,
+    before they divide."""
     B, N, C = x.shape
     hk = k // 2
     if k % 2 or conv_kernel.shape[1] != hk + 1:
@@ -641,15 +647,20 @@ def edge_conv_head(x, conv_kernel, conv_bias, merge_kernel, k: int,
         pb_merge, None if pcat is None else pcat.contiguous(),
         None if ppoint is None else ppoint.contiguous(), k, window)
 
-    count = B * N * hk
-    mean = stats[0] / count
-    var = stats[1] / count - mean * mean
+    count, wcount = B * N * hk, B * N * k
+    sums = [stats]
+    if pcat is not None:
+        ws = wstats.reshape(2, k, PROJ)
+        sums += [ws[0].sum(dim=0), ws[1].sum(dim=0)]
+    if axis is not None:
+        sums = axis.sum(sums)
+        count, wcount = axis.count(count), axis.count(wcount)
+    mean = sums[0][0] / count
+    var = sums[0][1] / count - mean * mean
     if pcat is None:
         return idx, inte, partial, (mean, var), None, None, None, None
-    wcount = B * N * k
-    ws = wstats.reshape(2, k, PROJ)
-    wm = ws[0].sum(dim=0) / wcount
-    wv = ws[1].sum(dim=0) / wcount - wm * wm
+    wm = sums[1] / wcount
+    wv = sums[2] / wcount - wm * wm
     half = PROJ // 2
     return (idx, inte, partial, (mean, var), wfea, wxyz,
             (wm[:half], wv[:half]), (wm[half:], wv[half:]))

@@ -176,13 +176,15 @@ def local_mean_cov(src: torch.Tensor, centers: torch.Tensor, k: int = 20):
     """Mean ``(B, M, 3)`` and covariance ``(B, M, 9)`` of each center's
     k-neighbourhood in ``src`` (k-NN includes the center when it is a point
     of ``src``). CUDA tensors launch the kernels, CPU tensors run the plain
-    versions; anything else raises."""
+    versions (float32, or float64: an arbiter's dtype); anything else
+    raises."""
     if src.dim() != 3 or centers.dim() != 3 or src.shape[-1] != 3 \
             or centers.shape[-1] != 3 or src.shape[0] != centers.shape[0]:
         raise ValueError(f"local_mean_cov: need src (B,N,3), centers (B,M,3); "
                          f"got {tuple(src.shape)}, {tuple(centers.shape)}")
+    cpu64 = src.device.type == "cpu" and src.dtype == torch.float64
     for name, t in (("src", src), ("centers", centers)):
-        if t.dtype != torch.float32:
+        if t.dtype != (torch.float64 if cpu64 else torch.float32):
             raise TypeError(f"{name}: expected float32, got {t.dtype}")
         if t.device != src.device:
             raise ValueError(f"{name} is on {t.device}, src on {src.device}")

@@ -74,11 +74,12 @@ class _SlotStats(torch.autograd.Function):
 
 def slot_moment_stats(h_flat: torch.Tensor, k: int):
     """``(B, N, k*H) -> (s (H,), S (H, H))``, fp32 accumulation; ``h``
-    float32 or bfloat16."""
+    float32 or bfloat16 (or, on the CPU, float64: an arbiter's dtype)."""
     if h_flat.dim() != 3 or h_flat.shape[-1] % k:
         raise ValueError(f"slot_moment_stats: h must be (B, N, k*H), got "
                          f"{tuple(h_flat.shape)} with k={k}")
-    if h_flat.dtype not in (torch.float32, torch.bfloat16):
+    if h_flat.dtype not in (torch.float32, torch.bfloat16) and not (
+            h_flat.dtype == torch.float64 and h_flat.device.type == "cpu"):
         raise TypeError(f"slot_moment_stats: expected float32 or bfloat16, "
                         f"got {h_flat.dtype}")
     if not h_flat.is_contiguous():

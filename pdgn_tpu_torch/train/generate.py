@@ -7,7 +7,10 @@ from a seeded torch default init; the noise from a ``torch.Generator`` on
 the device seeded with ``seed``. The port's noise stream differs from the
 JAX package's, so the same seed gives other clouds than ``pdgn_tpu``.
 ``dtype=torch.bfloat16`` builds the generator in the bf16 compute policy
-(``--compute_dtype bfloat16``); the clouds are fp32 either way.
+(``--compute_dtype bfloat16``); the clouds are fp32 either way. With a
+``mesh`` the ranks make whole batches in turn (``make_batched_sampler``),
+every rank returns all the clouds, the one-process run's in order, and rank
+0 alone writes them.
 """
 
 from __future__ import annotations
@@ -45,19 +48,20 @@ def build_generator(seed: int, device="cuda", num_point: int = 2048,
 
 def generate(n: int, batch_size: int = 50, seed: int = 9999, *,
              device: str = "cuda", model: Optional[PointGenerator] = None,
-             out_path: Optional[str] = None, **model_kwargs) -> np.ndarray:
+             out_path: Optional[str] = None, mesh=None,
+             **model_kwargs) -> np.ndarray:
     """Generate ``n`` clouds ``(n, P, 3)``; saves them to ``out_path`` when
-    given. ``model`` (already on ``device``) skips building one;
-    ``model_kwargs`` go to :func:`build_generator`."""
-    dev = resolve_device(device)
+    given. ``model`` (already on ``device``, or on ``mesh.device``) skips
+    building one; ``model_kwargs`` go to :func:`build_generator`."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     if model is None:
         model = build_generator(seed, dev, **model_kwargs)
     rng = torch.Generator(device=dev).manual_seed(seed)
     n_batches = -(-n // batch_size)
-    clouds = make_batched_sampler(model, model.noise_dim)(
+    clouds = make_batched_sampler(model, model.noise_dim, mesh)(
         n_batches, batch_size, rng)
     clouds = clouds.reshape(-1, *clouds.shape[2:])[:n].cpu().numpy()
-    if out_path is not None:
+    if out_path is not None and (mesh is None or mesh.rank == 0):
         os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
         np.save(out_path, clouds)
     return clouds

@@ -6,6 +6,14 @@ the sampled batch's statistics (the reference never switches to eval), and
 sampling leaves the running statistics unchanged, as the JAX sampler
 discards its updated ``batch_stats``. The noise is fp32 whatever the
 generator's compute dtype, and so are the clouds it returns.
+
+Since each batch normalises over itself, the JAX package's batch sharded
+over a mesh with global statistics is the same math as whole batches
+handed out to ranks in turn: with a ``mesh`` rank r generates batches r,
+r + W, ... with each rank's own statistics (no collective in the forward),
+every rank draws every batch's noise from the same generator in order, and
+one sum over the ranks gathers the clouds, batch by batch in order, as one
+process makes them.
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from pdgn_tpu_torch.parallel.sync_bn import replica_local
+
 
 @contextlib.contextmanager
 def frozen_running_stats(model: nn.Module):
@@ -24,7 +34,8 @@ def frozen_running_stats(model: nn.Module):
     was_training = model.training
     model.train(False)
     try:
-        yield model
+        with replica_local(model):
+            yield model
     finally:
         model.train(was_training)
 
@@ -45,15 +56,26 @@ def make_sampler(generator: nn.Module, noise_dim: int = 128) -> Callable:
     return sample
 
 
-def make_batched_sampler(generator: nn.Module,
-                         noise_dim: int = 128) -> Callable:
+def make_batched_sampler(generator: nn.Module, noise_dim: int = 128,
+                         mesh=None) -> Callable:
     """``sample_many(n_batches, batch_size, rng)`` -> the finest clouds of
-    ``n_batches`` consecutive batches, ``(n_batches, batch_size, P, 3)``."""
+    ``n_batches`` consecutive batches, ``(n_batches, batch_size, P, 3)``;
+    with a ``mesh`` on every rank, each batch made by one rank (see the
+    module docstring)."""
     sample = make_sampler(generator, noise_dim)
 
     def sample_many(n_batches: int, batch_size: int,
                     rng: Optional[torch.Generator] = None) -> torch.Tensor:
-        return torch.stack([sample(batch_size, rng)[3]
-                            for _ in range(n_batches)])
+        if mesh is None:
+            return torch.stack([sample(batch_size, rng)[3]
+                                for _ in range(n_batches)])
+        dev = next(generator.parameters()).device
+        out = torch.zeros(n_batches, batch_size,
+                          16 * generator.base_points, 3, device=dev)
+        for i in range(n_batches):
+            z = torch.randn(batch_size, noise_dim, generator=rng, device=dev)
+            if i % mesh.world == mesh.rank:
+                out[i] = sample(batch_size, z=z)[3]
+        return mesh.sum_(out)
 
     return sample_many

@@ -22,6 +22,17 @@ noise come from seeds drawn from numpy's global stream
 (``np.random.randint``), which the CLI seeds per run, as do the loader's
 shuffles and sub-resolution draws; the test phase seeds everything from
 ``seed``.
+
+With a :class:`~pdgn_tpu_torch.parallel.mesh.Mesh` (one process per
+device, the JAX trainer's data-parallel mesh) every rank builds the same
+models, which rank 0's are then broadcast over, and trains them on its rows
+of each global batch with global batch statistics and summed gradients
+(``train_step``); every rank shuffles the epoch alike (numpy's stream,
+seeded equally on every rank by the caller) and copies only its rows to its
+card, and draws the global noise. The test phase hands whole batches of
+generation to the ranks in turn and distributes the pairwise matrices' row
+tiles. Rank 0 alone writes the bundles, the log file, the npy dumps and the
+log lines, and computes JSD.
 """
 
 from __future__ import annotations
@@ -40,11 +51,13 @@ from pdgn_tpu_torch.eval.metrics import (compute_all_metrics,
                                          jsd_between_point_cloud_sets)
 from pdgn_tpu_torch.models.discriminator import discriminators
 from pdgn_tpu_torch.models.generator import PointGenerator
+from pdgn_tpu_torch.parallel.mesh import Mesh, replicate
 from pdgn_tpu_torch.train import checkpoint as ckpt_lib
 from pdgn_tpu_torch.train.generate import generate
 from pdgn_tpu_torch.train.train_step import (GANState, TrainConfig,
                                              init_state, train_step)
-from pdgn_tpu_torch.utils.misc import get_logger, resolve_device, seed_all
+from pdgn_tpu_torch.utils.misc import (BlackHole, get_logger,
+                                       resolve_device, seed_all)
 
 
 @dataclasses.dataclass
@@ -134,12 +147,20 @@ def normalize_point_clouds(pcs: np.ndarray, mode: Optional[str],
 
 
 class PDGNTrainer:
-    """Models, optimizers, data and the train loop on ``cfg.device``."""
+    """Models, optimizers, data and the train loop on ``cfg.device``, or
+    on ``mesh.device`` as one rank of a data-parallel run."""
 
-    def __init__(self, cfg: ExperimentConfig):
+    def __init__(self, cfg: ExperimentConfig, mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.tcfg = train_config(cfg)
-        self.device = resolve_device(cfg.device)
+        self.mesh = mesh
+        self.rank0 = mesh is None or mesh.rank == 0
+        if mesh is not None and mesh.device.type != torch.device(
+                cfg.device).type:
+            raise ValueError(f"the mesh's device {mesh.device} is not a "
+                             f"{cfg.device} device")
+        self.device = resolve_device(cfg.device if mesh is None
+                                     else mesh.device)
         self.sizes = tuple(cfg.base_points * 2 ** i for i in range(1, 5))
         self.state: Optional[GANState] = None
         self.step_seconds: list = []     # wall time of each step, metrics read
@@ -153,6 +174,8 @@ class PDGNTrainer:
                             self.cfg.network)
 
     def log_string(self, s: str) -> None:
+        if not self.rank0:
+            return
         print(s)
         if self._log_fout is not None:
             self._log_fout.write(s + "\n")
@@ -198,9 +221,12 @@ class PDGNTrainer:
         for d in ds:
             d.reset_parameters(gen)
         self.state = init_state(g.to(self.device),
-                                [d.to(self.device) for d in ds], self.tcfg)
+                                [d.to(self.device) for d in ds], self.tcfg,
+                                self.mesh)
 
     def save(self, epoch: int) -> None:
+        if not self.rank0:
+            return
         path_g, path_d = ckpt_lib.save(self.ckpt_dir, self.state, epoch,
                                        self.cfg.category)
         print(f"Save Path for G: {path_g}")
@@ -219,6 +245,10 @@ class PDGNTrainer:
         epoch = ckpt_lib.load(os.path.join(self.ckpt_dir, cfg.pretrain_model_G),
                               os.path.join(self.ckpt_dir, cfg.pretrain_model_D),
                               self.state)
+        if self.mesh is not None:
+            # every rank read the same bundles; rank 0's weights are the run's
+            replicate(self.mesh, self.state.generator,
+                      *self.state.discriminators)
         print(f" [*] Success to load model --> {cfg.pretrain_model_G} & "
               f"{cfg.pretrain_model_D}")
         return True, epoch
@@ -227,11 +257,12 @@ class PDGNTrainer:
         """The train loop; ``seed`` seeds the noise generator (default:
         drawn from numpy, as the JAX trainer draws its key)."""
         cfg = self.cfg
-        os.makedirs(os.path.join(cfg.checkpoint_dir, cfg.model_dir),
-                    exist_ok=True)
-        self._log_fout = open(os.path.join(cfg.checkpoint_dir, cfg.model_dir,
-                                           cfg.log_info), "w")
-        self._log_fout.write(str(cfg) + "\n")
+        if self.rank0:
+            os.makedirs(os.path.join(cfg.checkpoint_dir, cfg.model_dir),
+                        exist_ok=True)
+            self._log_fout = open(os.path.join(
+                cfg.checkpoint_dir, cfg.model_dir, cfg.log_info), "w")
+            self._log_fout.write(str(cfg) + "\n")
         if self.state is None:
             self.build_model()
         could_load, save_epoch = self.load()
@@ -246,11 +277,12 @@ class PDGNTrainer:
         seed = seed if seed is not None else int(np.random.randint(0, 2 ** 31))
         rng = torch.Generator(device=self.device).manual_seed(seed)
         B, dev, sigma = cfg.batch_size, self.device, self.tcfg.noise_sigma
+        rows = None if self.mesh is None else self.mesh.rows(B)
 
         start_time = time.time()
         global_step, prof = 0, None
         for epoch in range(start_epoch, cfg.max_epoch + 1):
-            loader = train_loader(dataset, B, device=dev)
+            loader = train_loader(dataset, B, device=dev, rows=rows)
             idx = 0
             try:
                 while not (cfg.max_steps_per_epoch
@@ -260,7 +292,7 @@ class PDGNTrainer:
                     if batch is None:
                         break
                     t0 = time.perf_counter()
-                    if cfg.profile_dir and global_step == 2:
+                    if cfg.profile_dir and global_step == 2 and self.rank0:
                         prof = self._start_trace()
                     noise = [sigma * torch.randn(B, cfg.noise_dim,
                                                  generator=rng, device=dev)
@@ -291,8 +323,9 @@ class PDGNTrainer:
         if prof is not None:
             self._stop_trace(prof)
         self.save(cfg.max_epoch)
-        self._log_fout.close()
-        self._log_fout = None
+        if self._log_fout is not None:
+            self._log_fout.close()
+            self._log_fout = None
 
     def _start_trace(self):
         from torch.profiler import ProfilerActivity, profile
@@ -336,31 +369,41 @@ class PDGNTrainer:
         batch-statistic BN, exact kNN graphs: the port has no other), save
         ``nonormal_out.npy``, renormalise, save ``out.npy``, score them
         against the test set with the metric suite in ``(tile, tile)``
-        blocks of pairs, log each result and return them."""
+        blocks of pairs, log each result and return them. Under a mesh
+        every rank returns the matrices' metrics; rank 0's also hold JSD."""
         cfg = self.cfg
         self._load_for_eval()
 
         cate_tag = "_".join(cfg.choice) if cfg.choice else "full"
         save_dir = os.path.join(
             cfg.save_dir, "GEN_Ours_%s_%d" % (cate_tag, int(time.time())))
-        os.makedirs(save_dir, exist_ok=True)
-        logger = get_logger("test", save_dir)
+        if self.rank0:
+            os.makedirs(save_dir, exist_ok=True)
+            logger = get_logger("test", save_dir)
+        else:
+            logger = BlackHole()
         seed_all(cfg.seed)
 
         logger.info("Loading datasets...")
         test_dset = self._make_dataset("test", cfg.normalize)
         ref_pcs = test_dset.full_clouds()
         gen_pcs = generate(len(test_dset), cfg.batch_size, cfg.seed,
-                           device=self.device, model=self.state.generator)
-        np.save(os.path.join(save_dir, "nonormal_out.npy"), gen_pcs)
+                           device=self.device, model=self.state.generator,
+                           mesh=self.mesh)
+        if self.rank0:
+            np.save(os.path.join(save_dir, "nonormal_out.npy"), gen_pcs)
         if cfg.normalize is not None:
             gen_pcs = normalize_point_clouds(gen_pcs, cfg.normalize, logger)
 
         logger.info("Saving point clouds...")
-        np.save(os.path.join(save_dir, "out.npy"), gen_pcs)
+        if self.rank0:
+            np.save(os.path.join(save_dir, "out.npy"), gen_pcs)
 
         results = compute_all_metrics(gen_pcs, ref_pcs, cfg.batch_size,
-                                      tile=tile, device=self.device)
+                                      tile=tile, mesh=self.mesh,
+                                      device=self.device)
+        if not self.rank0:
+            return results
         results["jsd"] = jsd_between_point_cloud_sets(gen_pcs, ref_pcs,
                                                       device=self.device)
         for k, v in results.items():

@@ -13,12 +13,16 @@ through the public entry, so any checkout's kernels), after one warm-up
 iteration. ``--compute_dtype bfloat16`` builds the generator in bf16: the
 sampler's (the bf16 instances of the forward kernels) or, with
 ``--train``, the trainer's (``compute_dtype="bfloat16"``: the bf16
-instances forward and backward, fp32 discriminators). Prints, per CUDA
+instances forward and backward, fp32 discriminators). ``--group`` makes
+the train step's trainer the one rank of an NCCL group
+(``pdgn_tpu_torch.parallel``: global batch statistics and summed gradients
+through ``all_reduce``, which a group of one leaves as they are). Prints,
+per CUDA
 kernel
 name, its device time per
 iteration and share, plus the iteration's wall time and the share of it in
 which the device ran no kernel (negative if the kernel events overlap or are
-counted twice). With ``--wall`` it runs no profiler and prints each
+counted twice), and the host operators with the most time of their own. With ``--wall`` it runs no profiler and prints each
 iteration's wall time (synchronised) and iterations per second instead:
 iterations/s of two checkouts compared in one call (this script copied into
 the other checkout's root imports that checkout's package). Needs a CUDA
@@ -29,6 +33,7 @@ card; run from the root of the repository::
     python3 profile_torch_sample.py --train --batch 35
     python3 profile_torch_sample.py --train --batch 35 --compute_dtype bfloat16
     python3 profile_torch_sample.py --train --batch 35 --reps 30 --wall
+    python3 profile_torch_sample.py --train --batch 35 --reps 5 --group
     python3 profile_torch_sample.py --test --batch 35 --clouds 64 --reps 2
     python3 profile_torch_sample.py --local-stats --batch 35 --reps 20
 """
@@ -55,17 +60,31 @@ def sample_iteration(batch: int, seed: int, dev, dtype=None):
     return lambda: sample(batch, rng)
 
 
-def train_iteration(batch: int, seed: int, dev, compute_dtype=None):
+def train_iteration(batch: int, seed: int, dev, compute_dtype=None,
+                    group: bool = False):
     """One GAN train step at full width on fixed random real clouds
-    (``compute_dtype``: the trainer's, None for fp32 or "bfloat16")."""
+    (``compute_dtype``: the trainer's, None for fp32 or "bfloat16"; with
+    ``group``, as the one rank of an NCCL group)."""
     import torch
 
     from pdgn_tpu_torch.train.train_step import train_step
     from pdgn_tpu_torch.train.trainer import ExperimentConfig, PDGNTrainer
 
+    mesh = None
+    if group:
+        import socket
+
+        from pdgn_tpu_torch.parallel import initialize_distributed, make_mesh
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        initialize_distributed(f"localhost:{port}", 1, 0, device="cuda")
+        mesh = make_mesh(dev)
     trainer = PDGNTrainer(ExperimentConfig(batch_size=batch,
                                            device=dev.type,
-                                           compute_dtype=compute_dtype))
+                                           compute_dtype=compute_dtype),
+                          mesh)
     trainer.build_model(seed)
     rng = torch.Generator(device=dev).manual_seed(seed)
     reals = [torch.randn(batch, n, 3, generator=rng, device=dev)
@@ -137,7 +156,7 @@ def profile_local_stats(batch: int, reps: int, seed: int) -> dict:
 
 def profile(batch: int, reps: int, seed: int, train: bool = False,
             test: bool = False, clouds: int = 64, wall: bool = False,
-            bf16: bool = False) -> dict:
+            bf16: bool = False, group: bool = False) -> dict:
     import torch
 
     from pdgn_tpu_torch.utils.misc import resolve_device
@@ -148,7 +167,7 @@ def profile(batch: int, reps: int, seed: int, train: bool = False,
         iteration = test_iteration(batch, seed, dev, clouds, out_dir.name)
     elif train:
         iteration = train_iteration(batch, seed, dev,
-                                    "bfloat16" if bf16 else None)
+                                    "bfloat16" if bf16 else None, group)
     else:
         iteration = sample_iteration(batch, seed, dev,
                                      torch.bfloat16 if bf16 else None)
@@ -188,8 +207,11 @@ def profile_iteration(iteration, batch: int, reps: int, kind: str) -> dict:
             iteration()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    rows = []
+    rows, host = [], []
     for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CPU:
+            host.append((ev.key, ev.self_cpu_time_total / reps / 1e3,
+                         ev.count // reps))
         # device-side kernel events only (the aten ops that launched them
         # carry the same time again)
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -199,6 +221,7 @@ def profile_iteration(iteration, batch: int, reps: int, kind: str) -> dict:
         if dev_us > 0:
             rows.append((ev.key, dev_us / reps / 1e3, ev.count // reps))
     rows.sort(key=lambda r: -r[1])
+    host.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     wall_ms = wall_s / reps * 1e3
     return {"card": torch.cuda.get_device_name(0), "batch": batch,
@@ -208,7 +231,10 @@ def profile_iteration(iteration, batch: int, reps: int, kind: str) -> dict:
             "idle_share": 1.0 - busy_ms / wall_ms,
             "kernels": [{"name": n, "ms_per_iteration": ms,
                          "share": ms / busy_ms if busy_ms else 0.0,
-                         "calls_per_iteration": c} for n, ms, c in rows]}
+                         "calls_per_iteration": c} for n, ms, c in rows],
+            "host_ops": [{"name": n, "self_ms_per_iteration": ms,
+                          "calls_per_iteration": c}
+                         for n, ms, c in host[:20]]}
 
 
 def print_breakdown(res: dict) -> None:
@@ -218,6 +244,10 @@ def print_breakdown(res: dict) -> None:
           f"share {res['idle_share']:.3f}")
     for k in res["kernels"][:30]:
         print(f"{k['ms_per_iteration']:10.4f} ms {100 * k['share']:6.2f}% "
+              f"x{k['calls_per_iteration']:<4d} {k['name'][:110]}")
+    print("host operators, self time:")
+    for k in res.get("host_ops", [])[:15]:
+        print(f"{k['self_ms_per_iteration']:10.4f} ms "
               f"x{k['calls_per_iteration']:<4d} {k['name'][:110]}")
 
 
@@ -242,8 +272,13 @@ def main(argv=None) -> None:
                     choices=["float32", "bfloat16"],
                     help="the generator's dtype (the sampler's, or "
                          "with --train the trainer's)")
+    ap.add_argument("--group", action="store_true",
+                    help="with --train: the trainer as the one rank of an "
+                         "NCCL group")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    if args.group and not args.train:
+        ap.error("--group profiles train steps only")
     bf16 = args.compute_dtype == "bfloat16"
     if bf16 and (args.test or args.local_stats):
         ap.error("--compute_dtype bfloat16 profiles sampler forwards and "
@@ -252,7 +287,7 @@ def main(argv=None) -> None:
         res = profile_local_stats(args.batch, args.reps, args.seed)
     else:
         res = profile(args.batch, args.reps, args.seed, args.train,
-                      args.test, args.clouds, args.wall, bf16)
+                      args.test, args.clouds, args.wall, bf16, args.group)
     if args.local_stats:
         for call in res["calls"]:
             print_breakdown(call)

@@ -162,7 +162,7 @@ def test_pairwise_cd_emd_matches_jax(cloud_sets, symmetric):
     assert sum(_lib.LAUNCHES.values()) == 0
 
 
-def test_pairwise_cd_emd_rectangular_and_cd_only(cloud_sets):
+def test_pairwise_cd_emd_rectangular_and_cd_only(cloud_sets, tmp_path):
     sample, ref = cloud_sets
     cd, emd = teval.pairwise_cd_emd(sample[:5], ref, tile=4, **CPU)
     cd_j, emd_j = jeval.pairwise_cd_emd(sample[:5], ref, tile=4)
@@ -172,8 +172,20 @@ def test_pairwise_cd_emd_rectangular_and_cd_only(cloud_sets):
                                       with_emd=False, **CPU)
     assert rel(cd2, cd_j) <= 1e-5
     assert not emd2.any()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        teval.pairwise_cd_emd(sample, ref, mesh=object(), **CPU)
+    # the row tiles over a group of one rank: the one-process matrices
+    import torch.distributed as dist
+
+    from pdgn_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                            world_size=1, rank=0)
+    try:
+        cd3, emd3 = teval.pairwise_cd_emd(sample[:5], ref, tile=4,
+                                          mesh=make_mesh("cpu"), **CPU)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(cd3, cd)
+    np.testing.assert_array_equal(emd3, emd)
 
 
 def test_reductions_equal_jax():

@@ -115,7 +115,7 @@ def test_cpu_tensors_take_the_plain_path():
 def test_wrappers_check_their_inputs():
     a = _head_inputs(1)
     with pytest.raises(TypeError):
-        slot_moment_stats(torch.zeros(2, 8, 6 * 64, dtype=torch.float64), 6)
+        slot_moment_stats(torch.zeros(2, 8, 6 * 64, dtype=torch.float16), 6)
     with pytest.raises(ValueError):
         slot_moment_stats(torch.zeros(2, 8, 6 * 64).transpose(0, 1), 6)
     with pytest.raises(ValueError):

@@ -258,6 +258,30 @@ The data-parallel slice (``pdgn_tpu_torch.parallel``), after 3p:
    forward's kNN graphs (D noise or G noise) differ from one process's at
    a near-tie, with ``PER_STEP`` launches on each rank.
 
+The native oracles (``pdgn_tpu_torch.native``: the reference kernels'
+algorithms in scalar C++ on the host, independent of the port's torch
+code), after phase 2:
+
+2n. builds the native library with g++ (timed) and, with the card's
+   results copied to the host explicitly: ``knn_topk`` on the card (4
+   clouds of 2048 points, self queries, k = 20) against ``knnquery_cpu``,
+   indices equal but at near-ties by phase 2's rule; ``emd_cd`` on the
+   card over 2 x 2 test-path clouds of 2048 points against
+   ``nndistance_cpu`` (CD = mean(dl) + mean(dr), rel <= 1e-5) and
+   ``approxmatch_cpu`` (cost rel <= 2e-3, the kernel's limit against its
+   plain version), ``emd_cd_plain``'s gaps to the same oracle printed
+   beside them; ``ops.furthest_point_sample`` on the card (4 clouds, 2048
+   -> 512) against ``fps_cpu``, indices equal (the first differing pick
+   named otherwise). One JSON line holds the gaps, the host seconds, the
+   host CPU's model name and the card's name and power limit.
+
+In phase 3d, after the 5-step train: ``python -m
+pdgn_tpu_torch.convert_ckpt`` in a process of its own turns the trainer's
+``1_chair_{G,D}.pth`` into msgpack bundles, and ``--phase test`` from that
+pair and from the ``.pth`` pair each give the 13 metric lines, ``out.npy``
+and the launches of the counted test run bit for bit (those two runs'
+launches are not added to the path's).
+
 Last, it prints the ``{"kernels": [...]}`` line (``launches`` summed over
 the sample, train, test, data, point-ops, bf16 sample, bf16 test, bf16
 train and data-parallel runs, ``launches_by_path`` each), then the
@@ -2479,6 +2503,110 @@ def check_emd_cd(dev) -> float:
     return err
 
 
+# ------------------------------------------------ native oracles: phase 2n
+NATIVE_CLOUDS = 4        # clouds of the kNN and FPS checks
+NATIVE_K = 20
+NATIVE_CENTERS = 512     # furthest_point_sample 2048 -> 512
+
+
+def host_cpu() -> str:
+    """The host CPU as ``/proc/cpuinfo``'s first processor names it: model
+    name, vendor, family, model and clock (a sandbox may report the model
+    name as "unknown"), and the CPU count."""
+    import platform
+
+    info: dict = {}
+    with contextlib.suppress(OSError), open("/proc/cpuinfo") as f:
+        for ln in f:
+            if not ln.strip():
+                break
+            key, _, value = ln.partition(":")
+            info[key.strip()] = value.strip()
+    keys = ("model name", "vendor_id", "cpu family", "model", "cpu MHz")
+    return (", ".join(f"{k} {info[k]}" for k in keys if k in info)
+            or platform.machine()) + f", {os.cpu_count()} CPUs"
+
+
+def native_oracles(dev, smi: str) -> dict:
+    """Phase 2n: ``knn_topk``, ``emd_cd`` and ``ops.furthest_point_sample``
+    on the card against the native CPU oracles, the card's results copied
+    to the host explicitly (its own generator: the later phases draw what
+    they drew before)."""
+    import torch
+    from pdgn_tpu_torch import native
+    from pdgn_tpu_torch.ops import furthest_point_sample
+    from pdgn_tpu_torch.ops.kernels.emd_cd import emd_cd, emd_cd_plain
+    from pdgn_tpu_torch.ops.kernels.knn import knn_topk, sqdist
+
+    out = {"card": smi, "host_cpu": host_cpu()}
+    t0 = time.perf_counter()
+    native.library()
+    out["build_s"] = time.perf_counter() - t0
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    x = torch.randn(NATIVE_CLOUDS, PO_POINTS, 3, generator=gen, device=dev)
+    idx_k = knn_topk(x, x, NATIVE_K).cpu()
+    xh = x.cpu()
+    t0 = time.perf_counter()
+    idx_n, d2_n = native.knnquery_cpu(xh, xh, NATIVE_K)
+    out["knnquery_s"] = time.perf_counter() - t0
+    d = sqdist(xh, xh)
+    out["knn_mismatch"] = float((idx_k != idx_n).float().mean())
+    out["knn_d2_max_abs"] = knn_idx_check(
+        idx_k, idx_n, d, f"knn_topk (card) vs knnquery_cpu, "
+        f"{NATIVE_CLOUDS} x {PO_POINTS} self, k={NATIVE_K}")
+    out["knn_oracle_d2_max_abs"] = max_abs(d2_n, d.gather(-1,
+                                                          idx_n.long()))
+
+    gen_c, ref_c = eval_clouds(2)
+    a, b = torch.from_numpy(gen_c), torch.from_numpy(ref_c)
+    cd, cost = (v.cpu().reshape(-1) for v in emd_cd(a.to(dev), b.to(dev)))
+    cd_p, cost_p = (v.cpu().reshape(-1)
+                    for v in emd_cd_plain(a.to(dev), b.to(dev)))
+    n = a.shape[1]
+    xs = a[:, None].expand(2, 2, n, 3).reshape(4, n, 3)    # pair (i, j):
+    ys = b[None].expand(2, 2, n, 3).reshape(4, n, 3)       # row i * 2 + j
+    t0 = time.perf_counter()
+    dl, dr = native.nndistance_cpu(xs, ys)
+    out["nndistance_s"] = time.perf_counter() - t0
+    cd_n = dl.double().mean(1) + dr.double().mean(1)
+    t0 = time.perf_counter()
+    cost_n = native.approxmatch_cpu(xs, ys)
+    out["approxmatch_s"] = time.perf_counter() - t0
+    out.update(cd_rel=rel(cd, cd_n), cost_rel=rel(cost, cost_n),
+               plain_cd_rel=rel(cd_p, cd_n), plain_cost_rel=rel(cost_p,
+                                                                 cost_n))
+    log(f"  emd_cd (card) vs nndistance_cpu / approxmatch_cpu, 2x2 sets, "
+        f"n={n}: cd rel {out['cd_rel']:.3e}, cost rel "
+        f"{out['cost_rel']:.3e}; emd_cd_plain (card) cd rel "
+        f"{out['plain_cd_rel']:.3e}, cost rel {out['plain_cost_rel']:.3e}")
+    require(out["cd_rel"] <= 1e-5, f"emd_cd cd off nndistance_cpu: "
+            f"rel {out['cd_rel']}")
+    require(out["cost_rel"] <= 2e-3, f"emd_cd cost off approxmatch_cpu: "
+            f"rel {out['cost_rel']}")
+
+    idx_f = furthest_point_sample(x, NATIVE_CENTERS).cpu()
+    t0 = time.perf_counter()
+    idx_fn = native.fps_cpu(xh, NATIVE_CENTERS)
+    out["fps_s"] = time.perf_counter() - t0
+    diff = (idx_f != idx_fn).nonzero().tolist()
+    first = min(diff, key=lambda rc: (rc[1], rc[0])) if diff else None
+    out["fps_first_differing_pick"] = first
+    log(f"  furthest_point_sample (card) vs fps_cpu, {NATIVE_CLOUDS} x "
+        f"{PO_POINTS} -> {NATIVE_CENTERS}: {len(diff)} picks differ"
+        + (f", the first at (cloud, pick) {first}: "
+           f"{int(idx_f[tuple(first)])} against "
+           f"{int(idx_fn[tuple(first)])}" if first else ""))
+    require(first is None, f"furthest_point_sample differs from fps_cpu, "
+            f"first at (cloud, pick) {first}")
+    log(f"  host seconds on {out['host_cpu']}: build {out['build_s']:.2f}, "
+        f"knnquery {out['knnquery_s']:.2f}, nndistance "
+        f"{out['nndistance_s']:.2f}, approxmatch {out['approxmatch_s']:.2f}"
+        f", fps {out['fps_s']:.2f}")
+    print(json.dumps({"native_oracles": out}), flush=True)
+    return out
+
+
 # ------------------------------------------------ the test slice: phase 3e
 def test_path(root: str, ckpt_root: str, dev) -> dict:
     """Phase 3e: ``PDGNTrainer.test`` (what ``--phase test`` runs) at full
@@ -2808,6 +2936,27 @@ def data_path(root: str, smi: str, dev) -> dict:
         log(f"  msgpack bundles {[os.path.getsize(p) for p in paths]} "
             "bytes: every parameter, buffer, Adam moment and step equal "
             "after the round trip")
+        # the trainer's own .pth pair through the converter command, in a
+        # process of its own
+        pth = [os.path.join(trainer.ckpt_dir, f"1_chair_{s}.pth")
+               for s in "GD"]
+        conv_dir = os.path.join(work, "converted")
+        converted = [os.path.join(conv_dir, f"1_chair_{s}.msgpack")
+                     for s in "GD"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pdgn_tpu_torch.convert_ckpt", "--ckpt_g",
+             pth[0], "--ckpt_d", pth[1], "--out_dir", conv_dir,
+             "--category", "chair"], cwd=root, capture_output=True,
+            text=True, timeout=600)
+        convert_s = time.perf_counter() - t0
+        require(proc.returncode == 0 and proc.stdout.split() == converted,
+                f"the converter failed:\n"
+                f"{(proc.stdout + proc.stderr)[-3000:]}")
+        log(f"  python -m pdgn_tpu_torch.convert_ckpt 1_chair_{{G,D}}.pth "
+            f"({[os.path.getsize(p) for p in pth]} bytes): "
+            f"{[os.path.getsize(p) for p in converted]} bytes of msgpack in "
+            f"{convert_s:.1f} s")
         del trainer, fresh
         torch.cuda.empty_cache()
 
@@ -2863,6 +3012,27 @@ def data_path(root: str, smi: str, dev) -> dict:
         require(len(lines) == 13 and all(math.isfinite(v)
                                          for v in lines.values()),
                 f"metric lines {lines}")
+        # the same test phase from the .pth pair and from the converted
+        # msgpack pair: the same weights (the layout maps are permutations)
+        # and seed, so the same bits; their launches are not the path's
+        for tag, pair in (("pth", pth), ("converted", converted)):
+            save_dir = os.path.join(work, f"results_{tag}")
+            _lib.LAUNCHES.clear()
+            cli.main(base + ["--phase", "test", "--save_dir", save_dir,
+                             "--pretrain_model_G", pair[0],
+                             "--pretrain_model_D", pair[1]])
+            torch.cuda.synchronize()
+            again_launches = dict(_lib.LAUNCHES)
+            (run_t,) = os.listdir(save_dir)
+            got = _metric_lines(os.path.join(save_dir, run_t))
+            got_out = np.load(os.path.join(save_dir, run_t, "out.npy"))
+            same = (got == lines and np.array_equal(got_out, out)
+                    and again_launches == test_launches)
+            log(f"  cli --phase test from the {tag} pair: the 13 metric "
+                f"lines, out.npy and the launches equal the msgpack run's: "
+                f"{same}")
+            require(same, f"the test phase from the {tag} pair differs: "
+                    f"{got} {again_launches}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -2874,7 +3044,8 @@ def data_path(root: str, smi: str, dev) -> dict:
             "wait_share_after_first": later_share,
             "first_batch_waits": firsts,
             "wait_seconds": wait, "step_seconds": step,
-            "test_seconds": test_s, "metrics": lines}
+            "test_seconds": test_s, "metrics": lines,
+            "convert_seconds": convert_s}
 
 
 def _standin_epoch(batches, dev, cycles: int, copy: bool, limit: int):
@@ -3810,6 +3981,9 @@ def main(argv=None) -> int:
     log(f"  head forward digest {bits}")
     require(bits == HEAD_BITS, "the head forward's bits moved")
     core = check_core(gen, dev)
+    phase("phase 2n: knn_topk, emd_cd and FPS on the card against the "
+          "native CPU oracles")
+    oracles = native_oracles(dev, smi)
 
     phase("phase 2t: train kernels against their plain versions (B=8)")
     errs.update(check_train_kernels(gen, dev))
@@ -3931,7 +4105,8 @@ def main(argv=None) -> int:
                        "train": train, "test": test, "data": data,
                        "point_ops": point_ops, "path_bf16": path_bf16,
                        "test_bf16": test_bf16, "train_bf16": train_bf16,
-                       "parallel": par, "bwd_bits": bwd_bits}, f, indent=1)
+                       "parallel": par, "bwd_bits": bwd_bits,
+                       "native_oracles": oracles}, f, indent=1)
     print(json.dumps({"card": smi,
                       "clouds_per_s_b128": path["clouds_per_s"],
                       "train_steps_per_s_b35": train["steps_per_s"],

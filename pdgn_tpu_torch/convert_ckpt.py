@@ -1,5 +1,6 @@
 """Weights and Adam state between the JAX package's flax trees and the
-port's ``state_dict`` (port of pdgn_tpu/convert_ckpt.py:47-253).
+port's ``state_dict``, and the reference-checkpoint converter command
+(port of pdgn_tpu/convert_ckpt.py).
 
 The port's parameter names and layouts ARE the reference torch ones, so a
 reference ``.pth`` needs no conversion. :func:`generator_state_from_jax` and
@@ -13,7 +14,20 @@ their inverses (``convert_generator``'s direction), and
 :func:`adam_to_jax`/:func:`adam_from_jax` map torch's ``Adam`` state to
 optax's ``adam`` state and back (``convert_adam``'s direction and its
 inverse): the moments take the weights' layouts, optax ``count`` is torch
-``step``. All of them run on one table, :func:`tensor_map`.
+``step``; :func:`adam_state_to_jax` reads a raw optimizer ``state_dict``
+with no model built. All of them run on one table, :func:`tensor_map`.
+
+The command (:func:`main`, ``pdgn_tpu.convert_ckpt``'s flags) turns a
+reference ``.pth`` G/D pair, e.g. the published ``600_chair_G.pth`` /
+``600_chair_D.pth``, into the JAX package's two msgpack bundles::
+
+    python -m pdgn_tpu_torch.convert_ckpt --ckpt_g 600_chair_G.pth \
+        --ckpt_d 600_chair_D.pth --out_dir converted/ --category chair
+
+writes ``converted/600_chair_G.msgpack`` and ``_D.msgpack`` (keys
+``G_model``, ``G_optimizer``, ``G_epoch``; ``D_epoch``, ``D_model1-4``,
+``D_optimizer1-4``), loadable by ``pdgn_tpu.train.checkpoint.load``, by the
+port's ``train.checkpoint.load`` and by both CLIs' ``--pretrain_model_G/_D``.
 
 This module keeps its own copy of the rules: the port imports nothing of
 the JAX package.
@@ -21,7 +35,9 @@ the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import argparse
+import os
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -162,6 +178,16 @@ def tensor_map(rules, two_k: int = 0):
     return out
 
 
+COUNTER = "num_batches_tracked"   # BN's counter: no flax counterpart
+_BUFFERS = ("running_mean", "running_var", COUNTER)
+
+
+def strip_module(sd: Dict) -> Dict:
+    """Drop the ``module.`` prefix of DataParallel state dicts."""
+    return {(k[7:] if k.startswith("module.") else k): v
+            for k, v in sd.items()}
+
+
 def _get(tree: Dict, dotted: str):
     node = tree
     for part in dotted.split("."):
@@ -197,16 +223,29 @@ def _state_from_jax(rules, params: Dict, batch_stats: Dict,
     for name, tree, fp, _, from_jax in tensor_map(rules, two_k):
         sd[name] = _tensor(from_jax(_get(trees[tree], fp)))
         if name.endswith(".running_var"):
-            sd[name[:-len("running_var")] + "num_batches_tracked"] = (
+            sd[name[:-len("running_var")] + COUNTER] = (
                 torch.zeros((), dtype=torch.int64))
     return sd
 
 
 def _state_to_jax(rules, sd: Dict) -> Tuple[Dict, Dict]:
+    """``sd`` through :func:`tensor_map` in ``sd``'s own order (the JAX
+    converter's, so the trees nest alike), BN's ``num_batches_tracked``
+    dropped; a key without a rule, or a rule without its key, raises."""
+    table = {name: (tree, fp, to_jax)
+             for name, tree, fp, to_jax, _ in tensor_map(rules)}
+    missing = set(table) - set(sd)
+    if missing:
+        raise KeyError(f"torch checkpoint lacks keys: {sorted(missing)[:5]}")
     flat: Dict[str, Dict[str, np.ndarray]] = {"params": {},
                                                "batch_stats": {}}
-    for name, tree, fp, to_jax, _ in tensor_map(rules):
-        flat[tree][fp] = np.ascontiguousarray(to_jax(_numpy(sd[name])))
+    for name, v in sd.items():
+        if name.endswith(COUNTER):
+            continue
+        if name not in table:
+            raise KeyError(f"unmapped torch key: {name}")
+        tree, fp, to_jax = table[name]
+        flat[tree][fp] = np.ascontiguousarray(to_jax(_numpy(v)))
     return _nest(flat["params"]), _nest(flat["batch_stats"])
 
 
@@ -272,32 +311,48 @@ def _param_index(opt: torch.optim.Optimizer) -> Dict[int, int]:
     return {id(p): i for i, p in enumerate(params)}
 
 
-def adam_to_jax(model: torch.nn.Module, opt: torch.optim.Optimizer,
-                rules) -> Dict:
-    """``opt``'s Adam state for ``model`` -> the state dict of optax's
-    ``adam`` (``chain(scale_by_adam, scale_by_learning_rate)``):
-    ``{"0": {"count", "mu", "nu"}, "1": {}}``. The moments take the
-    weights' layouts; ``count`` is torch's ``step`` (an int32 array). A
-    parameter never stepped has zero moments."""
+def adam_state_to_jax(sd: Dict, opt_sd: Dict, rules) -> Dict:
+    """A raw torch ``Adam`` ``state_dict`` (``opt_sd``, as a ``.pth``
+    holds it) of the model whose ``state_dict`` is ``sd`` -> the state dict
+    of optax's ``adam`` (``chain(scale_by_adam, scale_by_learning_rate)``):
+    ``{"0": {"count", "mu", "nu"}, "1": {}}``, with no model built (port of
+    ``pdgn_tpu.convert_ckpt._Mapper.convert_adam``). The optimizer's
+    parameters are ``sd``'s keys less the BN buffers, in order; the moments
+    take the weights' layouts, a parameter never stepped gets zeros, and
+    ``count`` is the largest ``step`` (an ``np.int32``)."""
     table = {name: (fp, to_jax) for name, tree, fp, to_jax, _
              in tensor_map(rules) if tree == "params"}
-    names = [name for name, _ in model.named_parameters()]
-    if set(names) != set(table):
-        raise KeyError(f"parameters without a rule: "
-                       f"{sorted(set(names) ^ set(table))[:5]}")
+    names = [k for k in sd if not k.endswith(_BUFFERS)]
+    order = [pid for group in opt_sd["param_groups"]
+             for pid in group["params"]]
+    if len(order) != len(names):
+        raise ValueError(f"optimizer/param count mismatch: {len(order)} vs "
+                         f"{len(names)}")
     mu, nu, count = {}, {}, 0
-    for name, p in model.named_parameters():
+    for pid, name in zip(order, names):
+        if name not in table:
+            raise KeyError(f"parameter without a rule: {name}")
         fp, to_jax = table[name]
-        s = opt.state.get(p, {})
+        s = opt_sd["state"].get(pid, {})
         if s:
             ea, eas = _numpy(s["exp_avg"]), _numpy(s["exp_avg_sq"])
-            count = max(count, int(s["step"]))
+            count = max(count, int(np.asarray(s["step"])))
         else:
-            ea = eas = np.zeros(tuple(p.shape), np.float32)
+            ea = eas = np.zeros(tuple(sd[name].shape), np.float32)
         mu[fp] = np.ascontiguousarray(to_jax(ea))
         nu[fp] = np.ascontiguousarray(to_jax(eas))
-    return {"0": {"count": np.asarray(count, np.int32), "mu": _nest(mu),
+    return {"0": {"count": np.int32(count), "mu": _nest(mu),
                   "nu": _nest(nu)}, "1": {}}
+
+
+def adam_to_jax(model: torch.nn.Module, opt: torch.optim.Optimizer,
+                rules) -> Dict:
+    """``opt``'s Adam state for ``model`` (built on ``model.parameters()``)
+    -> optax ``adam``'s state dict, as :func:`adam_state_to_jax`, with
+    ``count`` a 0-d int32 array as optax keeps it."""
+    out = adam_state_to_jax(model.state_dict(), opt.state_dict(), rules)
+    out["0"]["count"] = np.asarray(out["0"]["count"])
+    return out
 
 
 def adam_from_jax(opt_state: Dict, model: torch.nn.Module,
@@ -320,3 +375,76 @@ def adam_from_jax(opt_state: Dict, model: torch.nn.Module,
                 "exp_avg": _tensor(from_jax(_get(adam["mu"], fp))),
                 "exp_avg_sq": _tensor(from_jax(_get(adam["nu"], fp)))}
     return {"state": state, "param_groups": opt.state_dict()["param_groups"]}
+
+
+# ------------------------------------------------------------ the command
+def convert_generator(sd: Dict, opt_sd: Optional[Dict] = None
+                      ) -> Tuple[Dict, Optional[Dict]]:
+    """A reference generator ``state_dict`` (and its raw Adam
+    ``state_dict``) -> ``({"params", "batch_stats"}, adam state or None)``
+    in the JAX package's layout."""
+    sd = strip_module(sd)
+    params, stats = generator_state_to_jax(sd)
+    opt = adam_state_to_jax(sd, opt_sd, generator_rules()) if opt_sd else None
+    return {"params": params, "batch_stats": stats}, opt
+
+
+def convert_discriminator(sd: Dict, opt_sd: Optional[Dict] = None
+                          ) -> Tuple[Dict, Optional[Dict]]:
+    """:func:`convert_generator` for one discriminator."""
+    sd = strip_module(sd)
+    rules = discriminator_rules_of(sd)
+    params, stats = _state_to_jax(rules, sd)
+    opt = adam_state_to_jax(sd, opt_sd, rules) if opt_sd else None
+    return {"params": params, "batch_stats": stats}, opt
+
+
+def convert_files(ckpt_g: str, ckpt_d: str, out_dir: str,
+                  category: str = "chair") -> Tuple[str, str]:
+    """Convert a reference G/D ``.pth`` pair to the JAX package's msgpack
+    bundles ``<out_dir>/<epoch>_<category>_{G,D}.msgpack``; returns their
+    paths. The files are read with ``weights_only=True``: a file holding
+    any pickled object other than tensors, containers and numbers is
+    refused."""
+    from pdgn_tpu_torch.train.checkpoint import save_state
+
+    raw_g = torch.load(ckpt_g, map_location="cpu", weights_only=True)
+    raw_d = torch.load(ckpt_d, map_location="cpu", weights_only=True)
+
+    g_model, g_opt = convert_generator(raw_g["G_model"],
+                                       raw_g.get("G_optimizer"))
+    epoch = int(raw_g.get("G_epoch", 0))
+    bundle_g = {"G_model": g_model, "G_optimizer": g_opt, "G_epoch": epoch}
+
+    bundle_d = {"D_epoch": int(raw_d.get("D_epoch", epoch))}
+    for i in range(1, 5):
+        model, opt = convert_discriminator(raw_d[f"D_model{i}"],
+                                           raw_d.get(f"D_optimizer{i}"))
+        bundle_d[f"D_model{i}"] = model
+        bundle_d[f"D_optimizer{i}"] = opt
+
+    os.makedirs(out_dir, exist_ok=True)
+    path_g = os.path.join(out_dir, f"{epoch}_{category}_G.msgpack")
+    path_d = os.path.join(out_dir, f"{epoch}_{category}_D.msgpack")
+    save_state(path_g, bundle_g)
+    save_state(path_d, bundle_d)
+    return path_g, path_d
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        description="Convert reference .pth checkpoints to the JAX "
+        "package's msgpack bundles")
+    ap.add_argument("--ckpt_g", required=True)
+    ap.add_argument("--ckpt_d", required=True)
+    ap.add_argument("--out_dir", required=True)
+    ap.add_argument("--category", default="chair")
+    args = ap.parse_args(argv)
+    path_g, path_d = convert_files(args.ckpt_g, args.ckpt_d, args.out_dir,
+                                   args.category)
+    print(path_g)
+    print(path_d)
+
+
+if __name__ == "__main__":
+    main()

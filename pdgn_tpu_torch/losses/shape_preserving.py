@@ -8,7 +8,8 @@ the coarser cloud's points are reduced to their mean and covariance
 kernel each way on the card), and the Chamfer distances between the two
 statistic sets, over the coarse point count, are the loss terms. They
 sum over the clouds (no mean), so on a data-parallel rank the terms of its
-rows are its share of the global batch's, as they are.
+rows are its share of the global batch's, as they are. The JAX package's
+``mask`` argument has no counterpart: a rank holds only real rows.
 """
 
 from __future__ import annotations
@@ -49,3 +50,14 @@ def shape_preserving_terms(clouds: Sequence[torch.Tensor], nsample: int = 20
             mu_total = mu_total + chamfer_loss(mu1, mu2) / float(M)
             cov_total = cov_total + chamfer_loss(cov1, cov2) / float(M)
     return mu_total, cov_total
+
+
+def shape_preserving_loss(clouds: Sequence[torch.Tensor], nsample: int = 20,
+                          mu_weight: float = 1.0, cov_weight: float = 1.0
+                          ) -> torch.Tensor:
+    """``mu_weight * mu_total + cov_weight * cov_total`` over the resolution
+    pairs (:func:`shape_preserving_terms`): the reference weights them 1/1
+    in v2 (models/PDGNet_v2.py:251-252) and 1/5 in v1
+    (models/PDGNet.py:262-263)."""
+    mu_total, cov_total = shape_preserving_terms(clouds, nsample)
+    return mu_weight * mu_total + cov_weight * cov_total

@@ -33,23 +33,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from pdgn_tpu_torch.convert_ckpt import (adam_from_jax, adam_to_jax,
+from pdgn_tpu_torch.convert_ckpt import (COUNTER, adam_from_jax, adam_to_jax,
                                          discriminator_rules_of,
                                          discriminator_state_from_jax,
                                          discriminator_state_to_jax,
                                          generator_rules,
                                          generator_state_from_jax,
-                                         generator_state_to_jax)
+                                         generator_state_to_jax,
+                                         strip_module)
 from pdgn_tpu_torch.utils import msgpack
 
 FORMATS = ("pth", "msgpack")
-COUNTER = "num_batches_tracked"
-
-
-def strip_module(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Drop the ``module.`` prefix of DataParallel state dicts."""
-    return {(k[7:] if k.startswith("module.") else k): v
-            for k, v in sd.items()}
 
 
 # ------------------------------------------------------------ msgpack trees

@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from pdgn_tpu_torch.losses.gan import d_loss, g_adv_loss
-from pdgn_tpu_torch.losses.shape_preserving import shape_preserving_terms
+from pdgn_tpu_torch.losses.shape_preserving import shape_preserving_loss
 from pdgn_tpu_torch.parallel.mesh import Mesh, replicate
 from pdgn_tpu_torch.parallel.sync_bn import set_group
 
@@ -139,8 +139,8 @@ def train_step(state: GANState, reals: Sequence[torch.Tensor],
 
     state.g_opt.zero_grad(set_to_none=True)
     fakes = G(noise_g, batch=batch)
-    mu, cov = shape_preserving_terms(fakes, cfg.shape_nsample)
-    similar = cfg.mu_weight * mu + cfg.cov_weight * cov
+    similar = shape_preserving_loss(fakes, cfg.shape_nsample, cfg.mu_weight,
+                                    cfg.cov_weight)
     adv = 0.0
     for w, D, fake in zip(cfg.adv_weights, Ds, fakes):
         adv = adv + w * g_adv_loss(D(fake, batch=batch), batch)

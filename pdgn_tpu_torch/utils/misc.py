@@ -13,8 +13,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pdgn_tpu_torch.train.checkpoint import load_state, save_state
-
 
 class BlackHole:
     """Accepts any attribute access or call and does nothing."""
@@ -158,6 +156,9 @@ class CheckpointManager:
                     os.remove(os.path.join(self.save_dir, old["file"]))
                 except FileNotFoundError:
                     pass
+        # imported here: train.checkpoint imports this package (utils)
+        from pdgn_tpu_torch.train.checkpoint import save_state
+
         save_state(os.path.join(self.save_dir, fname), state)
         self.ckpts.append({"score": float(score), "file": fname,
                            "iteration": step})
@@ -166,6 +167,8 @@ class CheckpointManager:
     def _load(self, idx: Optional[int]):
         if idx is None:
             raise IOError("No checkpoints found.")
+        from pdgn_tpu_torch.train.checkpoint import load_state
+
         return load_state(os.path.join(self.save_dir,
                                        self.ckpts[idx]["file"]))
 

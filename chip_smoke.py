@@ -6,6 +6,7 @@ Run from the root of the repository with no arguments::
     python3 chip_smoke.py [--out results.json]
     python3 chip_smoke.py --train-alone     # phase 3t alone (below)
     python3 chip_smoke.py --parallel-alone  # phase 3m alone (below)
+    python3 chip_smoke.py --bf16-alone      # phases 3b and 4b alone
 
 What it does, in order (any failure raises and the exit code is not 0):
 
@@ -211,9 +212,17 @@ head, slot stats and both forward tails), after 2w, 3, 3e and 4p:
    metrics;
 4b. each bf16 instance at B=128 (stage 4; the plain tail at stage 1): its
    time, its bf16 plain version's, the library call where one computes
-   the same function (``h.T @ h`` in bf16 for slot stats; ``torch.addmm``
-   in bf16 as the merge's sub-yardstick), the bound (products at the bf16
-   tensor cores' 989 TFLOP/s), and the 2b checks again.
+   the same function (``h.T @ h`` in bf16 for slot stats, and beside it
+   ``torch.mm(h.T, h, out_dtype=float32)``, which returns fp32 S as the
+   kernel does, where the installed torch takes it; ``torch.addmm`` in
+   bf16 as the merge's sub-yardstick), the bound (products at the bf16
+   tensor cores' 989 TFLOP/s), and the 2b checks again. The bf16 head's
+   entry also gives its graph's share (``knn_topk`` for k+1 on the same
+   fp32 upcast, timed alone) and the rest's rate over its gather-first
+   products (hk windows of depth window*C and conv_a against 4Fin, the
+   merge's (k+1)*C against 2F: 1.25 TFLOP at stage 4). ``--bf16-alone``
+   builds the kernels and runs 3b and 4b alone; copied into another
+   checkout's root it times that checkout's bf16 instances.
 
 The bf16 train slice (``--phase train --compute_dtype bfloat16``: the
 bf16 instances of the head backward and both tail backwards), after 2b,
@@ -1540,6 +1549,7 @@ def time_bf16_kernels(dev, gen) -> dict:
     import torch
     from pdgn_tpu_torch.ops.kernels.bilateral_tail import tail, tail_reference
     from pdgn_tpu_torch.ops.kernels.edge_head import edge_head, head_plain
+    from pdgn_tpu_torch.ops.kernels.knn import knn_topk
     from pdgn_tpu_torch.ops.kernels.slot_stats import (slot_moment_stats,
                                                        stats_plain)
 
@@ -1565,28 +1575,51 @@ def time_bf16_kernels(dev, gen) -> dict:
                        + 2 * four_fin + 2 * K * 32))     # pb, idx, partial
     b, by = bound(0.0, nbytes, t_ops)
     wargs = fp32_weights(args, HEAD_WEIGHTS)
+    ms = time_ms(lambda: edge_head(*wargs), 3)
+    # the graph alone (knn_select through knn_topk on the same upcast), and
+    # the rest's rate over the gather-first products
+    xk = args[1].float()
+    graph_ms = time_ms(lambda: knn_topk(xk, xk, K + 1), 3)
+    gather_flop = 2.0 * rows * c * (hk * window * four_fin + four_fin
+                                    + (K + 1) * two_f)
+    body_tflops = gather_flop / ((ms - graph_ms) * 1e-3) / 1e12
+    log(f"  head bf16: {ms:.3f} ms, the graph alone {graph_ms:.3f} ms, the "
+        f"rest {ms - graph_ms:.3f} ms: {body_tflops:.1f} TFLOP/s over "
+        f"{gather_flop / 1e12:.4f} TFLOP of gather-first products")
     res["edge_head_bf16"] = {
-        "ms": time_ms(lambda: edge_head(*wargs), 3),
+        "ms": ms,
         "plain_ms": time_ms(lambda: head_plain(*args), 2),
         "bound_ms": b, "bound_by": by, "library_ms": None,
+        "graph_ms": graph_ms, "body_tflops": body_tflops,
         "shape": f"stage 4, B={B}, N={n}, C={c}+{cx}, 4Fin={four_fin}, "
                  f"2F={two_f}, gated, bf16"}
     res["edge_head_bf16"]["max_abs_err"] = compare_head_bf16(
         args, f"stage 4 B={B}")
-    del args, wargs
+    del args, wargs, xk
 
     h = torch.randn(B, n, K * 64, generator=gen, device=dev).to(bf)
     srows = B * n * K
     b, by = bound(srows * 64.0, 2.0 * srows * 64 + 4.0 * (64 * 64 + 64),
                   srows * 64 * 65 / PEAK_BF16 * 1e3)
     hf = h.reshape(-1, 64)
+    try:  # fp32 S from bf16 h in one call, where the installed torch has it
+        torch.mm(hf.T, hf, out_dtype=torch.float32)
+        out_dtype_ms = time_ms(
+            lambda: torch.mm(hf.T, hf, out_dtype=torch.float32), 10)
+    except (TypeError, RuntimeError) as e:
+        log(f"  torch.mm(..., out_dtype=torch.float32) unavailable: {e}")
+        out_dtype_ms = None
     res["slot_stats_bf16"] = {
         "ms": time_ms(lambda: slot_moment_stats(h, K), 10),
         "plain_ms": time_ms(lambda: stats_plain(h, K), 10),
         "bound_ms": b, "bound_by": by,
         "library_ms": time_ms(lambda: torch.matmul(hf.T, hf), 10),
+        "library_out_dtype_ms": out_dtype_ms,
         "shape": f"stage 4, B={B}, rows={srows}, H=64, bf16 (library: "
                  f"h.T @ h in bf16)"}
+    log(f"  slot_stats bf16: {res['slot_stats_bf16']['ms']:.4f} ms, h.T @ h "
+        f"{res['slot_stats_bf16']['library_ms']:.4f} ms, out_dtype fp32 "
+        f"{out_dtype_ms}")
     res["slot_stats_bf16"]["max_abs_err"] = compare_slot_stats_bf16(
         h, f"stage 4 B={B}")
     del h, hf
@@ -3910,6 +3943,10 @@ def main(argv=None) -> int:
                     help="also write the full results to this JSON file")
     ap.add_argument("--parallel-alone", action="store_true",
                     help="build the kernels and run phase 3m alone")
+    ap.add_argument("--bf16-alone", action="store_true",
+                    help="build the kernels and run phases 3b and 4b alone; "
+                    "copied into another checkout's root, it times that "
+                    "checkout's bf16 instances")
     ap.add_argument("--train-alone", action="store_true",
                     help="build the kernels, run phase 3t alone and print "
                     "its steps/s; copied into another checkout's root, it "
@@ -3947,6 +3984,16 @@ def main(argv=None) -> int:
         par = parallel_path(root, smi, dev)
         par.pop("launches")
         print(json.dumps({"card": smi, "parallel": par}))
+        return 0
+    if args.bf16_alone:
+        from pdgn_tpu_torch.train.generate import build_generator
+
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        path_bf16 = main_path_bf16(dev, build_generator(SEED, dev))
+        times = time_bf16_kernels(dev, gen)
+        print(json.dumps({"card": smi, "build_s": build_s,
+                          "bf16_clouds_per_s_b128": path_bf16["clouds_per_s"],
+                          "times": times}))
         return 0
     if args.train_alone:
         ckpt_root = os.path.join(root, "pdgn_tpu_torch", "_build",
@@ -4086,7 +4133,8 @@ def main(argv=None) -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         for extra in ("cdist_topk_ms", "sub_yardstick", "largest_call",
-                      "kink_share"):
+                      "kink_share", "graph_ms", "body_tflops",
+                      "library_out_dtype_ms"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
         log(f"  {name} ({t['shape']}): {t['ms']:.3f} ms, plain "

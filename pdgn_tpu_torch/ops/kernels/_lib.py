@@ -42,8 +42,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "pdgn_edge_head": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I]
                       + [_P] * 11 + [_P, _I, _I, _P, _P, _P],
-    "pdgn_edge_head_bf16": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I]
-                           + [_P] * 11 + [_P, _I, _I, _P, _P, _P, _P],
+    "pdgn_edge_head_bf16": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I]
+                           + [_P] * 11 + [_I, _P, _P, _P, _P],
     "pdgn_slot_stats": [_P, _L, _I, _P, _P, _P],
     "pdgn_slot_stats_bf16": [_P, _L, _I, _P, _P, _P],
     "pdgn_bilateral_tail": [_P] * 10 + [_I, _P] + [_I] * 6 + [_P] * 3,
@@ -163,6 +163,12 @@ def up4(v: int) -> int:
 def up8(v: int) -> int:
     """``v`` rounded up to a multiple of 8 (a 16-byte granule of bf16)."""
     return -(-v // 8) * 8
+
+
+def up64(v: int) -> int:
+    """``v`` rounded up to a multiple of 64 (a 128-byte row of bf16: the
+    bf16 head's slab of one neighbour slot)."""
+    return -(-v // 64) * 64
 
 
 def instance(t) -> str:

@@ -117,16 +117,44 @@ def pack_head_weights(wn_flat, conv_a, a_merge, wen, k: int, window: int):
                       we.reshape(C, k * two_f), a_merge], dim=1)
 
 
-# bytes of the product scratch P per chunk of clouds
+def pack_head_weights_bf16(wn_flat, conv_a, a_merge, wen, k: int,
+                           window: int):
+    """The bf16 instance's product operands, K-major for its gather-first
+    kernel: ``W_conv^T = [Wn_0 | .. | Wn_{window-1} | conv_a]^T`` of shape
+    ``(4Fin, (window+1)*cp)`` and ``W_merge^T = [We_0 | .. | We_{k-1} |
+    A]^T`` of shape ``(2F, (k+1)*cp)``, bf16, each slot's block of C rows
+    zero-padded to ``cp = up64(C)``: window ``wp``'s ``inte`` is ``[x[idx[:,
+    wp]] | .. | x[idx[:, wp+window-1]] | x] @ W_conv + pb_point`` and
+    ``partial`` is ``[x[idx[:, 0]] | .. | x[idx[:, k-1]] | x] @ W_merge +
+    pb_merge``, with x zero-padded to ``cp`` channels."""
+    C, four_fin = conv_a.shape
+    two_f = a_merge.shape[-1]
+    cp = _lib.up64(C)
+    pad = torch.nn.functional.pad
+    w_conv = torch.cat([wn_flat.reshape(window, C, four_fin), conv_a[None]])
+    w_conv = pad(w_conv, (0, 0, 0, cp - C)).permute(2, 0, 1)
+    w_merge = torch.cat([wen.reshape(k, C, two_f), a_merge[None]])
+    w_merge = pad(w_merge, (0, 0, 0, cp - C)).permute(2, 0, 1)
+    bf = torch.bfloat16
+    return (w_conv.reshape(four_fin, (window + 1) * cp).to(bf).contiguous(),
+            w_merge.reshape(two_f, (k + 1) * cp).to(bf).contiguous())
+
+
+# bytes of the fp32 instance's product scratch P per chunk of clouds
 _P_BUDGET = 1 << 30
 
 
 def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
                 pcat, ppoint, k: int, window: int):
     """Launch ``csrc/edge_head.cu`` (CUDA tensors, checked by
-    :func:`edge_head`; its fp32 or its bf16 instance, by ``x``'s dtype):
-    the kNN, then per chunk of clouds the product ``P = x @ W_all`` and the
-    gather pass."""
+    :func:`edge_head`): for fp32 ``x`` the kNN, then per chunk of clouds the
+    product ``P = x @ W_all`` and the gather pass; bf16 ``x`` takes the
+    gather-first instance (:func:`head_kernel_bf16`)."""
+    if x.dtype == torch.bfloat16:
+        return head_kernel_bf16(x, x_knn, wn_flat, conv_a, pb_point,
+                                a_merge, wen, pb_merge, pcat, ppoint, k,
+                                window)
+    _lib.instance(x)
     B, N, C = x.shape
     cf = x_knn.shape[-1]
     hk = k // 2
@@ -134,15 +162,12 @@ def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     two_f = a_merge.shape[-1]
     dev = x.device
     f32 = dict(device=dev, dtype=torch.float32)
-    io = dict(device=dev, dtype=x.dtype)
-    sfx = _lib.instance(x)
     _lib.check_rows(B, 1, "edge_head")
     # the product's operands: depth and columns padded to 16-byte rows (4
-    # fp32 or 8 bf16)
-    up = _lib.up8 if sfx else _lib.up4
-    c4 = up(C)
+    # fp32)
+    c4 = _lib.up4(C)
     w_all = pack_head_weights(wn_flat, conv_a, a_merge, wen, k, window)
-    ld = up(w_all.shape[1])
+    ld = _lib.up4(w_all.shape[1])
     w_all = torch.nn.functional.pad(
         w_all, (0, ld - w_all.shape[1], 0, c4 - C)).contiguous()
     xa = (_lib.aligned(x) if c4 == C
@@ -155,27 +180,75 @@ def head_kernel(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen, pb_merge,
     P = torch.empty(chunk * N, ld, **f32)
     stats_part = torch.empty(parts, 2, four_fin, **f32)
     idx = torch.empty(B, N, k, device=dev, dtype=torch.int32)
-    inte = torch.empty(B, N, hk * four_fin, **io)
+    inte = torch.empty(B, N, hk * four_fin, **f32)
     partial = torch.empty(B, N, two_f, **f32)
     stats = torch.empty(2, four_fin, **f32)
     gated = pcat is not None
     if gated:
-        wfea = torch.empty(B, N, k * PROJ // 2, **io)
-        wxyz = torch.empty(B, N, k * PROJ // 2, **io)
+        wfea = torch.empty(B, N, k * PROJ // 2, **f32)
+        wxyz = torch.empty(B, N, k * PROJ // 2, **f32)
         wstats = torch.empty(2, k * PROJ, **f32)
         w_part = torch.empty(parts, 2, k * PROJ, **f32)
     else:
         wfea = wxyz = wstats = w_part = None
-    # the bf16 instance builds its graph from an fp32 upcast of x_knn
-    xk = (torch.empty(B, N, cf, **f32),) if sfx else ()
     p = _lib.ptr
-    _lib.check(getattr(_lib.library(), "pdgn_edge_head" + sfx)(
+    _lib.check(_lib.library().pdgn_edge_head(
         p(xa), p(x_knn), B, N, c4, cf, k, p(w_all), ld, four_fin, two_f,
         p(pb_point), p(pb_merge), p(pcat), p(ppoint), p(idx), p(inte),
         p(partial), p(stats), p(wfea), p(wxyz), p(wstats), p(P), chunk,
-        grid, p(stats_part), p(w_part), *map(p, xk),
-        _lib.stream_handle(dev)), "pdgn_edge_head" + sfx)
-    _lib.LAUNCHES["edge_head" + sfx] += 1
+        grid, p(stats_part), p(w_part), _lib.stream_handle(dev)),
+        "pdgn_edge_head")
+    _lib.LAUNCHES["edge_head"] += 1
+    return idx, inte, partial, stats, wfea, wxyz, wstats
+
+
+def head_kernel_bf16(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen,
+                     pb_merge, pcat, ppoint, k: int, window: int):
+    """Launch ``pdgn_edge_head_bf16``, the gather-first instance: the graph
+    on the fp32 upcast of ``x_knn``, then one persistent kernel that
+    gathers the neighbours' rows of bf16 ``x`` and multiplies them by the
+    packed weights (:func:`pack_head_weights_bf16`) on the tensor cores,
+    writing ``inte`` (rounded to bf16), ``partial`` and the sums; no
+    product scratch. Gated, the weight-net rows by a light pass."""
+    B, N, C = x.shape
+    cf = x_knn.shape[-1]
+    hk = k // 2
+    four_fin = conv_a.shape[-1]
+    two_f = a_merge.shape[-1]
+    dev = x.device
+    bf = torch.bfloat16
+    f32 = dict(device=dev, dtype=torch.float32)
+    io = dict(device=dev, dtype=bf)
+    if B * N * k >= 2 ** 31:
+        raise ValueError(f"edge_head bf16: {B * N} rows x k={k} exceed one "
+                         f"launch; use a smaller batch")
+    cp = _lib.up64(C)
+    w_conv, w_merge = pack_head_weights_bf16(wn_flat, conv_a, a_merge, wen,
+                                             k, window)
+    xa = (_lib.aligned(x) if cp == C
+          else torch.nn.functional.pad(x, (0, cp - C)).contiguous())
+    grid = _lib.sm_count(dev)
+    stats_part = torch.empty(grid, 2, four_fin, **f32)
+    idx = torch.empty(B, N, k, device=dev, dtype=torch.int32)
+    inte = torch.empty(B, N, hk * four_fin, **io)
+    partial = torch.empty(B, N, two_f, **f32)
+    stats = torch.empty(2, four_fin, **f32)
+    if pcat is not None:
+        wfea = torch.empty(B, N, k * PROJ // 2, **io)
+        wxyz = torch.empty(B, N, k * PROJ // 2, **io)
+        wstats = torch.empty(2, k * PROJ, **f32)
+        w_part = torch.empty(grid, 2, k * PROJ, **f32)
+    else:
+        wfea = wxyz = wstats = w_part = None
+    xk = torch.empty(B, N, cf, **f32)
+    p = _lib.ptr
+    _lib.check(_lib.library().pdgn_edge_head_bf16(
+        p(xa), p(x_knn), B, N, cp, cf, k, p(w_conv), p(w_merge), four_fin,
+        two_f, p(pb_point), p(pb_merge), p(pcat), p(ppoint), p(idx),
+        p(inte), p(partial), p(stats), p(wfea), p(wxyz), p(wstats), grid,
+        p(stats_part), p(w_part), p(xk), _lib.stream_handle(dev)),
+        "pdgn_edge_head_bf16")
+    _lib.LAUNCHES["edge_head_bf16"] += 1
     return idx, inte, partial, stats, wfea, wxyz, wstats
 
 

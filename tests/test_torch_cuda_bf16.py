@@ -4,7 +4,11 @@ versions, on the card, at small and ragged shapes that the full-width
 checks of ``chip_smoke.py`` phase 2b never hit: row counts that fill no
 tile, channel counts off multiples of 8 (a 16-byte granule of bf16, so
 ``x``, ``wi`` and ``g`` are padded), k from 6 to 126, 2Fin odd (the gate
-stages those channels by plain loads). bf16 outputs within 2 ulps of the
+stages those channels by plain loads). The gather-first head's own tile
+edges: 63, 64, 65 and 1,000 rows against its 128-row tiles, C padded to
+its 64-channel slabs, 4Fin and 2F off its 256-column tiles (odd: scalar
+stores), k = 2 and 126, plain and gated, and no product scratch at a
+stage-4 shape. bf16 outputs within 2 ulps of the
 larger magnitude, counted at no less than 1/256 of the largest
 (``torch_port_util.bf16_ulps``, phase 2b's measure and limit; the tails'
 y held to the float64 merge of their own g, as phase 2b holds it); fp32
@@ -60,9 +64,9 @@ def _rel(a, b):
                  / b.double().abs().max().clamp_min(1e-12))
 
 
-def _head_args(dev, N, C, cx, k, gated, four_fin=None, two_f=None):
+def _head_args(dev, N, C, cx, k, gated, four_fin=None, two_f=None, B=3):
     g = torch.Generator(device=dev).manual_seed(N + k + C)
-    B, cf = 3, C + cx
+    cf = C + cx
     four_fin = four_fin or 4 * cf
     two_f = two_f or 2 * cf
     window = k // 2 + 1
@@ -81,16 +85,11 @@ def _head_args(dev, N, C, cx, k, gated, four_fin=None, two_f=None):
     return x, x_knn, wn, ca, pb, am, wen, pbm, pcat, ppoint, k, window
 
 
-@pytest.mark.parametrize("N,C,cx,k,gated,four_fin,two_f", [
-    (100, 40, 0, 6, False, None, None),
-    (130, 24, 16, 10, True, None, None),
-    (256, 128, 128, 10, True, None, None),
-    (200, 36, 8, 14, True, None, None),       # C off a multiple of 8
-    (150, 16, 16, 18, False, None, None),
-    (160, 8, 8, 126, True, None, None),
-    (128, 32, 0, 10, False, 130, 66)])        # scalar gather columns
-def test_bf16_head_matches_plain(dev, N, C, cx, k, gated, four_fin, two_f):
-    args = _head_args(dev, N, C, cx, k, gated, four_fin, two_f)
+def _head_matches_plain(args):
+    """Two launches bit-identical and counted, the graph knn_topk's of the
+    fp32 upcast, the rest against the plain version on that graph: bf16
+    outputs within 2 ulps, fp32 outputs rel <= 1e-4."""
+    k = args[10]
     before = _lib.LAUNCHES["edge_head_bf16"]
     got = edge_head(*args)
     again = edge_head(*args)
@@ -113,7 +112,57 @@ def test_bf16_head_matches_plain(dev, N, C, cx, k, gated, four_fin, two_f):
             assert _rel(a, b) <= 1e-4
 
 
-@pytest.mark.parametrize("rows,k", [(1, 2), (1000, 10), (5003, 18)])
+@pytest.mark.parametrize("N,C,cx,k,gated,four_fin,two_f", [
+    (100, 40, 0, 6, False, None, None),
+    (130, 24, 16, 10, True, None, None),
+    (256, 128, 128, 10, True, None, None),
+    (200, 36, 8, 14, True, None, None),       # C off a multiple of 8
+    (150, 16, 16, 18, False, None, None),
+    (160, 8, 8, 126, True, None, None),
+    (128, 32, 0, 10, False, 130, 66)])        # scalar gather columns
+def test_bf16_head_matches_plain(dev, N, C, cx, k, gated, four_fin, two_f):
+    _head_matches_plain(_head_args(dev, N, C, cx, k, gated, four_fin, two_f))
+
+
+@pytest.mark.parametrize("B,N,C,cx,k,gated,four_fin,two_f", [
+    (1, 63, 64, 0, 10, True, None, None),     # rows that fill no tile
+    (1, 64, 64, 0, 10, False, None, None),    # half a tile
+    (1, 65, 128, 0, 10, True, None, None),
+    (1, 1000, 128, 128, 10, True, None, None),
+    (2, 300, 96, 32, 10, True, 300, 130),     # off the 256-column tiles
+    (2, 200, 40, 0, 10, False, 257, 129),     # odd: scalar stores
+    (2, 100, 32, 0, 2, True, None, None),     # k = 2
+    (2, 200, 32, 0, 2, False, None, None),
+    (1, 200, 64, 0, 126, True, None, None),   # k = 126: depth 64 slots
+    (1, 160, 24, 8, 126, False, None, None)])
+def test_bf16_head_tile_edges(dev, B, N, C, cx, k, gated, four_fin, two_f):
+    _head_matches_plain(_head_args(dev, N, C, cx, k, gated, four_fin, two_f,
+                                   B=B))
+
+
+def test_bf16_head_allocates_no_product_scratch(dev):
+    """At stage 4 (N=1024, C=128+128, k=10), B=32, the memory one bf16 head
+    call takes beyond its inputs and outputs is below an eighth of the
+    product scratch P that the P-first design allocated for its first
+    chunk of clouds (fp32 rows of the packed W_all, at most 1 GiB)."""
+    B, N, C, cx, k = 32, 1024, 128, 128, 10
+    args = _head_args(dev, N, C, cx, k, True, B=B)
+    four_fin, two_f, window = 4 * (C + cx), 2 * (C + cx), k // 2 + 1
+    ld = _lib.up8((window + 1) * four_fin + (k + 1) * two_f)
+    chunk_bytes = min(B, (1 << 30) // (N * ld * 4)) * N * ld * 4
+    edge_head(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = edge_head(*args)
+    torch.cuda.synchronize()
+    outs = sum(o.numel() * o.element_size() for o in out if o is not None)
+    scratch = torch.cuda.max_memory_allocated() - base - outs
+    assert scratch < chunk_bytes / 8, (scratch, chunk_bytes)
+
+
+@pytest.mark.parametrize("rows,k", [(1, 2), (1000, 10), (5003, 18),
+                                    (40000, 10)])
 def test_bf16_slot_stats_matches_plain(dev, rows, k):
     h = torch.randn(1, rows, k * 64, device=dev).to(BF)
     s, S = slot_moment_stats(h, k)

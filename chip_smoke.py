@@ -194,11 +194,16 @@ head, slot stats and both forward tails), after 2w, 3, 3e and 4p:
 
 2b. each bf16 instance against its bf16 plain version at stage 4, B=8
    (the plain head and tail at stage 1), at k = 14 and 18 and at 4Fin =
-   130, 2F = 66: bf16 outputs within ``BF16_ULPS`` (2 ulps of the larger
-   magnitude, counted at no less than 1/256 of the tensor's largest), fp32
-   outputs rel <= 1e-4 (slot stats 1e-5), the graph equal to
-   ``knn_topk``'s on the fp32 upcast and to the plain one's but at
-   near-ties (phase 2's rule); two launches bit-identical;
+   130, 2F = 66 (the gated tail also at 2F = 1030): bf16 outputs within
+   ``BF16_ULPS`` (2 ulps of the larger magnitude, counted at no less than
+   1/256 of the tensor's largest), fp32 outputs rel <= 1e-4 (slot stats
+   1e-5), the graph equal to ``knn_topk``'s on the fp32 upcast and to the
+   plain one's but at near-ties (phase 2's rule); two launches bit-identical. The tails'
+   y is held within 1 ulp (at most 0.1% of entries differing) to the bf16
+   rounding of the float64 merge of the kernel's own g: the fused gated
+   kernel writes none, so its g is the one it made, written for the check
+   (``probe_g``), its y equal to the unprobed launch's; the bf16
+   backward's g (``keep_g``) within ``BF16_ULPS`` of the plain gate;
 3b. ``generate()`` in bf16 at full width, 256 clouds in batches of 128, on
    phase 3's weights: launch counters set to 0 just before and read just
    after (the bf16 instances only: 4 head, 3 slot-stats, 3 gated and 1
@@ -220,7 +225,10 @@ head, slot stats and both forward tails), after 2w, 3, 3e and 4p:
    entry also gives its graph's share (``knn_topk`` for k+1 on the same
    fp32 upcast, timed alone) and the rest's rate over its gather-first
    products (hk windows of depth window*C and conv_a against 4Fin, the
-   merge's (k+1)*C against 2F: 1.25 TFLOP at stage 4). ``--bf16-alone``
+   merge's (k+1)*C against 2F: 1.25 TFLOP at stage 4). The gated tail's
+   entry gives its rate over the 773.1 GFLOP of slot logits and merge and
+   the packed wi, inte and h bytes it moves through L2, counted from the
+   shapes and its tiles. ``--bf16-alone``
    builds the kernels and runs 3b and 4b alone; copied into another
    checkout's root it times that checkout's bf16 instances.
 
@@ -1048,12 +1056,13 @@ def odd_head_inputs(B: int, gen, dev):
             None, None, K, window)
 
 
-def odd_tail_inputs(B: int, gated: bool, gen, dev):
-    """A tail at stage 1's 128 points with 4Fin = 130 and 2F = 66: 2Fin =
-    65 is odd, and every operand of the backward's products is padded."""
+def odd_tail_inputs(B: int, gated: bool, gen, dev, two_f: int = 66):
+    """A tail at stage 1's 128 points with 4Fin = 130 and 2F = 66 (or
+    ``two_f``): 2Fin = 65 is odd, and every operand of the backward's
+    products is padded."""
     import torch
 
-    n, four_fin, two_f = 128, 130, 66
+    n, four_fin = 128, 130
     hk, two_fin = K // 2, four_fin // 2
 
     def r(*shape, scale=1.0, shift=0.0):
@@ -1327,22 +1336,34 @@ def bf16_differing(a, b) -> float:
 
 def compare_tail_bf16(args, label: str) -> float:
     """A tail's bf16 instance against its bf16 plain version, in two parts
-    and as a whole. The gate g the kernel writes against the plain gate
+    and as a whole. The gate g the kernel made against the plain gate
     (``gate_reference``): within ``BF16_ULPS``, at most 0.1% of its entries
     differing (a factor at a bf16 midpoint). y against the bf16 rounding of
     the float64 merge of the kernel's own g: within 1 ulp, at most 0.1%
     differing (the merge's fp32 accumulation on the tensor cores). y against
     the plain version's y: at most 1% differing; its ulps printed (one g
     entry that rounds the other way moves a y near 0 by several ulps of
-    1/256 of the largest)."""
+    1/256 of the largest). Two launches bit-identical. The gated instance
+    is one fused kernel that writes no g: its g is the one it made, written
+    for this check (``probe_g``), its y equal to the unprobed launch's; the
+    bf16 backward's own g (``keep_g``: (gi * w) rounded once, not the
+    forward's three roundings) is held to the plain gate within
+    ``BF16_ULPS``."""
     import torch
-    from pdgn_tpu_torch.ops.kernels.bilateral_tail import (gate_reference,
-                                                           tail_kernel,
-                                                           tail_reference)
+    from pdgn_tpu_torch.ops.kernels.bilateral_tail import (
+        gate_reference, tail_bwd_kernel_bf16, tail_kernel, tail_reference)
 
     (partial, inte, h, isc, ish, w2k, w2b, s2, t2, wi, bias, k, sm) = args
     B, N, two_f = partial.shape
-    y_k, g_k = tail_kernel(*args, keep_g=True)
+    if h is not None:
+        y_k, g_k = tail_kernel(*args, probe_g=True)
+    else:
+        y_k, g_k = tail_kernel(*args, keep_g=True)
+    again = tail_kernel(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(y_k, again),
+            f"tail bf16 {label}: y differs between two launches")
+    del again
     y_p = tail_reference(*args)
     require(y_k.dtype == y_p.dtype == g_k.dtype == torch.bfloat16,
             f"tail bf16 {label}: dtypes {y_k.dtype}, {y_p.dtype}")
@@ -1361,6 +1382,15 @@ def compare_tail_bf16(args, label: str) -> float:
     require(e_g <= BF16_ULPS and f_g <= 1e-3, f"tail bf16 {label}: g")
     require(e_m <= 1.0 and f_m <= 1e-3, f"tail bf16 {label}: the merge")
     require(f_y <= 1e-2, f"tail bf16 {label}: {f_y} of y differs")
+    if h is not None:
+        dy = torch.zeros_like(y_k)
+        g_b = tail_bwd_kernel_bf16(inte, h, isc, ish, w2k, w2b, s2, t2, wi,
+                                   dy, k, sm, keep_g=True)[11]
+        e_b = bf16_ulps(g_b, g_p)
+        log(f"    the backward's g against the plain gate {e_b:.2f} ulps, "
+            f"{bf16_differing(g_b, g_p):.6f} differing; against the "
+            f"forward's {bf16_differing(g_b, g_k):.6f}")
+        require(e_b <= BF16_ULPS, f"tail bf16 {label}: the backward's g")
     return max_abs(y_k, y_p)
 
 
@@ -1368,7 +1398,8 @@ def check_bf16_kernels(gen, dev) -> dict:
     """Phase 2b: the four bf16 instances against their bf16 plain versions
     at stage 4 (B=8; the plain head and tail at stage 1), at the widened k
     of phase 2w (14, 18) and at 4Fin = 130, 2F = 66 (the plain head's
-    scalar columns; the tails' 2Fin = 65, staged by plain loads in bf16).
+    scalar columns; the tails' 2Fin = 65, staged by plain loads in bf16);
+    the gated tail also at 2F = 1030 (three column items a row tile).
     Phase 4b holds them again at B=128."""
     import torch
 
@@ -1408,6 +1439,11 @@ def check_bf16_kernels(gen, dev) -> dict:
         errs[name] = max(errs[name], compare_tail_bf16(
             tail_bf16(odd_tail_inputs(8, gated, gen, dev)),
             f"B=8 4Fin=130 2F=66 {'gated' if gated else 'plain'}"))
+    # 2F = 1030: three of the fused kernel's 512-column items a row tile
+    errs["bilateral_tail_gated_bf16"] = max(
+        errs["bilateral_tail_gated_bf16"], compare_tail_bf16(
+            tail_bf16(odd_tail_inputs(8, True, gen, dev, two_f=1030)),
+            "B=8 4Fin=130 2F=1030 gated"))
     return errs
 
 
@@ -1547,7 +1583,8 @@ def time_bf16_kernels(dev, gen) -> dict:
     the fp32 SIMT rate, against bf16 bytes (fp32 for partial, pb_*, the
     sums and the folds); holds each against its plain version again."""
     import torch
-    from pdgn_tpu_torch.ops.kernels.bilateral_tail import tail, tail_reference
+    from pdgn_tpu_torch.ops.kernels.bilateral_tail import (TAIL_CC, tail,
+                                                           tail_reference)
     from pdgn_tpu_torch.ops.kernels.edge_head import edge_head, head_plain
     from pdgn_tpu_torch.ops.kernels.knn import knn_topk
     from pdgn_tpu_torch.ops.kernels.slot_stats import (slot_moment_stats,
@@ -1634,10 +1671,28 @@ def time_bf16_kernels(dev, gen) -> dict:
               + 4.0 * (rows * two_f + 2 * four_fin + 4 * two_fin))
     b, by = bound(simt, nbytes, products / PEAK_BF16 * 1e3)
     wargs = fp32_weights(targs, TAIL_WEIGHTS)
+    ms = time_ms(lambda: tail(*wargs), 3)
+    # what the fused kernel moves through L2, counted from the shapes and
+    # its tiles (csrc/bilateral_tail.cu: a cluster's item 64 rows x 512
+    # columns, slabs of TAIL_CC channels): every item streams its columns
+    # of the packed wi over the whole depth and makes its rows' gate once,
+    # reading their inte channels once and their h rows once
+    chunks = -(-two_fin // TAIL_CC)
+    ct = -(-two_f // 512)
+    items = -(-rows // 64) * ct
+    l2 = {"wi": 2.0 * items * chunks * K * TAIL_CC * min(two_f, 512),
+          "inte": 2.0 * ct * rows * K * two_fin,
+          "h": 2.0 * ct * rows * K * 64}
+    log(f"  tail bf16 gated (fused): {ms:.3f} ms, "
+        f"{products / ms / 1e9:.1f} TFLOP/s over {products / 1e9:.1f} GFLOP "
+        f"of slot logits and merge; counted through L2: wi "
+        f"{l2['wi'] / 1e9:.3f} GB, "
+        f"inte {l2['inte'] / 1e9:.3f} GB, h {l2['h'] / 1e9:.3f} GB")
     res["bilateral_tail_gated_bf16"] = {
-        "ms": time_ms(lambda: tail(*wargs), 3),
+        "ms": ms,
         "plain_ms": time_ms(lambda: tail_reference(*targs), 3),
         "bound_ms": b, "bound_by": by, "library_ms": None,
+        "tflops": products / ms / 1e9,
         "shape": f"stage 4, B={B}, N={n}, 4Fin={four_fin}, 2F={two_f}, bf16"}
     res["bilateral_tail_gated_bf16"]["max_abs_err"] = compare_tail_bf16(
         targs, f"stage 4 B={B} gated")
@@ -4134,7 +4189,7 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         for extra in ("cdist_topk_ms", "sub_yardstick", "largest_call",
                       "kink_share", "graph_ms", "body_tflops",
-                      "library_out_dtype_ms"):
+                      "library_out_dtype_ms", "tflops"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
         log(f"  {name} ({t['shape']}): {t['ms']:.3f} ms, plain "

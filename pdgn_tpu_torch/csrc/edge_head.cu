@@ -566,15 +566,13 @@ head_bf16_kernel(const __grid_constant__ CUtensorMap map_conv,
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* Bs = As + kHStages * kHABytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kHStages * kHBBytes);
-  uint64_t* empty = full + kHStages;
-  float* wsum = reinterpret_cast<float*>(empty + kHStages);
+  const Ring ring{full, full + kHStages, kHStages};
+  float* wsum = reinterpret_cast<float*>(full + 2 * kHStages);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int hk = a.k / 2, chunks = a.cp / kHK;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kHStages; ++s) {
-      mbar_init(&full[s], 32 + 1);  // the producer's lanes, and its TMA
-      mbar_init(&empty[s], kHConsumers / 32);
-    }
+    // full: the producer's lanes, and its TMA; empty: the consumer warps
+    ring.init(32 + 1, kHConsumers / 32);
     mbar_init_fence();
   }
   __syncthreads();
@@ -602,12 +600,12 @@ head_bf16_kernel(const __grid_constant__ CUtensorMap map_conv,
                      a.idx[(size_t)p * a.k + (w.job < hk ? w.job : 0) + slot];
         }
         for (int ch = 0; ch < chunks; ++ch, ++it) {
-          const int st = it % kHStages;
-          if (it >= kHStages) mbar_wait(&empty[st], ((it / kHStages) & 1) ^ 1);
+          const int st = ring.stage(it);
+          ring.wait_empty(it);
           __syncwarp();
           if (lane == 0) {
-            mbar_arrive_tx(&full[st], kHBBytes);
-            tma_load_2d(Bs + st * kHBBytes, map, &full[st],
+            mbar_arrive_tx(ring.full_bar(it), kHBBytes);
+            tma_load_2d(Bs + st * kHBBytes, map, ring.full_bar(it),
                         (slot * chunks + ch) * kHK, w.ct * kHN);
           }
           uint8_t* as = As + st * kHABytes;
@@ -621,7 +619,7 @@ head_bf16_kernel(const __grid_constant__ CUtensorMap map_conv,
                            8 * c,
                        row < 0 ? 0 : 16);
           }
-          cp_async_arrive_noinc(&full[st]);
+          cp_async_arrive_noinc(ring.full_bar(it));
         }
       }
     }
@@ -641,24 +639,20 @@ head_bf16_kernel(const __grid_constant__ CUtensorMap map_conv,
     const HeadItem w = head_item(a, item);
     const int nslab = head_slots(a, w.job) * chunks;
     for (int s = 0; s < nslab; ++s, ++it) {
-      const int st = it % kHStages;
-      mbar_wait(&full[st], (it / kHStages) & 1);
+      const int st = ring.stage(it);
+      ring.wait_full(it);
       __syncwarp();
       fence_proxy_async();  // the gathered rows, written by cp.async
       const uint64_t da =
           sw128_desc(As + st * kHABytes + wg * (kHABytes / 2));
       const uint64_t db = sw128_desc(Bs + st * kHBBytes);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kHK / 16; ++kk)
-        wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk, s > 0 || kk > 0);
-      wgmma_commit();
+      wgmma_slab<kHK / 16>(acc, da, db, s > 0);
       wgmma_wait<1>();  // the previous slab's products are done: free it
-      if (s > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kHStages]);
+      if (s > 0 && lane == 0) ring.release(it - 1);
     }
     wgmma_wait<0>();
     fence_regs(acc);
-    if (lane == 0) mbar_arrive(&empty[(it - 1) % kHStages]);
+    if (lane == 0) ring.release(it - 1);
 
     // rows row0 and row0 + 8 of columns c0 + 8 i (+ 1)
     const int row0 = w.rt * kHM + wg * 64 + (warp & 3) * 16 + g;

@@ -1,16 +1,24 @@
-// Hopper (sm_90a) building blocks: mbarriers, TMA tile loads
-// (cp.async.bulk.tensor) and the tensor maps that describe their tiles, the
-// generic-to-async proxy fence, and warpgroup products (wgmma m64n256k16,
-// bf16 operands, fp32 accumulation) on 128-byte-swizzled shared tiles.
-// Used by the bf16 edge head (edge_head.cu) and bf16 slot stats
-// (slot_stats.cu).
+// Hopper (sm_90a) building blocks: mbarriers and the producer/consumer
+// ring built on them, thread block clusters (the other block's shared
+// memory: its address, bulk copies into it, arrivals on its barriers), TMA
+// tile loads (cp.async.bulk.tensor) and the tensor maps that describe their
+// tiles, the generic-to-async proxy fence, and warpgroup products (wgmma
+// m64n256k16, bf16 operands, fp32 accumulation) on swizzled shared tiles,
+// a slab at a time (wgmma_slab). Used by the bf16 edge head (edge_head.cu:
+// the ring, wgmma_slab), bf16 slot stats (slot_stats.cu) and the bf16 gated
+// tail (bilateral_tail.cu: the ring's indexing for its wi stages, clusters,
+// wgmma_slab).
 //
-// The one shared-memory layout here: a tile of rows of 64 bf16 (128 bytes),
-// 1024-byte aligned, each row's 16-byte granule q stored at granule
-// q ^ (row % 8) (the 128-byte swizzle; TMA writes it with
-// CU_TENSOR_MAP_SWIZZLE_128B, cp.async writers compute it, swizzle_row).
-// wgmma reads such a tile K-major: 8-row groups 1024 bytes apart, its k16
-// steps 32 bytes apart along the row (sw128_desc).
+// Two shared-memory layouts here, both K-major rows of bf16 whose 16-byte
+// granules are permuted by the row (the XOR of address bits 4-6, or 4-5,
+// with bits 7-9, or 7-8, as TMA writes a CU_TENSOR_MAP_SWIZZLE_128B, or
+// _64B, box into a tile aligned to 1024 bytes): rows of 64 bf16 (128
+// bytes), granule q of row r at granule q ^ (r % 8) (swizzle_row; the
+// 128-byte swizzle, sw128_desc: 8-row groups 1024 bytes apart), and rows
+// of 32 bf16 (64 bytes), granule q of row r at granule q ^ ((r / 2) % 4)
+// (swizzle64_row; the 64-byte swizzle, sw64_desc: 8-row groups 512 bytes
+// apart). wgmma reads either K-major, its k16 steps 32 bytes apart along
+// the row: 2 added to the descriptor a step.
 #pragma once
 
 #include <cuda.h>
@@ -83,6 +91,119 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (globaltimer_ns() - t0 > kMbarTimeoutNs) __trap();
 }
 
+// --------------------------------------------------------------- the ring
+// A ring of stages in shared memory between producers and consumers, a
+// full and an empty mbarrier a stage. Positions count from 0 over the
+// launch: position it sits in stage it % stages, in round it / stages, and
+// a barrier's phase of round j has parity j & 1. A producer takes position
+// it once the consumers have released the stage's previous round (the
+// first `stages` positions are free at once) and fills it; the consumers
+// take it once it is full and release it once its products are done.
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  int stages;
+
+  __device__ __forceinline__ int stage(int it) const { return it % stages; }
+  __device__ __forceinline__ uint32_t parity(int it) const {
+    return (uint32_t)(it / stages) & 1;
+  }
+  // one thread, before the barrier that publishes the initialisation
+  __device__ __forceinline__ void init(int full_count,
+                                       int empty_count) const {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], full_count);
+      mbar_init(&empty[s], empty_count);
+    }
+  }
+  __device__ __forceinline__ uint64_t* full_bar(int it) const {
+    return &full[stage(it)];
+  }
+  // producer: wait until position it's stage is free
+  __device__ __forceinline__ void wait_empty(int it) const {
+    if (it >= stages) mbar_wait(&empty[stage(it)], parity(it) ^ 1);
+  }
+  // consumer: wait until position it is full
+  __device__ __forceinline__ void wait_full(int it) const {
+    mbar_wait(&full[stage(it)], parity(it));
+  }
+  // consumer: one of the empty barrier's arrivals for position it
+  __device__ __forceinline__ void release(int it) const {
+    mbar_arrive(&empty[stage(it)]);
+  }
+};
+
+// ----------------------------------------------------- thread block clusters
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster: arrive (releasing this
+// thread's prior writes) and wait for all of them (acquiring theirs)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of the same location as the shared::cta
+// address a in the block of cluster rank `rank`
+__device__ __forceinline__ uint32_t map_shared(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(a), "r"(rank));
+  return r;
+}
+
+// arrive on the barrier at shared::cluster address a, releasing at CTA
+// scope only: a consumer freeing a stage it has only read
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t a) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_cluster(uint32_t bar,
+                                                 uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+      "%2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// mbar_wait, acquiring at cluster scope what the arrivals released (writes
+// of another block of the cluster)
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_cluster(a, parity)) return;
+  const uint64_t t0 = globaltimer_ns();
+  while (!mbar_try_cluster(a, parity))
+    if (globaltimer_ns() - t0 > kMbarTimeoutNs) __trap();
+}
+
+// copy `bytes` (a multiple of 16) from this block's shared memory to the
+// shared::cluster address dst (another block's), completing them on the
+// barrier at shared::cluster address bar
+__device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst,
+                                                  const void* src,
+                                                  uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // ------------------------------------------------------------------ TMA
 // the box at element coordinates (c0 along the inner dimension, c1) of a
 // 2-D tensor map into dst; completion counts on bar's transaction bytes
@@ -120,6 +241,8 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 // the XOR of address bits 4-6 with bits 7-9, as TMA writes a
 // CU_TENSOR_MAP_SWIZZLE_128B box into a tile aligned to 1024 bytes
 __device__ __forceinline__ int swizzle_row(int r) { return r & 7; }
+// the 64-byte swizzle of rows of 64 bytes: address bits 4-5 XOR bits 7-8
+__device__ __forceinline__ int swizzle64_row(int r) { return (r >> 1) & 3; }
 
 // descriptor of a K-major swizzled bf16 tile (see above): start address,
 // leading offset 16 bytes (unused by this layout), 1024 bytes between
@@ -129,6 +252,14 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
   const uint64_t a = smem_u32(tile);
   return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) |
          (1ull << 62);
+}
+
+// the same for a K-major tile of 64-byte rows in the 64-byte swizzle: 512
+// bytes between 8-row groups, layout 2
+__device__ __forceinline__ uint64_t sw64_desc(const void* tile) {
+  const uint64_t a = smem_u32(tile);
+  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | ((512ull >> 4) << 32) |
+         (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -207,6 +338,22 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// The products of one slab of KS k16 steps, d (64 x 256) += A B, the
+// descriptors advanced 32 bytes a step, issued after wgmma_fence and
+// committed as one group; accumulate false starts d from zero. The issue
+// and wait pattern of a ring's consumer: after slab it's group,
+// wgmma_wait<1> means slab it - 1's products are done, so its stage can be
+// released.
+template <int KS>
+__device__ __forceinline__ void wgmma_slab(float (&d)[128], uint64_t da,
+                                           uint64_t db, bool accumulate) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_m64n256k16(d, da + 2 * kk, db + 2 * kk, accumulate || kk > 0);
+  wgmma_commit();
+}
+
 // --------------------------------------------------- tensor maps (host)
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
 // needs no link against the driver
@@ -237,21 +384,23 @@ inline EncodeTiledFn encode_tiled() {
 
 // A row-major (rows, cols) bf16 matrix, row stride ld elements (ld * 2 a
 // multiple of 16, base 16-byte aligned), as boxes of box_rows rows of 64
-// columns in the swizzled layout; elements outside the matrix read as
+// columns in the 128-byte swizzle (or of 32 in the 64-byte one: box_cols
+// 32, CU_TENSOR_MAP_SWIZZLE_64B); elements outside the matrix read as
 // zeros.
-inline cudaError_t bf16_tile_map(CUtensorMap* map, const void* base,
-                                 long long rows, long long cols,
-                                 long long ld, int box_rows) {
+inline cudaError_t bf16_tile_map(
+    CUtensorMap* map, const void* base, long long rows, long long cols,
+    long long ld, int box_rows, int box_cols = 64,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

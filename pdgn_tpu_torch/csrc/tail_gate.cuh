@@ -21,14 +21,19 @@
 // The backward's gate pass (bilateral_tail_bwd.cu) takes the same tile,
 // fragments, staging and logit code (GateThread, stage_tile, slot_conv,
 // slot_logit, online_softmax), so the g it writes is this kernel's bit for
-// bit. plain_gate_kernel is the plain stage's elementwise gate.
+// bit. plain_gate_kernel is the plain stage's elementwise gate. A third
+// user: the bf16 gated tail's fused kernel (bilateral_tail.cu,
+// tail_bf16_kernel), whose producers take GateThreadT<bf16>'s logits from
+// the same fragments laid out fragment-major (logits_frag: the same mma
+// inputs in the same ks order), the softmax in gate_tc_kernel's order and
+// gate_value, and store g straight into the merge's A tiles.
 //
-// Both gates are templates over the storage type T of inte, h and g: their
-// bf16 instances (the forward tails of --compute_dtype bfloat16; the
-// backward's bf16 gate pass shares the tile and logit code at its own
-// rounding points) keep the TPU kernels' (bilateral_tail.py:104-111,
-// :123-130):
-// the slot logits from bf16 h and w2k (exact in TF32: one pass a product,
+// Both gates are templates over the storage type T of inte, h and g.
+// launch_gate serves the fp32 forward only; the bf16 code (the plain bf16
+// stage's plain_gate_kernel, GateThreadT<bf16> in the fused kernel and, at
+// its own rounding points, in the backward's bf16 gate pass) keeps the
+// TPU kernels' (bilateral_tail.py:104-111, :123-130): the slot logits
+// from bf16 h and w2k (exact in TF32: one pass a product,
 // fp32 accumulation), BN fold, LeakyReLU and softmax in fp32, then the
 // weight w, the gate's first factor gi and their product each rounded to
 // bf16. Their h rows are 16-bit: the row stride pads 8 elements (16 bytes,
@@ -236,6 +241,25 @@ struct GateThreadT {
     slot_conv(hs, hl, g, t, bhi, blo, bias, v);
 #pragma unroll
     for (int q = 0; q < 4; ++q) u[q] = slot_logit(v[q], sc[q & 1], shf[q & 1]);
+  }
+
+  // the same logits from bf16 A fragments laid out fragment-major: the k8
+  // step ks of lane l holds A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4] in
+  // frag[ks * 32 + l] (one 8-byte load a product; the same mma inputs in
+  // the same ks order as slot_conv's bf16 branch, so the same bits)
+  __device__ __forceinline__ void logits_frag(const uint2* frag, int lane,
+                                              float u[4]) const {
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < kHidden / 8; ++ks) {
+      const uint2 w = frag[ks * 32 + lane];
+      const uint32_t a[4] = {w.x << 16, w.x & 0xffff0000u, w.y << 16,
+                             w.y & 0xffff0000u};
+      mma_tf32(d, a, bhi[ks]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      u[q] = slot_logit(d[q] + bias[q & 1], sc[q & 1], shf[q & 1]);
   }
 };
 using GateThread = GateThreadT<float>;

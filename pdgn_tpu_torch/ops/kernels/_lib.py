@@ -47,7 +47,9 @@ _SIGNATURES = {
     "pdgn_slot_stats": [_P, _L, _I, _P, _P, _P],
     "pdgn_slot_stats_bf16": [_P, _L, _I, _P, _P, _P],
     "pdgn_bilateral_tail": [_P] * 10 + [_I, _P] + [_I] * 6 + [_P] * 3,
-    "pdgn_bilateral_tail_bf16": [_P] * 10 + [_I, _P] + [_I] * 6 + [_P] * 3,
+    "pdgn_bilateral_tail_plain_bf16": [_P] * 5 + [_I, _P] + [_I] * 5
+                                      + [_P] * 3,
+    "pdgn_bilateral_tail_gated_bf16": [_P] * 11 + [_I] * 6 + [_P] * 3,
     "pdgn_edge_head_bwd": [_P] * 4 + [_I] * 8 + [_P] * 10 + [_P] * 15
                           + [_P],
     "pdgn_edge_head_bwd_bf16": [_P] * 4 + [_I] * 8 + [_P] * 11

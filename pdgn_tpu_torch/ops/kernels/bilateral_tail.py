@@ -13,7 +13,9 @@ and autograd's VJP of it, :func:`tail_bwd_plain`).
 bf16 ``inte`` (the generator's ``--compute_dtype bfloat16``) takes the
 kernels' bf16 instances, with ``h`` in bf16, ``w2k`` and ``wi`` in fp32
 (rounded to bf16 inside the function, so that their gradients stay fp32)
-and the folds, ``partial`` and the bias in fp32; ``y`` is bf16.
+and the folds, ``partial`` and the bias in fp32; ``y`` is bf16. The gated
+bf16 instance is one launch that makes the gate inside the merge's A tiles
+and writes no ``g`` (``wi`` packed by :func:`pack_tail_wi_bf16`).
 Its backward is ``csrc/bilateral_tail_bwd.cu``'s bf16 instance on a CUDA
 tensor and :func:`tail_bwd_plain_bf16`, written at the same rounding
 points, on a CPU tensor: the TPU kernels' (``_gated_bwd_kernel``,
@@ -103,14 +105,82 @@ def tail_reference(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2,
     return cast(dt, acc + bias)
 
 
+# channels a slab of the fused bf16 gated kernel (csrc/bilateral_tail.cu,
+# kTC): its merge depth runs in slabs of TAIL_CC channels of one slot
+TAIL_CC = 32
+
+
+def pack_tail_wi_bf16(wi, k: int):
+    """``wi (k * 2Fin, 2F)`` (rows slot-major, ``s * 2Fin + c``, as ``g``'s
+    columns) as the fused bf16 gated kernel reads it: ``wi^T`` in bf16,
+    K-major, of shape ``(2F, chunks * k * TAIL_CC)`` with ``chunks =
+    ceil(2Fin / TAIL_CC)``, its depth chunk outer and slot inner: column
+    ``(cc * k + s) * TAIL_CC + j`` holds ``wi[s * 2Fin + cc * TAIL_CC + j]``,
+    zero where ``cc * TAIL_CC + j >= 2Fin``."""
+    K, two_f = wi.shape
+    two_fin = K // k
+    chunks = -(-two_fin // TAIL_CC)
+    w = wi.to(torch.bfloat16).reshape(k, two_fin, two_f)
+    if chunks * TAIL_CC != two_fin:
+        w = torch.nn.functional.pad(w, (0, 0, 0, chunks * TAIL_CC - two_fin))
+    # (2F, chunk, slot, channel): one copy
+    w = w.reshape(k, chunks, TAIL_CC, two_f).permute(3, 1, 0, 2)
+    return w.reshape(two_f, chunks * k * TAIL_CC).contiguous()
+
+
+def _tail_gated_bf16(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2,
+                     wi, bias, k: int, softmax: bool, probe_g: bool):
+    """Launch ``pdgn_bilateral_tail_gated_bf16``: one persistent launch, the
+    gate made into the merge's A tiles, no ``g``. ``probe_g`` has it also
+    write the gate values it made and returns ``(y, g)`` (a check)."""
+    B, N, two_f = partial.shape
+    rows = B * N
+    two_fin = inte_flat.shape[-1] // k
+    dev = partial.device
+    if rows * k * -(-two_fin // TAIL_CC) >= 2 ** 31:
+        raise ValueError(f"bilateral_tail bf16: {rows} rows x k={k} exceed "
+                         f"one launch; use a smaller batch")
+    wi_p = _lib.aligned(pack_tail_wi_bf16(wi, k))
+    inte_flat = _lib.aligned(inte_flat)
+    h_flat = _lib.aligned(h_flat)
+    w2k = w2k.to(torch.bfloat16).contiguous()
+    y = torch.empty(B, N, two_f, device=dev, dtype=torch.bfloat16)
+    g = (torch.empty(rows, k * two_fin, device=dev, dtype=torch.bfloat16)
+         if probe_g else None)
+    p = _lib.ptr
+    _lib.check(_lib.library().pdgn_bilateral_tail_gated_bf16(
+        p(partial), p(inte_flat), p(h_flat), p(isc), p(ish), p(w2k), p(w2b),
+        p(s2), p(t2), p(wi_p), p(bias), rows, k, two_fin, two_f,
+        int(softmax), _lib.sm_count(dev), p(g), p(y),
+        _lib.stream_handle(dev)), "pdgn_bilateral_tail_gated_bf16")
+    _lib.LAUNCHES["bilateral_tail_gated_bf16"] += 1
+    return (y, g) if probe_g else y
+
+
 def tail_kernel(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
-                bias, k: int, softmax: bool, keep_g: bool = False):
+                bias, k: int, softmax: bool, keep_g: bool = False,
+                probe_g: bool = False):
     """Launch ``csrc/bilateral_tail.cu`` (CUDA tensors, checked by
     :func:`tail`): the gate, then the merge on the tensor cores. The merge's
     operands go by 16-byte ``cp.async`` granules, so ``wi`` is padded with
     zeros to ``(ldg, ldw)``, both multiples of 4, and ``g`` has ``ldg``
     columns (the plain stage's pad columns are zero). ``keep_g`` also
-    returns ``g``'s first ``k/2 * 4Fin`` columns."""
+    returns ``g``'s first ``k/2 * 4Fin`` columns.
+
+    The bf16 gated stage is one fused launch that writes no ``g``: there
+    ``keep_g`` raises, and ``probe_g`` (a check, nowhere on a main path)
+    returns ``(y, g)`` with the gate values the kernel made, written only
+    for that call."""
+    if inte_flat.dtype == torch.bfloat16 and h_flat is not None:
+        if keep_g:
+            raise ValueError(
+                "bilateral_tail bf16 gated: the fused kernel writes no g; "
+                "take it from tail_bwd_kernel_bf16(..., keep_g=True), or "
+                "probe_g=True in a check")
+        return _tail_gated_bf16(partial, inte_flat, h_flat, isc, ish, w2k,
+                                w2b, s2, t2, wi, bias, k, softmax, probe_g)
+    if probe_g:
+        raise ValueError("probe_g: only the bf16 gated stage (use keep_g)")
     B, N, two_f = partial.shape
     rows = B * N
     kd = inte_flat.shape[-1]                      # k/2 * 4Fin
@@ -128,11 +198,18 @@ def tail_kernel(partial, inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
     g = torch.empty(rows, ldg, device=partial.device, dtype=inte_flat.dtype)
     y = torch.empty(B, N, two_f, device=partial.device, dtype=inte_flat.dtype)
     p = _lib.ptr
-    _lib.check(getattr(_lib.library(), "pdgn_bilateral_tail" + sfx)(
-        p(partial), p(inte_flat), p(h_flat), p(isc), p(ish), p(w2k), p(w2b),
-        p(s2), p(t2), p(wi), ldw, p(bias), rows, k, four_fin, two_f, ldg,
-        int(softmax), p(g), p(y), _lib.stream_handle(partial.device)),
-        "pdgn_bilateral_tail" + sfx)
+    stream = _lib.stream_handle(partial.device)
+    if sfx:  # the plain bf16 stage
+        _lib.check(_lib.library().pdgn_bilateral_tail_plain_bf16(
+            p(partial), p(inte_flat), p(isc), p(ish), p(wi), ldw, p(bias),
+            rows, k, four_fin, two_f, ldg, p(g), p(y), stream),
+            "pdgn_bilateral_tail_plain_bf16")
+    else:
+        _lib.check(_lib.library().pdgn_bilateral_tail(
+            p(partial), p(inte_flat), p(h_flat), p(isc), p(ish), p(w2k),
+            p(w2b), p(s2), p(t2), p(wi), ldw, p(bias), rows, k, four_fin,
+            two_f, ldg, int(softmax), p(g), p(y), stream),
+            "pdgn_bilateral_tail")
     _lib.LAUNCHES[("bilateral_tail_gated" if h_flat is not None
                    else "bilateral_tail_plain") + sfx] += 1
     return (y, g[:, :kd]) if keep_g else y

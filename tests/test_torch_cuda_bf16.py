@@ -8,10 +8,15 @@ stages those channels by plain loads). The gather-first head's own tile
 edges: 63, 64, 65 and 1,000 rows against its 128-row tiles, C padded to
 its 64-channel slabs, 4Fin and 2F off its 256-column tiles (odd: scalar
 stores), k = 2 and 126, plain and gated, and no product scratch at a
-stage-4 shape. bf16 outputs within 2 ulps of the
-larger magnitude, counted at no less than 1/256 of the largest
+stage-4 shape. The fused gated tail's own tile edges: 127, 128, 129 and
+1,000 rows against its 64-row tiles, 2F of 66 and 258 against its
+256-column tiles, 514 and 1030 past its 512-column items, k = 2, 10, 18
+and 126, 2Fin = 65 against its 32-channel slabs, and no g scratch at a
+stage-4 shape. bf16 outputs within 2 ulps of
+the larger magnitude, counted at no less than 1/256 of the largest
 (``torch_port_util.bf16_ulps``, phase 2b's measure and limit; the tails'
-y held to the float64 merge of their own g, as phase 2b holds it); fp32
+y held to the float64 merge of their own g, as phase 2b holds it: the
+fused gated kernel writes its g only when a check asks, ``probe_g``); fp32
 outputs rel <= 1e-4 (slot stats 1e-5); two launches bit-identical; each
 launch counted under the instance's ``_bf16`` name; a bf16 backward
 launching the bf16 backward instances.
@@ -29,6 +34,7 @@ from torch_port_util import bf16_ulps
 
 from pdgn_tpu_torch.ops.kernels import _lib
 from pdgn_tpu_torch.ops.kernels.bilateral_tail import (gate_reference, tail,
+                                                       tail_bwd_kernel_bf16,
                                                        tail_kernel,
                                                        tail_reference)
 from pdgn_tpu_torch.ops.kernels.edge_head import (edge_head, head_operands,
@@ -173,9 +179,8 @@ def test_bf16_slot_stats_matches_plain(dev, rows, k):
     assert torch.equal(s, s2) and torch.equal(S, S2)
 
 
-def _tail_args(dev, gated, k, fin, N=37, four_fin=None, two_f=None):
+def _tail_args(dev, gated, k, fin, N=37, four_fin=None, two_f=None, B=2):
     g = torch.Generator(device=dev).manual_seed(k * fin + N)
-    B = 2
     four_fin = four_fin or 4 * fin
     two_f = two_f or 2 * fin
     hk, two_fin = k // 2, four_fin // 2
@@ -193,22 +198,28 @@ def _tail_args(dev, gated, k, fin, N=37, four_fin=None, two_f=None):
             r(hk * four_fin, two_f) * 0.05, r(two_f) * 0.1, k, True]
 
 
-@pytest.mark.parametrize("gated,k,fin,N,four_fin,two_f", [
-    (True, 10, 12, 37, None, None), (False, 10, 8, 37, None, None),
-    (True, 18, 12, 37, None, None), (True, 126, 4, 37, None, None),
-    (False, 30, 8, 37, None, None), (True, 10, 0, 135, 130, 66),
-    (False, 10, 0, 135, 130, 66)])
-def test_bf16_tail_matches_plain(dev, gated, k, fin, N, four_fin, two_f):
+def _tail_matches_plain(args, name):
     """The gate g within 2 ulps of ``gate_reference``'s, y within 1 ulp of
-    the bf16 rounding of the float64 merge of the kernel's own g, and at
-    most 1% of y differing from the plain version's (chip_smoke phase
-    2b's rule)."""
-    args = _tail_args(dev, gated, k, fin, N, four_fin, two_f)
-    name = "bilateral_tail_" + ("gated" if gated else "plain") + "_bf16"
+    the bf16 rounding of the float64 merge of the kernel's own g (the
+    gated kernel's g as it made it, ``probe_g``: it writes none otherwise;
+    at most 0.1% of y differing there), and at most 1% of y differing
+    from the plain version's (chip_smoke phase 2b's rule); the gated
+    kernel's y with and without the probe equal, and the bf16 backward's
+    own g (``tail_bwd_kernel_bf16(..., keep_g=True)``, (gi * w) rounded
+    once) within 2 ulps of ``gate_reference``'s."""
+    gated = args[2] is not None
+    k = args[11]
     before = _lib.LAUNCHES[name]
     kargs = _bf16_weights(args, TAIL_WEIGHTS)
-    y, g = tail_kernel(*kargs, keep_g=True)
-    assert _lib.LAUNCHES[name] == before + 1
+    if gated:
+        with pytest.raises(ValueError, match="writes no g"):
+            tail_kernel(*kargs, keep_g=True)
+        y, g = tail_kernel(*kargs, probe_g=True)
+        assert torch.equal(y, tail_kernel(*kargs))
+        assert _lib.LAUNCHES[name] == before + 2
+    else:
+        y, g = tail_kernel(*kargs, keep_g=True)
+        assert _lib.LAUNCHES[name] == before + 1
     assert y.dtype == g.dtype == BF
     assert torch.equal(y, tail(*args))
     partial, wi, bias = kargs[0], kargs[9], kargs[10]
@@ -218,7 +229,59 @@ def test_bf16_tail_matches_plain(dev, gated, k, fin, N, four_fin, two_f):
     y64 = (partial.double().reshape(B * N, two_f) + g.double() @ wi.double()
            + bias.double()).to(BF).reshape(B, N, two_f)
     assert bf16_ulps(y, y64) <= 1.0
+    if gated:
+        assert float((y != y64).float().mean()) <= 1e-3
+        dy = torch.zeros_like(y)
+        g_bwd = tail_bwd_kernel_bf16(*kargs[1:10], dy, k, True,
+                                     keep_g=True)[11]
+        assert bf16_ulps(g_bwd, g_p) <= 2.0
     assert float((y != tail_reference(*kargs)).float().mean()) <= 1e-2
+
+
+@pytest.mark.parametrize("gated,k,fin,N,four_fin,two_f", [
+    (True, 10, 12, 37, None, None), (False, 10, 8, 37, None, None),
+    (True, 18, 12, 37, None, None), (True, 126, 4, 37, None, None),
+    (False, 30, 8, 37, None, None), (True, 10, 0, 135, 130, 66),
+    (False, 10, 0, 135, 130, 66)])
+def test_bf16_tail_matches_plain(dev, gated, k, fin, N, four_fin, two_f):
+    name = "bilateral_tail_" + ("gated" if gated else "plain") + "_bf16"
+    _tail_matches_plain(_tail_args(dev, gated, k, fin, N, four_fin, two_f),
+                        name)
+
+
+@pytest.mark.parametrize("B,N,k,four_fin,two_f", [
+    (1, 127, 10, 64, 66), (1, 128, 2, 130, 258), (1, 129, 18, 96, 66),
+    (2, 500, 126, 8, 258), (1, 1000, 10, 130, 258), (3, 43, 14, 48, 24),
+    (1, 200, 10, 130, 514), (1, 129, 18, 96, 1030)])
+def test_bf16_gated_tail_tile_edges(dev, B, N, k, four_fin, two_f):
+    """The fused kernel at its tiles' edges: rows that fill no 64-row
+    tile, 2F off its 256-column tiles and past one 512-column item (514
+    and 1030: two and three column items a row tile), 2Fin off its
+    32-channel slabs, k in each of its gate's three instances (k <= 10,
+    <= 16, the two-pass wider one); two launches bit-identical."""
+    args = _tail_args(dev, True, k, 0, N, four_fin, two_f, B=B)
+    _tail_matches_plain(args, "bilateral_tail_gated_bf16")
+    kargs = _bf16_weights(args, TAIL_WEIGHTS)
+    assert torch.equal(tail_kernel(*kargs), tail_kernel(*kargs))
+
+
+def test_bf16_gated_tail_allocates_no_g(dev):
+    """At stage 4 (N=1024, 4Fin=1024, 2F=512, k=10), B=32, the memory one
+    fused bf16 gated tail call takes beyond its inputs and its output is
+    below an eighth of the g scratch (rows x ldg bf16) that the two-launch
+    design allocated."""
+    B, N, k, fin = 32, 1024, 10, 256
+    args = _tail_args(dev, True, k, fin, N, B=B)
+    g_bytes = B * N * _lib.up8(k // 2 * 4 * fin) * 2
+    tail(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = tail(*args)
+    torch.cuda.synchronize()
+    scratch = (torch.cuda.max_memory_allocated() - base
+               - y.numel() * y.element_size())
+    assert scratch < g_bytes / 8, (scratch, g_bytes)
 
 
 def test_bf16_instances_refuse_a_backward(dev):

@@ -7,6 +7,7 @@ Run from the root of the repository with no arguments::
     python3 chip_smoke.py --train-alone     # phase 3t alone (below)
     python3 chip_smoke.py --parallel-alone  # phase 3m alone (below)
     python3 chip_smoke.py --bf16-alone      # phases 3b and 4b alone
+    python3 chip_smoke.py --bf16-train-alone  # phases 2mn, 2bt, 3bt, 4bt
 
 What it does, in order (any failure raises and the exit code is not 0):
 
@@ -236,6 +237,11 @@ The bf16 train slice (``--phase train --compute_dtype bfloat16``: the
 bf16 instances of the head backward and both tail backwards), after 2b,
 3be and 4b:
 
+2mn. the bf16 ``wgmma`` product with both operands MN-major
+   (``product_bf16``: ``product_bf16_kernel`` in ``csrc/hopper.cuh``, on
+   which the bf16 head backward takes its weight gradients) alone against
+   ``torch.mm`` of the upcasts at shapes whose K, M and N are no multiples
+   of 64, rel <= 1e-5 of the float64 product, two launches bit-identical;
 2bt. each bf16 backward instance against its bf16 plain version (the TPU
    kernels' rounding points, ``head_bwd_plain_bf16``,
    ``tail_bwd_plain_bf16``) at stage 4 and stage 1, B=35, and at phase
@@ -256,7 +262,16 @@ bf16 instances of the head backward and both tail backwards), after 2b,
    process as 3d drives it) for 3 steps;
 4bt. each bf16 backward instance at B=35 (stage 4; the plain tail stage
    1): its time, its bf16 plain version's and its bound (products at the
-   bf16 tensor cores' 989 TFLOP/s), and the 2bt checks again.
+   bf16 tensor cores' 989 TFLOP/s), and the 2bt checks again; the head
+   backward also at stage 1 (wall and queued device time; the gated tail
+   backward's queued device time beside its wall time), with the rate
+   of the products it runs (the products and the bytes its d_x kernel
+   reads through L2 are counted from the shapes and logged only), and ``product_bf16`` at its ``d_wn`` shape
+   beside ``torch.mm(a.T, b, out_dtype=torch.float32)`` (a
+   sub-yardstick). ``--bf16-train-alone`` builds the kernels and runs
+   2mn, 2bt, 3bt and 4bt alone; copied into
+   another checkout's root it checks and times that checkout's (2mn is
+   skipped where it has no ``product_bf16``).
 
 The data-parallel slice (``pdgn_tpu_torch.parallel``), after 3p:
 
@@ -1731,6 +1746,88 @@ def time_bf16_kernels(dev, gen) -> dict:
     return res
 
 
+# ------------------------------------------ the bf16 train slice: phase 2mn
+# (K, M, N) of the MN-major product's checks: none of them multiples of 64,
+# depth past one stage and past many; (1000, 2056, 4104) has 17 x 17 output
+# tiles, at least two an SM on the card, so it takes one split over all 16
+# stages, the others many splits
+MN_SHAPES = ((37, 8, 8), (1000, 200, 136), (1000, 2056, 4104),
+             (4097, 264, 520), (70001, 136, 1032))
+
+
+def check_product_bf16(gen, dev):
+    """Phase 2mn: ``product_bf16`` (``product_bf16_kernel`` in
+    ``csrc/hopper.cuh``, both operands MN-major: the bf16 head backward's
+    weight gradients) alone against ``torch.mm(a.T.float(), b.float())`` at
+    odd shapes (rel <= 1e-5 of the float64 product, like the fp32 core's
+    check), and two launches bit-identical. Returns None where the checkout
+    has no such product (a parent's, in an A/B call)."""
+    import torch
+    if not has_product_bf16():
+        log("  no product_bf16 in this checkout: phase 2mn skipped")
+        return None
+    from pdgn_tpu_torch.ops.kernels import _lib
+    from pdgn_tpu_torch.ops.kernels.tc_gemm import product_bf16
+
+    res = []
+    for K, M, N in MN_SHAPES:
+        a = torch.randn(K, M, generator=gen, device=dev).bfloat16()
+        b = torch.randn(K, N, generator=gen, device=dev).bfloat16()
+        before = _lib.LAUNCHES["product_bf16"]
+        got = product_bf16(a, b)
+        again = product_bf16(a, b)
+        require(_lib.LAUNCHES["product_bf16"] == before + 2,
+                "product_bf16: launches not counted")
+        require(torch.equal(got, again), "product_bf16: two launches differ")
+        want = a.double().T @ b.double()
+        e, e_mm = rel(got, want), rel(torch.mm(a.T.float(), b.float()), want)
+        log(f"  product_bf16 K={K} M={M} N={N}: rel "
+            f"{e:.3e} (torch.mm fp32 {e_mm:.3e})")
+        require(e <= 1e-5, f"product_bf16 K={K} M={M} N={N}: rel {e}")
+        res.append({"K": K, "M": M, "N": N, "rel": e,
+                    "torch_mm_rel": e_mm})
+        del a, b, got, again, want
+    return res
+
+
+def product_yardstick_bf16(gen, dev, K: int, M: int, N: int) -> dict:
+    """``product_bf16`` at the bf16 head backward's ``d_wn`` shape (K = the
+    rows' windows, M = window * C, N = 4Fin) against ``torch.mm(a.T, b,
+    out_dtype=torch.float32)`` on the same operands: times and rates; the
+    two results within rel 1e-4 of each other (the fp32 gradients' limit),
+    each one's gap to the float64 product printed."""
+    import torch
+    from pdgn_tpu_torch.ops.kernels.tc_gemm import product_bf16
+
+    a = torch.randn(K, M, generator=gen, device=dev).bfloat16()
+    b = torch.randn(K, N, generator=gen, device=dev).bfloat16()
+    got = product_bf16(a, b)
+    lib_out = torch.mm(a.T, b, out_dtype=torch.float32)
+    # two fp32 sums of K = 179,200 products a result (each split's chain
+    # 16,290 long on the tensor cores): held to each other at the fp32
+    # gradients' 1e-4, and the kernel's own to float64 at 4e-5 (it read
+    # 1.67e-5 and 1.94e-5 on an H100, torch.mm 5.01e-5 and 5.09e-5), so a
+    # drift in its order of accumulation shows at the depth the port runs
+    e = rel(got, lib_out)
+    want = a.double().T @ b.double()
+    e64, lib64 = rel(got, want), rel(lib_out, want)
+    del got, lib_out, want
+    require(e <= 1e-4, f"product_bf16 at the d_wn shape: rel {e}")
+    require(e64 <= 4e-5,
+            f"product_bf16 at the d_wn shape: rel {e64} to float64")
+    ms = time_ms(lambda: product_bf16(a, b), 5)
+    lib = time_ms(lambda: torch.mm(a.T, b, out_dtype=torch.float32), 5)
+    flop = 2.0 * K * M * N
+    log(f"  sub-yardstick d_wn a.T @ b, a ({K}, {M}), b ({K}, {N}) bf16: "
+        f"product_bf16 {ms:.3f} ms ({flop / ms / 1e9:.1f} TFLOP/s), "
+        f"torch.mm out_dtype fp32 {lib:.3f} ms "
+        f"({flop / lib / 1e9:.1f} TFLOP/s), rel {e:.3e} (to float64: "
+        f"{e64:.3e} and {lib64:.3e})")
+    return {"what": "d_wn a.T @ b", "shape": f"({K}, {M}).T @ ({K}, {N})",
+            "ms": ms, "torch_mm_out_fp32_ms": lib, "rel": e,
+            "rel_float64": e64, "torch_mm_rel_float64": lib64}
+
+
 # ------------------------------------------ the bf16 train slice: phase 2bt
 def head_bwd_case_bf16(stage: int, B: int, gated: bool, gen, dev,
                        k: int = K):
@@ -2056,6 +2153,46 @@ def train_path_bf16(root: str, smi: str) -> dict:
             "card": smi}
 
 
+def has_product_bf16() -> bool:
+    """Whether this checkout has the bf16 ``wgmma`` product on its own (a
+    parent's, copied into for an A/B call, may not)."""
+    try:
+        from pdgn_tpu_torch.ops.kernels.tc_gemm import product_bf16  # noqa
+    except ImportError:
+        return False
+    return True
+
+
+def head_bwd_bf16_work(ms: float, rows: int, c: int, four_fin: int,
+                       two_f: int, k: int, label: str) -> dict:
+    """The products the redesigned bf16 head backward runs (``dm``; ``d_x``
+    over [A_hi | S_b | A_lo], 2 window + 1 blocks of C x 4Fin a row; ``d_wn``
+    as the TPU kernel's patch^T dy_b, hk * window blocks; ``d_conv_a``; the
+    merge's weight gradient) and the bytes its d_x kernel reads through L2,
+    both counted from the shapes and its tiles (dy_b rows of 8-bf16
+    granules, one a window an entry takes part in, every row's list k long;
+    the W_dx boxes, one a 128-column stage an item; S_b) and logged as such;
+    returns only the products' rate at the measured ``ms``. In a parent's
+    checkout the same counts stand beside another design."""
+    hk, window = k // 2, k // 2 + 1
+    ld8 = -(-four_fin // 8) * 8
+    ldk = -(-four_fin // 128) * 128
+    c8 = -(-c // 8) * 8
+    nt = 64 if c8 <= 64 else 128 if c8 <= 128 else 256
+    items = -(-rows // 64) * -(-c8 // nt)
+    hits = sum(min(j, window - 1) - max(0, j - hk + 1) + 1 for j in range(k))
+    flop = 2.0 * rows * (2 * (k + 1) * c * two_f
+                         + (2 * window + 1) * c * four_fin
+                         + (hk * window + 1) * c * four_fin)
+    l2 = (2.0 * rows * hits * ld8 + 2.0 * items * (window + 1) * ldk * nt
+          + 2.0 * rows * ld8)
+    log(f"  edge_head_bwd_bf16 {label}: counted from the shapes and tiles, "
+        f"{flop / 1e9:.1f} GFLOP of products and {l2 / 1e9:.3f} GB through "
+        f"L2 in d_x; {flop / ms / 1e9:.1f} TFLOP/s at the measured "
+        f"{ms:.4f} ms")
+    return {"tflops": flop / ms / 1e9}
+
+
 # ------------------------------------------ the bf16 train slice: phase 4bt
 def time_bf16_train_kernels(dev, gen) -> dict:
     """Phase 4bt: each bf16 backward instance at the train path's B=35
@@ -2103,8 +2240,52 @@ def time_bf16_train_kernels(dev, gen) -> dict:
             x, idx, inte, wn, ca, am, wen, pcat, ppoint, cts, k, window), 2),
         "bound_ms": b, "bound_by": by, "library_ms": None,
         "shape": f"stage 4, B={B}, N={n}, C={c}+{cx}, gated, bf16"}
+    res["edge_head_bwd_bf16"].update(head_bwd_bf16_work(
+        res["edge_head_bwd_bf16"]["ms"], rows, c, four_fin, two_f, K,
+        f"stage 4 B={B}"))
     res["edge_head_bwd_bf16"]["max_abs_err"] = compare_head_bwd_bf16(
         case, f"stage 4 B={B}")
+    del case, args, idx, inte, cts, x
+    if has_product_bf16():
+        res["edge_head_bwd_bf16"]["sub_yardstick"] = product_yardstick_bf16(
+            gen, dev, rows * hk, window * c, four_fin)
+
+    # stage 1: the smallest of the step's four launches
+    n1, c1, _, four_fin1, two_f1 = stage_dims(1)
+    case = head_bwd_case_bf16(1, B, False, gen, dev)
+    args, idx, inte, cts = case
+    x, _, wn, ca, _, am, wen, _, pcat, ppoint, k, _ = args
+    rows1 = B * n1
+    products = (2 * 2.0 * rows1 * (window + 1) * c1 * four_fin1
+                + 2 * 2.0 * rows1 * (K + 1) * c1 * two_f1)
+    nbytes = (2.0 * (rows1 * c1 + 2 * rows1 * hk * four_fin1 + rows1 * c1
+                     + (window + 1) * c1 * four_fin1
+                     + (K + 1) * c1 * two_f1)
+              + 4.0 * (rows1 * K + rows1 * two_f1 + 2 * four_fin1
+                       + (window + 1) * c1 * four_fin1
+                       + (K + 1) * c1 * two_f1 + B * (four_fin1 + two_f1)))
+    simt = (3.0 * rows1 * hk * four_fin1
+            + 1.0 * rows1 * hk * (window + 1) * four_fin1
+            + 1.0 * rows1 * K * c1 + 1.0 * rows1 * c1)
+    b1, by1 = bound(simt, nbytes, products / PEAK_BF16 * 1e3)
+    run1 = lambda: head_bwd_kernel(x, idx, inte, wn, ca, am, wen,  # noqa
+                                   pcat, ppoint, cts, k)
+    stage1 = {
+        "ms": time_ms(run1, 10),
+        # the launches queued behind a sleeping kernel: device time, without
+        # the host's gaps (at stage 1 the host is slower than the kernels)
+        "device_ms": queued_ms(run1, 10),
+        "plain_ms": time_ms(lambda: head_bwd_plain_bf16(
+            x, idx, inte, wn, ca, am, wen, pcat, ppoint, cts, k, window), 5),
+        "bound_ms": b1, "bound_by": by1,
+        "shape": f"stage 1, B={B}, N={n1}, C={c1}, plain, bf16"}
+    stage1.update(head_bwd_bf16_work(stage1["ms"], rows1, c1, four_fin1,
+                                     two_f1, K, f"stage 1 B={B}"))
+    stage1["max_abs_err"] = compare_head_bwd_bf16(case, f"stage 1 B={B}")
+    log(f"  edge_head_bwd_bf16 stage 1: {stage1['ms']:.4f} ms (device "
+        f"{stage1['device_ms']:.4f} ms), plain {stage1['plain_ms']:.3f} ms, "
+        f"bound {b1:.4f} ms ({by1})")
+    res["edge_head_bwd_bf16"]["stage1"] = stage1
     del case, args, idx, inte, cts, x
 
     two_fin = four_fin // 2
@@ -2119,12 +2300,19 @@ def time_bf16_train_kernels(dev, gen) -> dict:
               + 4.0 * (rows * two_f + KK * two_f + 64 * two_fin
                        + 4 * four_fin + 6 * two_fin))
     b, by = bound(simt, nbytes, products / PEAK_BF16 * 1e3)
+    run = lambda: tail_bwd_kernel(*targs[1:10], dy, K, True)  # noqa: E731
     res["bilateral_tail_gated_bwd_bf16"] = {
-        "ms": time_ms(lambda: tail_bwd_kernel(*targs[1:10], dy, K, True), 3),
+        "ms": time_ms(run, 3),
+        # queued behind a sleeping kernel: device time without host gaps,
+        # to tell a slow card from a slow host in a wall reading
+        "device_ms": queued_ms(run, 3),
         "plain_ms": time_ms(lambda: tail_bwd_plain_bf16(
             *targs[1:10], dy, K, True), 2),
         "bound_ms": b, "bound_by": by, "library_ms": None,
         "shape": f"stage 4, B={B}, N={n}, 4Fin={four_fin}, 2F={two_f}, bf16"}
+    log(f"  bilateral_tail_gated_bwd_bf16 stage 4: "
+        f"{res['bilateral_tail_gated_bwd_bf16']['ms']:.4f} ms (device "
+        f"{res['bilateral_tail_gated_bwd_bf16']['device_ms']:.4f} ms)")
     e, share = compare_tail_bwd_bf16(targs, dy, f"stage 4 B={B} gated")
     res["bilateral_tail_gated_bwd_bf16"].update(max_abs_err=e,
                                                 kink_share=share)
@@ -4002,6 +4190,10 @@ def main(argv=None) -> int:
                     help="build the kernels and run phases 3b and 4b alone; "
                     "copied into another checkout's root, it times that "
                     "checkout's bf16 instances")
+    ap.add_argument("--bf16-train-alone", action="store_true",
+                    help="build the kernels and run phases 2mn, 2bt, 3bt and "
+                    "4bt alone; copied into another checkout's root, it "
+                    "checks and times that checkout's bf16 backwards")
     ap.add_argument("--train-alone", action="store_true",
                     help="build the kernels, run phase 3t alone and print "
                     "its steps/s; copied into another checkout's root, it "
@@ -4048,6 +4240,25 @@ def main(argv=None) -> int:
         times = time_bf16_kernels(dev, gen)
         print(json.dumps({"card": smi, "build_s": build_s,
                           "bf16_clouds_per_s_b128": path_bf16["clouds_per_s"],
+                          "times": times}))
+        return 0
+    if args.bf16_train_alone:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        phase("phase 2mn: the bf16 wgmma product, MN-major, against torch.mm")
+        mn = check_product_bf16(gen, dev)
+        phase("phase 2bt: the bf16 backward instances against their bf16 "
+              "plain versions")
+        bt_errs, bt_kinks = check_bf16_train_kernels(gen, dev)
+        phase(f"phase 3bt: train path in bf16, B={TRAIN_B}")
+        train_bf16 = train_path_bf16(root, smi)
+        phase(f"phase 4bt: bf16 backward times and checks at B={TRAIN_B}")
+        times = time_bf16_train_kernels(dev, gen)
+        print(json.dumps({"card": smi, "build_s": build_s,
+                          "product_bf16": mn, "errs_2bt": bt_errs,
+                          "kinks_2bt": bt_kinks,
+                          "bf16_train_steps_per_s_b35":
+                              train_bf16["steps_per_s"],
+                          "bf16_train_launches": train_bf16["launches"],
                           "times": times}))
         return 0
     if args.train_alone:
@@ -4103,6 +4314,9 @@ def main(argv=None) -> int:
     wide = check_wide_shapes(gen, dev)
     phase("phase 2b: the bf16 instances against their bf16 plain versions")
     errs.update(check_bf16_kernels(gen, dev))
+    phase("phase 2mn: the bf16 wgmma product, MN-major, against torch.mm")
+    mn = check_product_bf16(gen, dev)
+    require(mn is not None, "phase 2mn: no product_bf16")
     phase("phase 2bt: the bf16 backward instances against their bf16 plain "
         "versions")
     bt_errs, bt_kinks = check_bf16_train_kernels(gen, dev)
@@ -4189,7 +4403,7 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
         for extra in ("cdist_topk_ms", "sub_yardstick", "largest_call",
                       "kink_share", "graph_ms", "body_tflops",
-                      "library_out_dtype_ms", "tflops"):
+                      "library_out_dtype_ms", "tflops", "stage1"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
         log(f"  {name} ({t['shape']}): {t['ms']:.3f} ms, plain "
@@ -4209,6 +4423,7 @@ def main(argv=None) -> int:
                        "point_ops": point_ops, "path_bf16": path_bf16,
                        "test_bf16": test_bf16, "train_bf16": train_bf16,
                        "parallel": par, "bwd_bits": bwd_bits,
+                       "product_bf16": mn,
                        "native_oracles": oracles}, f, indent=1)
     print(json.dumps({"card": smi,
                       "clouds_per_s_b128": path["clouds_per_s"],

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "pdgn_edge_head_bwd": [_P] * 4 + [_I] * 8 + [_P] * 10 + [_P] * 15
                           + [_P],
     "pdgn_edge_head_bwd_bf16": [_P] * 4 + [_I] * 8 + [_P] * 11
-                               + [_P] * 16 + [_P],
+                               + [_P] * 8 + [_P] * 13 + [_I] * 6 + [_P],
     "pdgn_bilateral_tail_bwd": [_P] * 12 + [_I] * 8 + [_P] * 12 + [_P],
     "pdgn_bilateral_tail_bwd_bf16": [_P] * 11 + [_I] * 8 + [_P] * 12 + [_P],
     "pdgn_local_stats_fwd": [_P, _P, _I, _I, _I, _I] + [_P] * 5 + [_P],
@@ -63,6 +63,7 @@ _SIGNATURES = {
     "pdgn_knn_topk": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "pdgn_knn_gather": [_P, _I, _I, _I, _I, _P, _P, _P],
     "pdgn_tc_gemm": [_P, _I, _P] + [_I] * 5 + [_P] * 5,
+    "pdgn_product_bf16": [_P, _P] + [_I] * 4 + [_P] * 3,
 }
 
 _lock = threading.Lock()
@@ -154,6 +155,14 @@ MAX_GRID_Y = 65535
 # rows per split of the transposed (weight-gradient) products: kSplitRows in
 # csrc/tf32x3_gemm.cuh; their scratch holds one (M, N) partial per split
 TN_SPLIT_ROWS = 4096
+
+
+def product_splits(tiles: int, stages: int, sms: int) -> int:
+    """Row splits of a transposed bf16 product (``product_bf16_kernel`` in
+    ``csrc/hopper.cuh``): about two blocks an SM over its ``tiles`` output
+    tiles, at most one a stage of 64 rows. Split ``z`` takes the stages
+    ``z * stages // splits`` up to ``(z + 1) * stages // splits``."""
+    return max(1, min(-(-2 * sms // tiles), stages))
 
 
 def up4(v: int) -> int:

@@ -253,17 +253,16 @@ def head_kernel_bf16(x, x_knn, wn_flat, conv_a, pb_point, a_merge, wen,
 
 
 def pack_head_bwd_weights(wn_flat, conv_a, a_merge, wen, k: int,
-                          window: int, up=_lib.up4):
-    """The backward's product operands, blocks zero-padded to 16-byte rows
-    (``c4``, ``ldf``, ``t4``: C, 4Fin, 2F rounded up by ``up``, to 4 fp32
-    or, ``up8``, to 8 bf16): ``W_conv = [Wn_0^T; ..; Wn_{window-1}^T;
-    conv_a^T]`` of shape ``((window+1)*ldf, c4)``, so that ``Gc @ W_conv``
+                          window: int):
+    """The fp32 backward's product operands, blocks zero-padded to 16-byte
+    rows (``c4``, ``ldf``, ``t4``: C, 4Fin, 2F rounded up to 4): ``W_conv =
+    [Wn_0^T; ..; Wn_{window-1}^T; conv_a^T]`` of shape ``((window+1)*ldf, c4)``, so that ``Gc @ W_conv``
     with ``Gc = [A_0 | .. | S]`` is the window conv's input gradient, and
     ``W_merge = [wen_0; ..; wen_{k-1}; a_merge]^T`` of shape ``(t4,
     (k+1)*c4)``."""
     C, four_fin = conv_a.shape
     two_f = a_merge.shape[-1]
-    c4, ldf, t4 = up(C), up(four_fin), up(two_f)
+    c4, ldf, t4 = _lib.up4(C), _lib.up4(four_fin), _lib.up4(two_f)
     pad = torch.nn.functional.pad
     w_conv = torch.cat([wn_flat.reshape(window, C, four_fin), conv_a[None]])
     w_conv = pad(w_conv, (0, ldf - four_fin, 0, c4 - C)).transpose(1, 2)
@@ -274,10 +273,10 @@ def pack_head_bwd_weights(wn_flat, conv_a, a_merge, wen, k: int,
 
 
 def unpack_head_bwd_grads(d_wconv, d_wmerge, C: int, four_fin: int,
-                          two_f: int, k: int, window: int, up=_lib.up4):
+                          two_f: int, k: int, window: int):
     """``d_wconv (c4, (window+1)*ldf) = x^T Gc`` and ``d_wmerge ((k+1)*c4,
     t4)`` cut back to ``d_wn_flat, d_conv_a, d_a_merge, d_wen``."""
-    c4, ldf, t4 = up(C), up(four_fin), up(two_f)
+    c4, ldf, t4 = _lib.up4(C), _lib.up4(four_fin), _lib.up4(two_f)
     d_wc = d_wconv.reshape(c4, window + 1, ldf)[:C, :, :four_fin]
     d_wc = d_wc.permute(1, 0, 2).reshape((window + 1) * C, four_fin)
     d_wm = d_wmerge.reshape(k + 1, c4, t4)[:, :C, :two_f]
@@ -356,6 +355,75 @@ def head_bwd_kernel(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
             d_wen, d_pb_merge, d_pcat, d_ppoint)
 
 
+# depth columns of a stage of the bf16 backward's d_x kernel (kXK in
+# csrc/edge_head_bwd.cu, which checks the ldk it is given against it): each
+# block of w_dx is 4Fin rounded up to it
+BWD_DX_CHUNK = 128
+
+
+def pack_head_bwd_weights_bf16(wn_flat, conv_a, a_merge, wen, k: int,
+                               window: int):
+    """The bf16 backward's product operands, K-major bf16 for ``wgmma``:
+    ``w_dx`` of shape ``(c8, (window+1)*ldk)``, row ``c`` holding ``[Wn_0[c]
+    | .. | Wn_{window-1}[c] | conv_a[c]]`` in blocks of ``ldk`` (4Fin
+    rounded up to :data:`BWD_DX_CHUNK`), so that ``[A_0 | .. | S] @ w_dx.T``
+    is the window conv's input gradient; and ``w_dm`` of shape
+    ``((k+1)*c8, t8)``, row ``j*c8 + c`` holding ``wen_j[c]`` (``j < k``) or
+    ``a_merge[c]``, so that ``d_partial @ w_dm.T`` is every neighbour
+    block's merge cotangent. ``c8``, ``t8``: C and 2F rounded up to 8;
+    zero pads."""
+    C, four_fin = conv_a.shape
+    two_f = a_merge.shape[-1]
+    c8, t8 = _lib.up8(C), _lib.up8(two_f)
+    ldk = -(-four_fin // BWD_DX_CHUNK) * BWD_DX_CHUNK
+    pad = torch.nn.functional.pad
+    bf = torch.bfloat16
+    w_dx = torch.cat([wn_flat.reshape(window, C, four_fin), conv_a[None]])
+    w_dx = pad(w_dx, (0, ldk - four_fin, 0, c8 - C)).permute(1, 0, 2)
+    w_dm = torch.cat([wen.reshape(k, C, two_f), a_merge[None]])
+    w_dm = pad(w_dm, (0, t8 - two_f, 0, c8 - C))
+    return (w_dx.reshape(c8, (window + 1) * ldk).to(bf).contiguous(),
+            w_dm.reshape((k + 1) * c8, t8).to(bf).contiguous())
+
+
+def unpack_head_bwd_grads_bf16(d_wn, d_ca, d_wm, C: int, four_fin: int,
+                               two_f: int, k: int, window: int):
+    """The bf16 backward's weight gradients, ``d_wn (window*c8, ld8)``,
+    ``d_ca (c8, ld8)`` and ``d_wm ((k+1)*c8, t8)`` (rows ``t*c8 + c`` or
+    ``j*c8 + c``), cut back to ``d_wn_flat, d_conv_a, d_a_merge, d_wen``."""
+    c8 = _lib.up8(C)
+    d_wn = d_wn.reshape(window, c8, -1)[:, :C, :four_fin]
+    d_wm = d_wm.reshape(k + 1, c8, -1)[:, :C, :two_f]
+    return (d_wn.reshape(window * C, four_fin), d_ca[:C, :four_fin],
+            d_wm[k], d_wm[:k].reshape(k * C, two_f))
+
+
+def head_bwd_splits_bf16(rows: int, C: int, four_fin: int, two_f: int,
+                         k: int, sms: int):
+    """The row splits of the bf16 backward's three weight products (``d_wn``,
+    ``d_conv_a``, ``d_[wen; a_merge]``) on a card of ``sms`` SMs: each
+    output tile is 128 rows (of C, per tap) by 256 columns, each stage 64
+    rows of the reduction (``hk`` blocks of them for ``d_wn``)."""
+    hk, window = k // 2, k // 2 + 1
+    mt = -(-_lib.up8(C) // 128)
+    nf, nm = -(-_lib.up8(four_fin) // 256), -(-_lib.up8(two_f) // 256)
+    blocks = -(-rows // 64)
+    split = _lib.product_splits
+    return (split(window * mt * nf, hk * blocks, sms),
+            split(mt * nf, blocks, sms),
+            split((k + 1) * mt * nm, blocks, sms))
+
+
+def head_bwd_rows_per_block(N: int, ld8: int) -> int:
+    """Rows a block of the bf16 backward's dy pass: the largest of 8, 4, 2
+    that divides N and whose rows' fp32 S (``ld8`` columns) fit in 48 KB,
+    else 1 (passed to ``pdgn_edge_head_bwd_bf16``, which sizes its grid and
+    ``spart`` by it). The bias gradient sums S over a block's rows in row
+    order, then over the blocks in order."""
+    fits = (r for r in (8, 4, 2) if N % r == 0 and r * ld8 * 4 <= 48 << 10)
+    return next(fits, 1)
+
+
 def head_bwd_kernel_bf16(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
                          ppoint, cts, k: int):
     """Launch ``pdgn_edge_head_bwd_bf16``: bf16 ``x``, ``inte``, ``pcat``,
@@ -377,14 +445,11 @@ def head_bwd_kernel_bf16(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
     rows = B * N
     _lib.check_rows(rows, 128, "edge_head_bwd")
     up = _lib.up8
-    c8, ldf, t8 = up(C), up(four_fin), up(two_f)
+    c8, ld8, t8 = up(C), up(four_fin), up(two_f)
     pad = torch.nn.functional.pad
-    w_conv, w_merge = pack_head_bwd_weights(wn_flat, conv_a, a_merge, wen,
-                                            k, window, up)
-    # [Wn^T; conv_a^T; Wn^T]: the lo parts of A meet Wn once more
-    w_conv = torch.cat([w_conv, w_conv[:window * ldf]]).to(bf).contiguous()
-    w_merge = w_merge.to(bf).contiguous()
-    xp = _lib.aligned(pad(x, (0, c8 - C)).contiguous())
+    w_dx, w_dm = pack_head_bwd_weights_bf16(wn_flat, conv_a, a_merge, wen,
+                                            k, window)
+    xp = _lib.aligned(x.contiguous() if C == c8 else pad(x, (0, c8 - C)))
     gated = pcat is not None
     d_inte, d_partial, d_stats = (c.contiguous() for c in cts[:3])
     for name, c, dt in (("d_inte", d_inte, bf), ("d_partial", d_partial,
@@ -394,7 +459,10 @@ def head_bwd_kernel_bf16(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
             raise TypeError(f"edge_head_bwd bf16: {name} must be {dt}, got "
                             f"{c.dtype}")
     d_inte = _lib.aligned(d_inte)
-    dpart_b = _lib.aligned(pad(d_partial.to(bf), (0, t8 - two_f)).contiguous())
+    dpart_b = d_partial.to(bf)
+    if t8 != two_f:
+        dpart_b = pad(dpart_b, (0, t8 - two_f))
+    dpart_b = _lib.aligned(dpart_b)
     inte = _lib.aligned(inte)
     d_wfea = d_wxyz = d_wstats = None
     if gated:
@@ -402,20 +470,28 @@ def head_bwd_kernel_bf16(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
         if d_wfea.dtype != bf or d_wxyz.dtype != bf:
             raise TypeError("edge_head_bwd bf16: the weight-net rows' "
                             "cotangents must be bfloat16")
-    gw, mc = (2 * window + 1) * ldf, (k + 1) * c8
+    sms = _lib.sm_count(dev)
+    splits = head_bwd_splits_bf16(rows, C, four_fin, two_f, k, sms)
+    mc = (k + 1) * c8
     d_x = torch.empty(rows, c8, device=dev, dtype=bf)
-    d_wconv = torch.empty(c8, gw, **f32)
-    d_wmerge = torch.empty(mc, t8, **f32)
+    d_wn = torch.empty(window * c8, ld8, **f32)
+    d_ca = torch.empty(c8, ld8, **f32)
+    d_wm = torch.empty(mc, t8, **f32)
     d_pb_point = torch.empty(B, four_fin, **f32)
     d_pb_merge = torch.empty(B, two_f, **f32)
     d_pcat = torch.empty(B, N, PROJ, device=dev, dtype=bf) if gated else None
     d_ppoint = torch.empty(B, N, PROJ, device=dev, dtype=bf) if gated else None
-    gc = torch.empty(rows, gw, device=dev, dtype=bf)
-    sf = torch.empty(rows, four_fin, **f32)
+    dyb = torch.empty(rows, hk, ld8, device=dev, dtype=bf)
+    sb = torch.empty(rows, ld8, device=dev, dtype=bf)
+    xg = torch.empty(rows, k + 1, c8, device=dev, dtype=bf)
+    rpb = head_bwd_rows_per_block(N, ld8)
+    spart = torch.empty(rows // rpb, four_fin, **f32)
     dm = torch.empty(rows, mc, **f32)
     dxm = torch.empty(rows, c8, **f32)
-    splits = -(-rows // _lib.TN_SPLIT_ROWS)
-    tn_scratch = torch.empty(splits * max(c8 * gw, mc * t8), **f32)
+    part = torch.empty(max(splits[0] * window * c8 * ld8,
+                           splits[1] * c8 * ld8, splits[2] * mc * t8), **f32)
+    counter = torch.empty(1, **i32)
+    dec = torch.empty(rows * k, 2, **i32)
     nbr = (idx + N * torch.arange(B, **i32)[:, None, None]).contiguous()
     count = torch.empty(rows, **i32)
     cursor = torch.empty(rows, **i32)
@@ -423,20 +499,17 @@ def head_bwd_kernel_bf16(x, idx, inte, wn_flat, conv_a, a_merge, wen, pcat,
     entries = torch.empty(rows * k, **i32)
     p = _lib.ptr
     _lib.check(_lib.library().pdgn_edge_head_bwd_bf16(
-        p(xp), p(idx), p(nbr), p(inte), B, N, c8, k, four_fin, two_f, ldf, t8,
-        p(w_conv), p(w_merge), p(d_inte), p(d_partial), p(dpart_b),
-        p(d_stats), p(pcat), p(ppoint), p(d_wfea), p(d_wxyz), p(d_wstats),
-        p(d_x), p(d_wconv), p(d_wmerge), p(d_pb_point), p(d_pb_merge),
-        p(d_pcat), p(d_ppoint), p(gc), p(sf), p(dm), p(dxm), p(tn_scratch),
-        p(count), p(cursor), p(offsets), p(entries), _lib.stream_handle(dev)),
-        "pdgn_edge_head_bwd_bf16")
+        p(xp), p(idx), p(nbr), p(inte), B, N, c8, k, four_fin, two_f, ld8, t8,
+        p(w_dx), p(w_dm), p(d_inte), p(d_partial), p(dpart_b), p(d_stats),
+        p(pcat), p(ppoint), p(d_wfea), p(d_wxyz), p(d_wstats), p(d_x),
+        p(d_wn), p(d_ca), p(d_wm), p(d_pb_point), p(d_pb_merge), p(d_pcat),
+        p(d_ppoint), p(dyb), p(spart), p(sb), p(xg), p(dm), p(dxm), p(part),
+        p(counter), p(dec), p(count), p(cursor), p(offsets), p(entries), sms,
+        rpb, w_dx.shape[1] // (window + 1), *splits,
+        _lib.stream_handle(dev)), "pdgn_edge_head_bwd_bf16")
     _lib.LAUNCHES["edge_head_bwd_bf16"] += 1
-    # x^T A = x^T A_hi + x^T A_lo
-    n_a = window * ldf
-    d_wconv = torch.cat([d_wconv[:, :n_a] + d_wconv[:, n_a + ldf:],
-                         d_wconv[:, n_a:n_a + ldf]], dim=1)
-    d_wn, d_ca, d_am, d_wen = unpack_head_bwd_grads(
-        d_wconv, d_wmerge, C, four_fin, two_f, k, window, up)
+    d_wn, d_ca, d_am, d_wen = unpack_head_bwd_grads_bf16(
+        d_wn, d_ca, d_wm, C, four_fin, two_f, k, window)
     return (d_x[:, :C].reshape(B, N, C), d_wn, d_ca, d_pb_point, d_am,
             d_wen, d_pb_merge, d_pcat, d_ppoint)
 

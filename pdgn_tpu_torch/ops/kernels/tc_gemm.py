@@ -1,11 +1,16 @@
-"""The port's shared fp32-accurate tensor-core product core
-(``csrc/tf32x3_gemm.cuh``, 3xTF32) on its own.
+"""The port's products on their own: the shared fp32-accurate tensor-core
+product core (``csrc/tf32x3_gemm.cuh``, 3xTF32) and the bf16 ``wgmma``
+product of ``csrc/hopper.cuh`` (``product_bf16_kernel``).
 
-The gated tail's merge and the head's forward and backward products run on
-it inside their kernels; :func:`tc_matmul` launches it alone, so that a
-check can hold its folded chains against float64 and a yardstick can set
-one product against ``torch.addmm``. CUDA tensors launch the kernel
-(``csrc/tc_gemm.cu``); CPU tensors run the plain PyTorch product.
+The gated tail's merge and the head's forward and fp32 backward products
+run on the core inside their kernels; :func:`tc_matmul` launches it alone,
+so that a check can hold its folded chains against float64 and a yardstick
+can set one product against ``torch.addmm``. The bf16 head backward's
+weight gradients run on the ``wgmma`` product with both operands MN-major;
+:func:`product_bf16` launches it alone (``a.T @ b`` over the rows), so
+that a check can hold its transposed layout against ``torch.mm``. CUDA
+tensors launch the kernels (``csrc/tc_gemm.cu``); CPU tensors run the plain
+PyTorch products.
 """
 
 from __future__ import annotations
@@ -54,4 +59,35 @@ def tc_matmul(a, b, addend=None, bias=None, *, trans: bool = False):
         p(None if bias is None else bias.contiguous()), p(out), p(scratch),
         _lib.stream_handle(a.device)), "pdgn_tc_gemm")
     _lib.LAUNCHES["tc_gemm"] += 1
+    return out
+
+
+def product_bf16(a, b):
+    """``a.T @ b`` in fp32 for bf16 ``a (K, M)`` and ``b (K, N)`` (M and N
+    multiples of 8): on a CUDA tensor ``product_bf16_kernel`` with both
+    operands MN-major, the K rows in :func:`_lib.product_splits` contiguous
+    ranges for the card, whose partials are added in a fixed order; on a
+    CPU tensor the plain product of the upcasts."""
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.bfloat16 or t.dim() != 2 or t.device != a.device:
+            raise ValueError(f"product_bf16: {name} must be a 2-D bfloat16 "
+                             f"tensor on {a.device}")
+    K, M = a.shape
+    N = b.shape[1]
+    if b.shape[0] != K or M % 8 or N % 8:
+        raise ValueError(f"product_bf16: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} (M, N multiples of 8)")
+    if a.device.type != "cuda":
+        return a.float().T @ b.float()
+    splits = _lib.product_splits(-(-M // 128) * -(-N // 256), -(-K // 64),
+                                 _lib.sm_count(a.device))
+    a, b = _lib.aligned(a.contiguous()), _lib.aligned(b.contiguous())
+    out = torch.empty(M, N, device=a.device, dtype=torch.float32)
+    scratch = torch.empty(splits * M * N, device=a.device,
+                          dtype=torch.float32)
+    p = _lib.ptr
+    _lib.check(_lib.library().pdgn_product_bf16(
+        p(a), p(b), K, M, N, splits, p(scratch), p(out),
+        _lib.stream_handle(a.device)), "pdgn_product_bf16")
+    _lib.LAUNCHES["product_bf16"] += 1
     return out

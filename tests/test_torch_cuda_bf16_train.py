@@ -2,8 +2,10 @@
 both tails': ``--phase train --compute_dtype bfloat16``) against their bf16
 plain versions on the card, at small and ragged shapes that ``chip_smoke``
 phase 2bt's full-width checks never hit: row counts that fill no tile,
-channel counts off multiples of 8 (a 16-byte granule of bf16), k from 6 to
-126, 4Fin and 2F off multiples of 8, 2Fin odd. bf16 outputs within 2 ulps
+channel counts off multiples of 8 (a 16-byte granule of bf16), k from 2 to
+126, 4Fin and 2F off multiples of 8, 2Fin odd, and (the head backward)
+graphs of hub rows whose lists outgrow the d_x kernel's shared-memory hit
+list. bf16 outputs within 2 ulps
 of the larger magnitude, counted at no less than 1/256 of the largest
 (``torch_port_util.bf16_ulps``, phase 2b's measure and limit); fp32
 outputs rel <= 1e-4; two launches bit-identical; each launch counted under
@@ -73,7 +75,9 @@ def _check(got, want, rows_ok=None):
     (200, 36, 8, 14, True, None, None),       # C off a multiple of 8
     (150, 16, 16, 18, False, None, None),
     (160, 8, 8, 126, True, None, None),
-    (128, 32, 0, 10, False, 130, 66)])        # 4Fin, 2F off multiples of 8
+    (128, 32, 0, 10, False, 130, 66),         # 4Fin, 2F off multiples of 8
+    (37, 24, 0, 10, True, None, None),        # 111 rows: no tile filled
+    (90, 16, 8, 2, True, None, None)])        # k = 2
 def test_bf16_head_bwd_matches_plain(dev, N, C, cx, k, gated, four_fin,
                                      two_f):
     g = torch.Generator(device=dev).manual_seed(N + k + C)
@@ -114,6 +118,46 @@ def test_bf16_head_bwd_matches_plain(dev, N, C, cx, k, gated, four_fin,
     want = head_bwd_plain_bf16(x, idx, inte, wn, ca, am, wen, pcat, ppoint,
                                cts, k, window)
     _check(got, want)
+
+
+@pytest.mark.parametrize("N,C,four_fin,two_f,gated", [
+    (300, 40, 130, 66, True),     # hubs within the d_x kernel's hit list
+    (2048, 32, 128, 64, False)])  # a window's hits beyond it
+def test_bf16_head_bwd_hub_rows(dev, N, C, four_fin, two_f, gated):
+    """A graph of hub rows: every row names rows 0..k-1 (those rows name
+    k..2k-1), so the first tile's lists hold nearly all of the cloud's
+    entries and are cut between the d_x kernel's producer warps; at N=2048
+    a window's hits outgrow its shared-memory list and the kernel walks the
+    reverse adjacency. Against ``head_bwd_plain_bf16``; two launches
+    bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(N + C)
+    B, k = 2, 10
+    hk, window = k // 2, k // 2 + 1
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    idx = torch.arange(k, device=dev).repeat(B, N, 1)
+    idx[:, :k] += k
+    idx = idx.int().contiguous()
+    x = r(B, N, C).to(BF)
+    wn, ca = r(window * C, four_fin) * 0.1, r(C, four_fin) * 0.1
+    am, wen = r(C, two_f) * 0.1, r(k * C, two_f) * 0.1
+    inte = r(B, N, hk * four_fin).to(BF)
+    pcat = r(B, N, 32).to(BF) if gated else None
+    ppoint = r(B, N, 32).to(BF) if gated else None
+    cts = [r(B, N, hk * four_fin).to(BF), r(B, N, two_f).to(BF).float(),
+           r(2, four_fin) * 0.01]
+    cts += ([r(B, N, k * 16).to(BF), r(B, N, k * 16).to(BF),
+             r(2, k * 32) * 0.01] if gated else [None] * 3)
+    got = head_bwd_kernel(x, idx, inte, wn, ca, am, wen, pcat, ppoint, cts,
+                          k)
+    again = head_bwd_kernel(x, idx, inte, wn, ca, am, wen, pcat, ppoint, cts,
+                            k)
+    for a, b in zip(got, again):
+        assert a is None or torch.equal(a, b)
+    _check(got, head_bwd_plain_bf16(x, idx, inte, wn, ca, am, wen, pcat,
+                                    ppoint, cts, k, window))
 
 
 @pytest.mark.parametrize("gated,k,fin,N,four_fin,two_f", [

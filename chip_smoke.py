@@ -245,11 +245,13 @@ bf16 instances of the head backward and both tail backwards), after 2b,
 2bt. each bf16 backward instance against its bf16 plain version (the TPU
    kernels' rounding points, ``head_bwd_plain_bf16``,
    ``tail_bwd_plain_bf16``) at stage 4 and stage 1, B=35, and at phase
-   2w's k = 14 and 18 (B=8), with cotangents as bf16 training gives them:
-   bf16 outputs within ``BF16_ULPS``, fp32 outputs rel <= 1e-4, two
-   launches bit-identical. The gated tail's slot-logit entries at a kink
-   (``kink_mask``: each side takes LeakyReLU's branch from its own fp32
-   sum) are counted and printed, and d h is held on the rows free of them;
+   2w's k = 14 and 18 (B=8; at k = 18 the bf16 gated tail backward stays
+   on the core's chain, counted under its own name), with cotangents as
+   bf16 training gives them: bf16 outputs within ``BF16_ULPS``, fp32
+   outputs rel <= 1e-4, two launches bit-identical. The gated tail's slot-logit
+   entries at a kink (``kink_mask``: each side takes LeakyReLU's branch
+   from its own fp32 sum) are counted and printed, and d h is held on the
+   rows free of them;
 3bt. ``PDGNTrainer.train`` with compute_dtype bfloat16 at full width,
    B=35, synthetic, 21 steps (one warm-up, twenty timed), counters set to 0
    just before and read just after: only the bf16 instances of the head,
@@ -263,15 +265,22 @@ bf16 instances of the head backward and both tail backwards), after 2b,
 4bt. each bf16 backward instance at B=35 (stage 4; the plain tail stage
    1): its time, its bf16 plain version's and its bound (products at the
    bf16 tensor cores' 989 TFLOP/s), and the 2bt checks again; the head
-   backward also at stage 1 (wall and queued device time; the gated tail
-   backward's queued device time beside its wall time), with the rate
+   backward also at stage 1 (wall and queued device time), with the rate
    of the products it runs (the products and the bytes its d_x kernel
-   reads through L2 are counted from the shapes and logged only), and ``product_bf16`` at its ``d_wn`` shape
-   beside ``torch.mm(a.T, b, out_dtype=torch.float32)`` (a
-   sub-yardstick). ``--bf16-train-alone`` builds the kernels and runs
-   2mn, 2bt, 3bt and 4bt alone; copied into
-   another checkout's root it checks and times that checkout's (2mn is
-   skipped where it has no ``product_bf16``).
+   reads through L2 are counted from the shapes and logged only), and
+   ``product_bf16`` at its ``d_wn`` shape beside ``torch.mm(a.T, b,
+   out_dtype=torch.float32)`` (a sub-yardstick); the gated tail backward
+   at stages 4, 3 and 2 (wall and queued device time, each with its bound,
+   the rate of its products and the bytes its fused launch reads through
+   L2, both counted from the shapes and tiles and logged, and the host
+   time of a call), at stage 4 and k = 18 (the ``--num_k 36``
+   generator's, which stays on the core's chain) likewise, and at stage 4
+   its launches' device times by ``torch.profiler`` beside two
+   sub-yardsticks: dg as ``torch.mm(dy_b, wi_b.T, out_dtype=float32)``,
+   and d_wi on ``product_bf16`` against ``torch.mm(g.T, dy_b, ...)``.
+   ``--bf16-train-alone`` builds the kernels and runs 2mn, 2bt, 3bt and
+   4bt alone; copied into another checkout's root it checks and times that
+   checkout's (2mn is skipped where it has no ``product_bf16``).
 
 The data-parallel slice (``pdgn_tpu_torch.parallel``), after 3p:
 
@@ -400,6 +409,24 @@ def queued_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """ms the host takes to return from a call of ``fn`` with the card idle
+    before each call: the host cost of issuing it (packing, allocation,
+    map encoding, launches), which a host-bound step pays in full."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / reps * 1e3
 
 
 # ------------------------------------------------------------------ inputs
@@ -2003,9 +2030,12 @@ def compare_tail_bwd_bf16(args, dy, label: str):
 
 def check_bf16_train_kernels(gen, dev) -> dict:
     """Phase 2bt: the three bf16 backward instances against their bf16 plain
-    versions at stage 4 and stage 1 (B=35) and at phase 2w's k (B=8);
-    phase 4bt holds them again where it times them."""
+    versions at stage 4 and stage 1 (B=35) and at phase 2w's k (B=8; the
+    gated tail's core chain at k = 18 counted apart, where the checkout
+    counts it so); phase 4bt holds them again where it times them."""
     import torch
+
+    from pdgn_tpu_torch.ops.kernels import _lib
 
     bf = torch.bfloat16
     B = TRAIN_B
@@ -2022,12 +2052,80 @@ def check_bf16_train_kernels(gen, dev) -> dict:
         targs = tail_bf16(tail_inputs(stage, b, gated, gen, dev, k))
         dy = torch.randn(*targs[0].shape, generator=gen, device=dev).to(bf)
         name = f"bilateral_tail_{'gated' if gated else 'plain'}_bwd_bf16"
+        wide = gated and has_tail_bwd_routes() and k > tail_bwd_fast_k()
+        counted = name.replace("_bwd", "_bwd_wide") if wide else name
+        before = _lib.LAUNCHES[counted]
         e, share = compare_tail_bwd_bf16(targs, dy, label)
+        require(_lib.LAUNCHES[counted] == before + 2,
+                f"tail bwd bf16 {label}: launches not counted as {counted}")
         errs[name] = max(errs[name], e)
         if gated:
             kinks[label] = share
         del targs, dy
     return errs, kinks
+
+
+def has_tail_bwd_routes() -> bool:
+    """Whether this checkout's bf16 gated tail backward counts its fused
+    kernel (k <= ``TAIL_BWD_FAST_K``) and its core chain at wider k apart
+    (an earlier checkout, this script copied into it for an A/B call,
+    does not)."""
+    from pdgn_tpu_torch.ops.kernels import bilateral_tail
+    return hasattr(bilateral_tail, "TAIL_BWD_FAST_K")
+
+
+def tail_bwd_fast_k() -> int:
+    """The widest k of the bf16 gated tail backward's fused kernel."""
+    from pdgn_tpu_torch.ops.kernels.bilateral_tail import TAIL_BWD_FAST_K
+    return TAIL_BWD_FAST_K
+
+
+def tail_bwd_bf16_work(stage: int, B: int, k: int, ms: float,
+                       label: str) -> dict:
+    """The products of the bf16 gated tail backward at a stage (dg and
+    d_wi, 2 x rows x K x 2F each; the slot logits, d_h and d_w2k, 2 x rows
+    x k x 64 x 2Fin each) and, at k <= 16, the bytes its fused launch reads
+    through L2, both counted from the shapes and its tiles (an item a
+    64-row tile by 16 channels: each slot's h box, w2k's box a logits
+    position of up to 3 (KS = 10) or 4 slots, dy's and wi's boxes a
+    64-deep stage of 2F, inte's box of KS slots; KS = 10 at k <= 10, else
+    16) and logged as such; returns the products' rate at the measured
+    ``ms`` and the L2 bytes (None at wider k, which has no fused launch).
+    In an earlier checkout the same counts stand beside another design."""
+    n, _, _, four_fin, two_f = stage_dims(stage)
+    rows, two_fin = B * n, four_fin // 2
+    kk = k * two_fin
+    flop = 2.0 * rows * (2 * kk * two_f + 3 * k * 64 * two_fin)
+    ks = 10 if k <= 10 else 16
+    lg = (8192 + ks * 2048 - 2048) // 8192   # h boxes a logits position
+    blocks = -(-rows // 64) * -(-two_fin // 16)
+    stages = -(-(-(-two_f // 8) * 8) // 64)
+    l2 = None if k > 16 else blocks * (
+        k * 8192 + -(-k // lg) * 2048 + stages * (8192 + ks * 2048)
+        + ks * 2048) / 1e9
+    log(f"  bilateral_tail_gated_bwd_bf16 {label}: counted from the shapes "
+        f"and tiles, {flop / 1e9:.1f} GFLOP of products"
+        + ("" if l2 is None else
+           f" and {l2:.3f} GB through L2 in the fused launch")
+        + f"; {flop / ms / 1e9:.1f} TFLOP/s at the measured {ms:.4f} ms")
+    return {"tflops": flop / ms / 1e9, "l2_gb": l2}
+
+
+def tail_bwd_bf16_bound(stage: int, B: int, k: int):
+    """The bf16 gated tail backward's bound at a stage: its products at the
+    bf16 rate, its gate walk at the SIMT rate, its bytes (inte, h, dy, wi,
+    w2k once; d_inte, d_h and the fp32 gradients once)."""
+    n, _, _, four_fin, two_f = stage_dims(stage)
+    rows, two_fin = B * n, four_fin // 2
+    kk = k * two_fin
+    products = (2 * 2.0 * rows * kk * two_f           # dg and d_wi
+                + 3 * 2.0 * rows * k * 64 * two_fin)  # conv_all2, d_h, d_w2k
+    simt = 30.0 * rows * kk                           # gate, softmax, walk
+    nbytes = (2.0 * (2 * rows * kk + 2 * rows * k * 64 + rows * two_f
+                     + kk * two_f + 64 * two_fin)
+              + 4.0 * (rows * two_f + kk * two_f + 64 * two_fin
+                       + 4 * four_fin + 6 * two_fin))
+    return bound(simt, nbytes, products / PEAK_BF16 * 1e3)
 
 
 # ------------------------------------------ the bf16 train slice: phase 3bt
@@ -2288,35 +2386,45 @@ def time_bf16_train_kernels(dev, gen) -> dict:
     res["edge_head_bwd_bf16"]["stage1"] = stage1
     del case, args, idx, inte, cts, x
 
-    two_fin = four_fin // 2
-    KK = hk * four_fin
-    targs = tail_bf16(tail_inputs(4, B, True, gen, dev))
-    dy = torch.randn(*targs[0].shape, generator=gen, device=dev).to(bf)
-    products = (2 * 2.0 * rows * KK * two_f          # dg and d_wi
-                + 3 * 2.0 * rows * K * 64 * two_fin)  # conv_all2, d_h, d_w2k
-    simt = 30.0 * rows * K * two_fin                 # gate, softmax, BN walk
-    nbytes = (2.0 * (2 * rows * KK + 2 * rows * K * 64 + rows * two_f
-                     + KK * two_f + 64 * two_fin)
-              + 4.0 * (rows * two_f + KK * two_f + 64 * two_fin
-                       + 4 * four_fin + 6 * two_fin))
-    b, by = bound(simt, nbytes, products / PEAK_BF16 * 1e3)
-    run = lambda: tail_bwd_kernel(*targs[1:10], dy, K, True)  # noqa: E731
-    res["bilateral_tail_gated_bwd_bf16"] = {
-        "ms": time_ms(run, 3),
-        # queued behind a sleeping kernel: device time without host gaps,
-        # to tell a slow card from a slow host in a wall reading
-        "device_ms": queued_ms(run, 3),
-        "plain_ms": time_ms(lambda: tail_bwd_plain_bf16(
-            *targs[1:10], dy, K, True), 2),
-        "bound_ms": b, "bound_by": by, "library_ms": None,
-        "shape": f"stage 4, B={B}, N={n}, 4Fin={four_fin}, 2F={two_f}, bf16"}
-    log(f"  bilateral_tail_gated_bwd_bf16 stage 4: "
-        f"{res['bilateral_tail_gated_bwd_bf16']['ms']:.4f} ms (device "
-        f"{res['bilateral_tail_gated_bwd_bf16']['device_ms']:.4f} ms)")
-    e, share = compare_tail_bwd_bf16(targs, dy, f"stage 4 B={B} gated")
-    res["bilateral_tail_gated_bwd_bf16"].update(max_abs_err=e,
-                                                kink_share=share)
-    del targs, dy
+    # the gated tail backward at stages 4, 3 and 2 (a step runs one of
+    # each), then at stage 4 with the --num_k 36 generator's k (the core's
+    # chain): wall, queued device and host time, bound, rate, bytes
+    # through L2
+    tail = None
+    for stage, k in ((4, K), (3, K), (2, K), (4, WIDE_K[-1])):
+        n_s, _, _, four_fin_s, two_f_s = stage_dims(stage)
+        targs = tail_bf16(tail_inputs(stage, B, True, gen, dev, k))
+        dy = torch.randn(*targs[0].shape, generator=gen, device=dev).to(bf)
+        b, by = tail_bwd_bf16_bound(stage, B, k)
+        run = lambda: tail_bwd_kernel(*targs[1:10], dy, k, True)  # noqa
+        label = f"stage {stage} B={B} k={k}"
+        row = {
+            "ms": time_ms(run, 3),
+            # queued behind a sleeping kernel: device time without host
+            # gaps, to tell a slow card from a slow host in a wall reading
+            "device_ms": queued_ms(run, 3),
+            "host_ms": host_ms(run, 10),
+            "plain_ms": time_ms(lambda: tail_bwd_plain_bf16(
+                *targs[1:10], dy, k, True), 2),
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "shape": f"stage {stage}, B={B}, N={n_s}, k={k}, "
+                     f"4Fin={four_fin_s}, 2F={two_f_s}, bf16"}
+        row.update(tail_bwd_bf16_work(stage, B, k, row["device_ms"], label))
+        log(f"  bilateral_tail_gated_bwd_bf16 {label}: {row['ms']:.4f} ms "
+            f"(device {row['device_ms']:.4f} ms, host {row['host_ms']:.4f} "
+            f"ms a call), plain {row['plain_ms']:.3f} ms, bound {b:.4f} ms "
+            f"({by})")
+        e, share = compare_tail_bwd_bf16(targs, dy, f"{label} gated")
+        row.update(max_abs_err=e, kink_share=share)
+        if k != K:
+            tail["wide_k"] = dict(row, k=k)
+        elif stage == 4:
+            tail = dict(row, stages={},
+                        sub_yardsticks=tail_bwd_yardsticks(targs, dy))
+        else:
+            tail["stages"][f"stage {stage}"] = row
+        del targs, dy
+    res["bilateral_tail_gated_bwd_bf16"] = tail
 
     n1, _, _, four_fin1, two_f1 = stage_dims(1)
     targs = tail_bf16(tail_inputs(1, B, False, gen, dev))
@@ -2339,6 +2447,63 @@ def time_bf16_train_kernels(dev, gen) -> dict:
     res["bilateral_tail_plain_bwd_bf16"]["max_abs_err"] = (
         compare_tail_bwd_bf16(targs, dy, f"stage 1 B={B} plain")[0])
     return res
+
+
+def tail_bwd_yardsticks(targs, dy) -> dict:
+    """Phase 4bt's sub-yardsticks of the bf16 gated tail backward at stage
+    4: the launches of one call by device time (``torch.profiler``) beside
+    the dg product alone as ``torch.mm(dy_b, wi_b.T, out_dtype=float32)``,
+    and d_wi on ``product_bf16`` (where the checkout has it) beside
+    ``torch.mm(g.T, dy_b, out_dtype=float32)`` on the call's own g, each
+    held to the float64 product (rel <= 1e-4)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pdgn_tpu_torch.ops.kernels.bilateral_tail import (
+        tail_bwd_kernel, tail_bwd_kernel_bf16)
+
+    f32, k = torch.float32, targs[11]
+    rows = dy.shape[0] * dy.shape[1]
+    dy_b = dy.reshape(rows, -1)
+    wi_b = targs[9].to(torch.bfloat16)
+    run = lambda: tail_bwd_kernel(*targs[1:10], dy, k, True)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+    launches = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            launches[ev.key] = us / 3 / 1e3
+    out = {"launches_ms": launches,
+           "dg_torch_mm_ms": time_ms(
+               lambda: torch.mm(dy_b, wi_b.T, out_dtype=f32), 5)}
+    g = tail_bwd_kernel_bf16(*targs[1:10], dy, k, True,
+                             keep_g=True)[11].contiguous()
+    want = g.double().T @ dy_b.double()
+    got = torch.mm(g.T, dy_b, out_dtype=f32)
+    require(rel(got, want) <= 1e-4, f"torch.mm d_wi rel {rel(got, want)}")
+    out["d_wi_torch_mm_ms"] = time_ms(
+        lambda: torch.mm(g.T, dy_b, out_dtype=f32), 5)
+    if has_product_bf16():
+        from pdgn_tpu_torch.ops.kernels.tc_gemm import product_bf16
+
+        got = product_bf16(g, dy_b)
+        require(rel(got, want) <= 1e-4,
+                f"product_bf16 d_wi rel {rel(got, want)}")
+        out["d_wi_product_bf16_ms"] = time_ms(
+            lambda: product_bf16(g, dy_b), 5)
+    log("  bilateral_tail_gated_bwd_bf16 stage 4 sub-yardsticks: "
+        + ", ".join(f"{name[:90]} {ms:.4f} ms" for name, ms in sorted(
+            launches.items(), key=lambda kv: -kv[1]))
+        + f"; dg as torch.mm {out['dg_torch_mm_ms']:.4f} ms; d_wi as "
+        f"torch.mm {out['d_wi_torch_mm_ms']:.4f} ms"
+        + (f", on product_bf16 {out['d_wi_product_bf16_ms']:.4f} ms"
+           if "d_wi_product_bf16_ms" in out else ""))
+    return out
 
 
 # ----------------------------------------------- the train slice: phase 3t
@@ -4172,6 +4337,12 @@ KERNELS = {
 }
 
 
+# the launch counts of a kernel's other routes, which its row adds up (the
+# bf16 gated tail backward at k > TAIL_BWD_FAST_K: the core's chain)
+ROUTES = {"bilateral_tail_gated_bwd_bf16": (
+    "bilateral_tail_gated_bwd_wide_bf16",)}
+
+
 T0 = time.perf_counter()
 
 
@@ -4383,15 +4554,15 @@ def main(argv=None) -> int:
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         t = times[name]
-        by_path = {"sample": path["launches"].get(name, 0),
-                   "train": train["launches"].get(name, 0),
-                   "test": test["launches"].get(name, 0),
-                   "data": data["launches"].get(name, 0),
-                   "point_ops": point_ops["launches"].get(name, 0),
-                   "sample_bf16": path_bf16["launches"].get(name, 0),
-                   "test_bf16": test_bf16["launches"].get(name, 0),
-                   "train_bf16": train_bf16["launches"].get(name, 0),
-                   "parallel": par["launches"].get(name, 0)}
+        # a kernel's other routes count in its row
+        runs = (("sample", path), ("train", train), ("test", test),
+                ("data", data), ("point_ops", point_ops),
+                ("sample_bf16", path_bf16), ("test_bf16", test_bf16),
+                ("train_bf16", train_bf16), ("parallel", par))
+        by_route = {n: sum(r["launches"].get(n, 0) for _, r in runs)
+                    for n in (name,) + ROUTES.get(name, ())}
+        by_path = {p: sum(r["launches"].get(n, 0) for n in by_route)
+                   for p, r in runs}
         require(sum(by_path.values()) > 0, f"{name} never launched")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -4401,9 +4572,12 @@ def main(argv=None) -> int:
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if len(by_route) > 1:
+            kernels[-1]["launches_by_route"] = by_route
         for extra in ("cdist_topk_ms", "sub_yardstick", "largest_call",
                       "kink_share", "graph_ms", "body_tflops",
-                      "library_out_dtype_ms", "tflops", "stage1"):
+                      "library_out_dtype_ms", "tflops", "stage1",
+                      "host_ms", "wide_k"):
             if extra in t:
                 kernels[-1][extra] = t[extra]
         log(f"  {name} ({t['shape']}): {t['ms']:.3f} ms, plain "

@@ -3,14 +3,16 @@
 // memory: its address, bulk copies into it, arrivals on its barriers), TMA
 // tile loads (cp.async.bulk.tensor, 2-D and 3-D) and the tensor maps that
 // describe their tiles, the generic-to-async proxy fence, warpgroup
-// products (wgmma m64nNk16, N = 64, 128 or 256, bf16 operands, fp32
+// products (wgmma m64nNk16, N = 8, 64, 80, 128 or 256, bf16 operands, fp32
 // accumulation) on swizzled shared tiles, a slab at a time (wgmma_slab),
 // and one product kernel on them (product_bf16_kernel: A^T B over a long
 // depth with both operands MN-major, or A B^T K-major). Used by the bf16
 // edge head (edge_head.cu: the ring, wgmma_slab), bf16 slot stats
 // (slot_stats.cu), the bf16 gated tail (bilateral_tail.cu: the ring's
-// indexing for its wi stages, clusters, wgmma_slab) and the bf16 head
-// backward (edge_head_bwd.cu: the ring, wgmma_bf16, product_bf16_kernel).
+// indexing for its wi stages, clusters, wgmma_slab), the bf16 head
+// backward (edge_head_bwd.cu: the ring, wgmma_bf16, product_bf16_kernel)
+// and the bf16 gated tail backward (bilateral_tail_bwd.cu: the ring,
+// wgmma_bf16 at N = 8, wgmma_slab at N = 80 and 128, product_bf16_kernel).
 //
 // Two shared-memory layouts here, rows of bf16 whose 16-byte granules are
 // permuted by the row (the XOR of address bits 4-6, or 4-5, with bits 7-9,
@@ -27,6 +29,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -263,13 +266,15 @@ __device__ __forceinline__ int swizzle_row(int r) { return r & 7; }
 __device__ __forceinline__ int swizzle64_row(int r) { return (r >> 1) & 3; }
 
 // descriptor of a K-major swizzled bf16 tile (see above): start address,
-// leading offset 16 bytes (unused by this layout), 1024 bytes between
-// 8-row groups, layout 1 (128-byte swizzle). A k16 step further along the
-// rows adds 32 bytes: 2 to the descriptor.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+// leading offset 16 bytes (unused by this layout), sbo bytes between the
+// 8-row groups it reads (1024: every group; 2048: every other one), layout
+// 1 (128-byte swizzle). A k16 step further along the rows adds 32 bytes: 2
+// to the descriptor.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile,
+                                              uint32_t sbo = 1024) {
   const uint64_t a = smem_u32(tile);
-  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) |
-         (1ull << 62);
+  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
 // the same for a K-major tile of 64-byte rows in the 64-byte swizzle: 512
@@ -320,20 +325,30 @@ constexpr int kDescStep = kTrans ? 128 : 2;
 
 // d (64 x N, fp32) = A (64 x 16) B (16 x N) + (scale_d ? d : 0), bf16 A and
 // B in shared memory (descriptors da, db), read K-major, or MN-major where
-// TA (TB) is 1; N = 64, 128 or 256. The warpgroup's thread 32w + 4g + t
+// TA (TB) is 1; N = 8, 64, 80, 128 or 256. The warpgroup's thread 32w + 4g + t
 // holds rows 16w + g (d[4i], d[4i+1]) and 16w + g + 8 (d[4i+2], d[4i+3])
 // of columns 8i + 2t, 8i + 2t + 1.
 template <int N, int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
                                            uint64_t db, int scale_d) {
-  static_assert(N == 64 || N == 128 || N == 256, "wgmma_bf16: N");
+  static_assert(N == 8 || N == 64 || N == 80 || N == 128 || N == 256,
+                "wgmma_bf16: N");
+  if constexpr (N == 8) {
+    asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %6, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
   if constexpr (N == 64) {
     asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
       "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -344,16 +359,33 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
+  if constexpr (N == 80) {
+    asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %42, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, %43, %44;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
   if constexpr (N == 128) {
     asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -374,17 +406,17 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
     asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
-      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
-      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
-      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
-      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127"
       "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -406,16 +438,14 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
         "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
         "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
-
 }
 
 // The products of one slab of KS k16 steps, d (64 x N) += A B, the
@@ -479,6 +509,7 @@ struct ProductArgs {
   int a_slot_g;
   float* out;    // kMN: (gridDim.z, groups * M, N); K-major: (M, ldo)
   int ldo;
+  __nv_bfloat16* out_bf16;  // K-major: D rounded to bf16 here, not out
 };
 
 template <bool kMN>
@@ -561,6 +592,17 @@ product_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
     if (r >= a.M) continue;
+    if (!kMN && a.out_bf16 != nullptr) {
+      __nv_bfloat16* o = a.out_bf16 + (size_t)r * a.ldo;
+#pragma unroll
+      for (int i = 0; i < kPN / 8; ++i) {
+        const int c = n0 + 8 * i + 2 * t;
+        if (c < a.N)
+          *reinterpret_cast<__nv_bfloat162*>(o + c) = __floats2bfloat162_rn(
+              acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]);
+      }
+      continue;
+    }
     float* o = kMN ? a.out + ((size_t)blockIdx.z * a.groups * a.M +
                               (size_t)g * a.M + r) * a.N
                    : a.out + (size_t)r * a.ldo;
@@ -650,13 +692,14 @@ inline cudaError_t bf16_tile_map(
 
 // A 3-D bf16 tensor (d0 innermost, d1, d2) with strides s1, s2 elements
 // (each times 2 a multiple of 16, base 16-byte aligned), as boxes of b0 x
-// b1 x b2 in the 128-byte swizzle (b0 * 2 <= 128); elements outside the
-// tensor read as zeros. A view of rows of (d1, d0) blocks whose boxes are
-// one block deep (b1 = 1) reads row r0..r0+b2-1 of block j at (c0, j, r0).
-inline cudaError_t bf16_tile_map_3d(CUtensorMap* map, const void* base,
-                                    long long d0, long long d1, long long d2,
-                                    long long s1, long long s2, int b0,
-                                    int b1, int b2) {
+// b1 x b2 in the 128-byte swizzle (b0 * 2 <= 128; or, swizzle NONE, dense
+// boxes, b0 * 2 a multiple of 16); elements outside the tensor read as
+// zeros. A view of rows of (d1, d0) blocks whose boxes are one block deep
+// (b1 = 1) reads row r0..r0+b2-1 of block j at (c0, j, r0).
+inline cudaError_t bf16_tile_map_3d(
+    CUtensorMap* map, const void* base, long long d0, long long d1,
+    long long d2, long long s1, long long s2, int b0, int b1, int b2,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1,
@@ -666,8 +709,8 @@ inline cudaError_t bf16_tile_map_3d(CUtensorMap* map, const void* base,
   const cuuint32_t estr[3] = {1, 1, 1};
   const CUresult r =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -56,6 +56,8 @@ _SIGNATURES = {
                                + [_P] * 8 + [_P] * 13 + [_I] * 6 + [_P],
     "pdgn_bilateral_tail_bwd": [_P] * 12 + [_I] * 8 + [_P] * 12 + [_P],
     "pdgn_bilateral_tail_bwd_bf16": [_P] * 11 + [_I] * 8 + [_P] * 12 + [_P],
+    "pdgn_bilateral_tail_gated_bwd_bf16": [_P] * 11 + [_I] * 11 + [_P] * 11
+                                          + [_P],
     "pdgn_local_stats_fwd": [_P, _P, _I, _I, _I, _I] + [_P] * 5 + [_P],
     "pdgn_local_stats_bwd": [_P] * 7 + [_I] * 4 + [_P, _P],
     "pdgn_emd_cd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,

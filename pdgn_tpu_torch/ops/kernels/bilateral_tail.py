@@ -300,16 +300,57 @@ def tail_bwd_kernel(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi, dy,
     return out + (g[:, :K],) if keep_g else out
 
 
+# the widest k of the fused bf16 gated backward (tail_bwd_bf16_kernel: k
+# slots of 16 channels, N = 16 k <= 256 columns of one wgmma; kTbFastK in
+# csrc/bilateral_tail_bwd.cu); wider k stays on the core's chain, which
+# took 13.7 ms at stage 4, B=35, k = 18 where slot chunks on the fused
+# kernel took 22.3 (NVIDIA H100 80GB HBM3, 700 W)
+TAIL_BWD_FAST_K = 16
+
+
+def tail_bwd_splits_bf16(rows: int, k: int, two_fin: int, two_f: int,
+                         sms: int):
+    """The row splits of the bf16 gated backward's two weight products on
+    ``product_bf16_kernel`` (``d_wi = g^T dy``: K x 2F over ``rows``;
+    ``d_w2k = h^T dv``: 64 x ldv over ``rows * k``) on a card of ``sms``
+    SMs: output tiles of 128 x 256, stages of 64 rows."""
+    K, ldv = k * two_fin, _lib.up8(two_fin)
+    split = _lib.product_splits
+    return (split(-(-K // 128) * -(-two_f // 256), -(-rows // 64), sms),
+            split(-(-ldv // 256), -(-rows * k // 64), sms))
+
+
+def pack_tail_bwd_weights_bf16(wi, w2k, two_f: int):
+    """The bf16 gated backward's weights as its TMA boxes read them: ``wi
+    (K, 2F)`` in bf16 with zero columns up to ``t8 = up8(2F)`` (``(K,
+    t8)``: row ``s * 2Fin + c`` is the B row of slot s, channel c, K-major
+    over 2F as it lies), and ``w2k^T`` in bf16 with zero rows up to ``ldv =
+    up8(2Fin)`` (``(ldv, 64)``: the logits' B rows, one a channel)."""
+    pad = torch.nn.functional.pad
+    two_fin = w2k.shape[1]
+    wi_p = pad(wi.to(torch.bfloat16), (0, _lib.up8(two_f) - two_f))
+    w2k_t = pad(w2k.to(torch.bfloat16).T, (0, 0, 0,
+                                            _lib.up8(two_fin) - two_fin))
+    return wi_p.contiguous(), w2k_t.contiguous()
+
+
 def tail_bwd_kernel_bf16(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
                          dy, k: int, softmax: bool, keep_g: bool = False,
                          keep_dv: bool = False):
-    """Launch ``pdgn_bilateral_tail_bwd_bf16``: bf16 ``inte``, ``h`` and
-    ``dy`` (the bf16 tail's cotangent); ``w2k`` and ``wi`` (fp32 or bf16)
-    rounded to bf16 here. Same returns as :func:`tail_bwd_kernel`:
-    ``d_partial`` the fp32 upcast of ``dy``, ``d_inte`` and ``d_h`` in bf16,
-    the rest fp32; ``keep_g`` appends the bf16 ``g`` of the d_wi product
-    and ``keep_dv`` (gated) the bf16 ``dv (B*N, k, 2Fin)`` of the d_h and
-    d_w2k products. Operands padded to 8 bf16 (16 bytes)."""
+    """Launch the bf16 backward: bf16 ``inte``, ``h`` and ``dy`` (the bf16
+    tail's cotangent); ``w2k`` and ``wi`` (fp32 or bf16) rounded to bf16
+    here. Same returns as :func:`tail_bwd_kernel`: ``d_partial`` the fp32
+    upcast of ``dy``, ``d_inte`` and ``d_h`` in bf16, the rest fp32;
+    ``keep_g`` appends the bf16 ``g`` of the d_wi product and ``keep_dv``
+    (gated) the bf16 ``dv (B*N, k, 2Fin)`` of the d_h and d_w2k products.
+    Operands padded to 8 bf16 (16 bytes).
+
+    The gated stage at k <= ``TAIL_BWD_FAST_K`` is
+    ``pdgn_bilateral_tail_gated_bwd_bf16``: dg and the gate walk in one
+    launch that writes no dg, ``wi`` as it lies (``(K, t8)``, K-major for
+    the product), then the weight gradients on ``product_bf16_kernel``.
+    The plain stage, and the gated stage at wider k (counted apart), are
+    ``pdgn_bilateral_tail_bwd_bf16`` on the core, with dg in fp32."""
     bf = torch.bfloat16
     if dy.dtype != bf:
         raise TypeError(f"tail bwd bf16: dy must be bfloat16, got {dy.dtype}")
@@ -329,42 +370,70 @@ def tail_bwd_kernel_bf16(inte_flat, h_flat, isc, ish, w2k, w2b, s2, t2, wi,
     h_flat = None if h_flat is None else _lib.aligned(h_flat)
     dy_p = _lib.aligned(pad(dy.reshape(rows, two_f), (0, t8 - two_f))
                         .contiguous())
-    wi_t = _lib.aligned(pad(wi.T.to(bf), (0, ldg - K, 0, t8 - two_f))
-                        .contiguous())
     d_inte = torch.empty_like(inte_flat)
-    d_wi = torch.empty(ldg, two_f, **f32)
     d_bias = torch.empty(two_f, **f32)
     g = torch.empty(rows, ldg, device=dev, dtype=bf)
-    dg = torch.empty(rows, ldg, **f32)
     colsum = torch.empty(-(-rows // 256), two_f, **f32)
-    split = _lib.TN_SPLIT_ROWS
-    tn = -(-rows // split) * ldg * two_f
-    if gated:
-        w2k_b = w2k.to(bf).contiguous()
-        w2k_t = _lib.aligned(pad(w2k_b.T, (0, 0, 0, ldv - two_fin))
-                             .contiguous())
-        d_h = torch.empty_like(h_flat)
-        d_w2k = torch.empty(w2k.shape, **f32)
-        dv = torch.empty(rows * k, ldv, device=dev, dtype=bf)
-        tn = max(tn, -(-rows * k // split) * 64 * two_fin)
-        sums = torch.empty(7 * two_fin, **f32)
-        blocks = min(-(-rows // 16), _lib.MAX_GRID_Y)
-        sum_scratch = torch.empty(blocks, 7 * two_fin, **f32)
-    else:
-        w2k_b = w2k_t = d_h = d_w2k = dv = None
-        sums = torch.empty(2 * four_fin, **f32)
-        sum_scratch = torch.empty(-(-rows * hk // 64), 2 * four_fin, **f32)
-    tn_scratch = torch.empty(tn, **f32)
     p = _lib.ptr
-    _lib.check(_lib.library().pdgn_bilateral_tail_bwd_bf16(
-        p(inte_flat), p(h_flat), p(isc), p(ish), p(w2k_b), p(w2k_t), p(w2b),
-        p(s2), p(t2), p(wi_t), p(dy_p), rows, k, two_fin, two_f, ldg, t8,
-        ldv, int(softmax), p(d_inte), p(d_h), p(d_w2k), p(d_wi), p(d_bias),
-        p(sums), p(g), p(dg), p(dv), p(tn_scratch), p(sum_scratch),
-        p(colsum), _lib.stream_handle(dev)), "pdgn_bilateral_tail_bwd_bf16")
-    _lib.LAUNCHES["bilateral_tail_gated_bwd_bf16" if gated
-                  else "bilateral_tail_plain_bwd_bf16"] += 1
-    d_wi = d_wi[:K]
+    if gated and k <= TAIL_BWD_FAST_K:
+        wi_p, w2k_t = map(_lib.aligned,
+                          pack_tail_bwd_weights_bf16(wi, w2k, two_f))
+        w2k_p = _lib.aligned(w2k_t.T.contiguous())
+        d_h = torch.empty_like(h_flat)
+        d_w2k = torch.empty(64, ldv, **f32)
+        d_wi = torch.empty(K, two_f, **f32)
+        dv = torch.empty(rows * k, ldv, device=dev, dtype=bf)
+        sums = torch.empty(7 * two_fin, **f32)
+        sum_scratch = torch.empty(-(-rows // 64), 7 * two_fin, **f32)
+        sms = _lib.sm_count(dev)
+        split_wi, split_w2k = tail_bwd_splits_bf16(rows, k, two_fin, two_f,
+                                                   sms)
+        part = torch.empty(max(split_wi * K * two_f, split_w2k * 64 * ldv),
+                           **f32)
+        _lib.check(_lib.library().pdgn_bilateral_tail_gated_bwd_bf16(
+            p(inte_flat), p(h_flat), p(isc), p(ish), p(w2k_t), p(w2b),
+            p(s2), p(t2), p(wi_p), p(w2k_p), p(dy_p), rows, k, two_fin,
+            two_f, ldg, t8, ldv, int(softmax), split_wi, split_w2k, sms,
+            p(d_inte), p(d_h), p(d_w2k), p(d_wi), p(d_bias), p(sums), p(g),
+            p(dv), p(part), p(sum_scratch), p(colsum),
+            _lib.stream_handle(dev)), "pdgn_bilateral_tail_gated_bwd_bf16")
+        _lib.LAUNCHES["bilateral_tail_gated_bwd_bf16"] += 1
+        if ldv != two_fin:
+            d_w2k = d_w2k[:, :two_fin].contiguous()
+    else:
+        wi_t = _lib.aligned(pad(wi.T.to(bf), (0, ldg - K, 0, t8 - two_f))
+                            .contiguous())
+        d_wi = torch.empty(ldg, two_f, **f32)
+        dg = torch.empty(rows, ldg, **f32)
+        split = _lib.TN_SPLIT_ROWS
+        tn = -(-rows // split) * ldg * two_f
+        if gated:
+            w2k_b = w2k.to(bf).contiguous()
+            w2k_t = _lib.aligned(pad(w2k_b.T, (0, 0, 0, ldv - two_fin))
+                                 .contiguous())
+            d_h = torch.empty_like(h_flat)
+            d_w2k = torch.empty(w2k.shape, **f32)
+            dv = torch.empty(rows * k, ldv, device=dev, dtype=bf)
+            tn = max(tn, -(-rows * k // split) * 64 * two_fin)
+            sums = torch.empty(7 * two_fin, **f32)
+            blocks = min(-(-rows // 16), _lib.MAX_GRID_Y)
+            sum_scratch = torch.empty(blocks, 7 * two_fin, **f32)
+        else:
+            w2k_b = w2k_t = d_h = d_w2k = dv = None
+            sums = torch.empty(2 * four_fin, **f32)
+            sum_scratch = torch.empty(-(-rows * hk // 64), 2 * four_fin,
+                                      **f32)
+        tn_scratch = torch.empty(tn, **f32)
+        _lib.check(_lib.library().pdgn_bilateral_tail_bwd_bf16(
+            p(inte_flat), p(h_flat), p(isc), p(ish), p(w2k_b), p(w2k_t),
+            p(w2b), p(s2), p(t2), p(wi_t), p(dy_p), rows, k, two_fin, two_f,
+            ldg, t8, ldv, int(softmax), p(d_inte), p(d_h), p(d_w2k), p(d_wi),
+            p(d_bias), p(sums), p(g), p(dg), p(dv), p(tn_scratch),
+            p(sum_scratch), p(colsum), _lib.stream_handle(dev)),
+            "pdgn_bilateral_tail_bwd_bf16")
+        _lib.LAUNCHES["bilateral_tail_gated_bwd_wide_bf16" if gated
+                      else "bilateral_tail_plain_bwd_bf16"] += 1
+        d_wi = d_wi[:K]
     d_isc, d_ish = sums[:four_fin], sums[four_fin:2 * four_fin]
     d_partial = dy.float()
     if not gated:

@@ -9,21 +9,25 @@ clouds), or with ``--test`` whole test phases (``PDGNTrainer.test(tile=64)``
 on ``--clouds`` synthetic clouds, sampled in batches of ``--batch``), or
 with ``--local-stats`` the backward of each of the shape loss's 9
 ``local_mean_cov`` calls of a train step alone (``torch.autograd.grad``
-through the public entry, so any checkout's kernels), after one warm-up
-iteration. ``--compute_dtype bfloat16`` builds the generator in bf16: the
-sampler's (the bf16 instances of the forward kernels) or, with
+through the public entry, so any checkout's kernels), or with
+``--tail-bwd`` the gated tail backward alone at the train step's stages
+2, 3 and 4 (``tail_bwd_kernel`` on ``chip_smoke.tail_inputs``, k = 10;
+each launch of the call listed in order with its device time, and the
+host time of a call), after one
+warm-up iteration. ``--compute_dtype bfloat16`` builds the generator in
+bf16: the sampler's (the bf16 instances of the forward kernels) or, with
 ``--train``, the trainer's (``compute_dtype="bfloat16"``: the bf16
 instances forward and backward, fp32 discriminators). ``--group`` makes
 the train step's trainer the one rank of an NCCL group
 (``pdgn_tpu_torch.parallel``: global batch statistics and summed gradients
 through ``all_reduce``, which a group of one leaves as they are). Prints,
-per CUDA
-kernel
-name, its device time per
-iteration and share, plus the iteration's wall time and the share of it in
-which the device ran no kernel (negative if the kernel events overlap or are
-counted twice), and the host operators with the most time of their own. With ``--wall`` it runs no profiler and prints each
-iteration's wall time (synchronised) and iterations per second instead:
+per CUDA kernel name, its device time per iteration and share, plus the
+iteration's wall time and the share of it in which the device ran no
+kernel (negative if the kernel events overlap or are counted twice), the
+host operators with the most time of their own, and the whole host time
+of each backward node of the port's autograd Functions
+(``_TailBackward``: the tail backward's wrapper and launches). With
+``--wall`` it runs no profiler and prints each iteration's wall time (synchronised) and iterations per second instead:
 iterations/s of two checkouts compared in one call (this script copied into
 the other checkout's root imports that checkout's package). Needs a CUDA
 card; run from the root of the repository::
@@ -36,6 +40,8 @@ card; run from the root of the repository::
     python3 profile_torch_sample.py --train --batch 35 --reps 5 --group
     python3 profile_torch_sample.py --test --batch 35 --clouds 64 --reps 2
     python3 profile_torch_sample.py --local-stats --batch 35 --reps 20
+    python3 profile_torch_sample.py --tail-bwd --batch 35 --reps 20 \
+        --compute_dtype bfloat16
 """
 
 from __future__ import annotations
@@ -154,6 +160,54 @@ def profile_local_stats(batch: int, reps: int, seed: int) -> dict:
                                  for c in calls), "calls": calls}
 
 
+def profile_tail_bwd(batch: int, reps: int, seed: int, bf16: bool) -> dict:
+    """The gated tail backward alone at stages 2-4 (``chip_smoke``'s seeded
+    operands, k = 10, a bf16 cotangent for the bf16 instance): each stage's
+    profile, and the device time of each of its launches in launch order."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    from chip_smoke import K, host_ms, tail_bf16, tail_inputs
+    from pdgn_tpu_torch.ops.kernels.bilateral_tail import tail_bwd_kernel
+    from pdgn_tpu_torch.utils.misc import resolve_device
+
+    dev = resolve_device("cuda")
+    rng = torch.Generator(device=dev).manual_seed(seed)
+    stages = []
+    for stage in (2, 3, 4):
+        args = tail_inputs(stage, batch, True, rng, dev)
+        if bf16:
+            args = tail_bf16(args)
+        dy = torch.randn(*args[0].shape, generator=rng, device=dev)
+        if bf16:
+            dy = dy.to(torch.bfloat16)
+        run = (lambda args=args, dy=dy:
+               tail_bwd_kernel(*args[1:10], dy, K, True))
+        run()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        kern = sorted((ev for ev in prof.events()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA
+                       and ev.device_time_total > 0),
+                      key=lambda ev: ev.time_range.start)
+        per = len(kern) // reps
+        launches = [{"name": kern[i].name,
+                     "ms": sum(kern[i + j * per].device_time_total
+                               for j in range(reps)) / reps / 1e3}
+                    for i in range(per)]
+        stages.append({"stage": stage, "launches": launches,
+                       "device_ms": sum(x["ms"] for x in launches),
+                       "host_ms": host_ms(run, reps)})
+        del args, dy
+    return {"card": torch.cuda.get_device_name(0), "batch": batch,
+            "iteration": "gated tail backward", "reps": reps,
+            "dtype": "bfloat16" if bf16 else "float32", "stages": stages}
+
+
 def profile(batch: int, reps: int, seed: int, train: bool = False,
             test: bool = False, clouds: int = 64, wall: bool = False,
             bf16: bool = False, group: bool = False) -> dict:
@@ -207,11 +261,16 @@ def profile_iteration(iteration, batch: int, reps: int, kind: str) -> dict:
             iteration()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    rows, host = [], []
+    rows, host, nodes = [], [], []
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CPU:
             host.append((ev.key, ev.self_cpu_time_total / reps / 1e3,
                          ev.count // reps))
+            # the port's autograd Functions' backward nodes (_TailBackward,
+            # ...): their whole host time, the calls inside included
+            if ev.key.startswith("_") and ev.key.endswith("Backward"):
+                nodes.append((ev.key, ev.cpu_time_total / reps / 1e3,
+                              ev.count // reps))
         # device-side kernel events only (the aten ops that launched them
         # carry the same time again)
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -222,6 +281,7 @@ def profile_iteration(iteration, batch: int, reps: int, kind: str) -> dict:
             rows.append((ev.key, dev_us / reps / 1e3, ev.count // reps))
     rows.sort(key=lambda r: -r[1])
     host.sort(key=lambda r: -r[1])
+    nodes.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     wall_ms = wall_s / reps * 1e3
     return {"card": torch.cuda.get_device_name(0), "batch": batch,
@@ -234,7 +294,10 @@ def profile_iteration(iteration, batch: int, reps: int, kind: str) -> dict:
                          "calls_per_iteration": c} for n, ms, c in rows],
             "host_ops": [{"name": n, "self_ms_per_iteration": ms,
                           "calls_per_iteration": c}
-                         for n, ms, c in host[:20]]}
+                         for n, ms, c in host[:20]],
+            "backward_nodes": [{"name": n, "host_ms_per_iteration": ms,
+                                "calls_per_iteration": c}
+                               for n, ms, c in nodes]}
 
 
 def print_breakdown(res: dict) -> None:
@@ -248,6 +311,12 @@ def print_breakdown(res: dict) -> None:
     print("host operators, self time:")
     for k in res.get("host_ops", [])[:15]:
         print(f"{k['self_ms_per_iteration']:10.4f} ms "
+              f"x{k['calls_per_iteration']:<4d} {k['name'][:110]}")
+    if res.get("backward_nodes"):
+        print("backward nodes of the port's autograd Functions, host time "
+              "with their calls:")
+    for k in res.get("backward_nodes", []):
+        print(f"{k['host_ms_per_iteration']:10.4f} ms "
               f"x{k['calls_per_iteration']:<4d} {k['name'][:110]}")
 
 
@@ -268,6 +337,9 @@ def main(argv=None) -> None:
     ap.add_argument("--local-stats", action="store_true",
                     help="profile the backward of each of the shape loss's "
                          "9 local_mean_cov calls alone")
+    ap.add_argument("--tail-bwd", action="store_true",
+                    help="profile the gated tail backward alone at stages "
+                         "2-4, each launch in order")
     ap.add_argument("--compute_dtype", default="float32",
                     choices=["float32", "bfloat16"],
                     help="the generator's dtype (the sampler's, or "
@@ -285,6 +357,8 @@ def main(argv=None) -> None:
                  "train steps only")
     if args.local_stats:
         res = profile_local_stats(args.batch, args.reps, args.seed)
+    elif args.tail_bwd:
+        res = profile_tail_bwd(args.batch, args.reps, args.seed, bf16)
     else:
         res = profile(args.batch, args.reps, args.seed, args.train,
                       args.test, args.clouds, args.wall, bf16, args.group)
@@ -293,6 +367,14 @@ def main(argv=None) -> None:
             print_breakdown(call)
         print(f"{res['card']}: B={res['batch']}, the 9 backwards' device "
               f"time summed {res['device_ms_sum']:.4f} ms")
+    elif args.tail_bwd:
+        for st in res["stages"]:
+            print(f"{res['card']}: {res['dtype']} gated tail backward, "
+                  f"stage {st['stage']}, B={res['batch']}: device "
+                  f"{st['device_ms']:.4f} ms in {len(st['launches'])} "
+                  f"launches, host {st['host_ms']:.4f} ms a call")
+            for ln in st["launches"]:
+                print(f"{ln['ms']:10.4f} ms  {ln['name'][:110]}")
     elif args.wall:
         secs = sorted(res["iteration_seconds"])
         print(f"{res['card']}: B={res['batch']}, {res['reps']} "

@@ -71,7 +71,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import perturb_bn, rel, t
+from torch_port_util import one_torch_thread, perturb_bn, rel, t  # noqa: F401
 from test_torch_train_step import (B, BASE, KEY, SIZES,
                                    _direct_local_stats, _jax_graphs)
 

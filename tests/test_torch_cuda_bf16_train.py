@@ -26,7 +26,8 @@ import torch
 from torch_port_util import bf16_ulps
 
 from pdgn_tpu_torch.ops.kernels import _lib
-from pdgn_tpu_torch.ops.kernels.bilateral_tail import (kink_mask,
+from pdgn_tpu_torch.ops.kernels.bilateral_tail import (TAIL_BWD_FAST_K,
+                                                       kink_mask,
                                                        tail_bwd_kernel_bf16,
                                                        tail_bwd_plain_bf16)
 from pdgn_tpu_torch.ops.kernels.edge_head import (edge_head,
@@ -164,14 +165,18 @@ def test_bf16_head_bwd_hub_rows(dev, N, C, four_fin, two_f, gated):
     (True, 10, 12, 37, None, None), (False, 10, 8, 37, None, None),
     (True, 18, 12, 37, None, None), (True, 126, 4, 37, None, None),
     (False, 30, 8, 37, None, None), (True, 10, 0, 135, 130, 66),
-    (False, 10, 0, 135, 130, 66)])
+    (False, 10, 0, 135, 130, 66),
+    (True, 34, 12, 37, None, None),       # the core's chain past k = 16
+    (True, 14, 0, 37, 130, 66),           # the fast route, 16 slots
+    (True, 10, 64, 256, None, None)])     # stage 2's widths
 def test_bf16_tail_bwd_matches_plain(dev, gated, k, fin, N, four_fin, two_f):
     """Each rounded operand (d_inte, the d_wi operand g, the d_h and d_w2k
     operand dv) within 2 ulps of the plain version's, dv on the (point,
     slot) rows free of kinks; each product against the float64 product of
     the kernel's own operands (d_h within 1 ulp, d_wi and d_w2k rel <=
     1e-4); the sums rel <= 1e-4 of the plain version's (chip_smoke phase
-    2bt's rule)."""
+    2bt's rule). The gated stage counts its fused kernel (k <= 16) and the
+    core's chain at wider k under their own names."""
     g = torch.Generator(device=dev).manual_seed(k * fin + N)
     B = 2
     four_fin = four_fin or 4 * fin
@@ -190,7 +195,9 @@ def test_bf16_tail_bwd_matches_plain(dev, gated, k, fin, N, four_fin, two_f):
             r(two_fin) * 0.1 if gated else None,
             r(hk * four_fin, two_f) * 0.05]
     dy = r(B, N, two_f).to(BF)
-    name = "bilateral_tail_" + ("gated" if gated else "plain") + "_bwd_bf16"
+    wide = gated and k > TAIL_BWD_FAST_K
+    name = ("bilateral_tail_" + ("gated" if gated else "plain") + "_bwd"
+            + ("_wide" if wide else "") + "_bf16")
     before = _lib.LAUNCHES[name]
     keep = dict(keep_g=True, keep_dv=True)
     got = tail_bwd_kernel_bf16(*args, dy, k, True, **keep)

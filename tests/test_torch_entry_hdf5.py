@@ -9,6 +9,7 @@ import torch
 
 from torch_entry_util import (LOG_LINE, PKG, RESULT_LINE, _h5_args,
                               tiny_h5)  # noqa: F401 (a fixture)
+from torch_port_util import one_torch_thread  # noqa: F401
 
 from pdgn_tpu_torch import cli
 from pdgn_tpu_torch.ops.kernels import _lib

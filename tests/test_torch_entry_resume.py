@@ -4,6 +4,7 @@ earlier run on the CPU: the saved epoch and Adam's state go on."""
 import torch
 
 from torch_entry_util import _train_args
+from torch_port_util import one_torch_thread  # noqa: F401
 
 from pdgn_tpu_torch import cli
 

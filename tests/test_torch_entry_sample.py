@@ -15,7 +15,7 @@ import torch
 
 from torch_entry_util import (RESULT_LINE, ROOT, SMALL, _cli_args,
                               _save_reference_format)
-from torch_port_util import rel
+from torch_port_util import one_torch_thread, rel  # noqa: F401
 
 from pdgn_tpu_torch import cli
 from pdgn_tpu_torch.models.generator import PointGenerator

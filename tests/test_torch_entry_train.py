@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from torch_entry_util import LOG_LINE, SMALL, _cli_args, _train_args
+from torch_port_util import one_torch_thread  # noqa: F401
 
 from pdgn_tpu_torch import cli
 from pdgn_tpu_torch.models.generator import PointGenerator
